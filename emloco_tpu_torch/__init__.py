@@ -8,8 +8,9 @@ Subpackages
 -----------
 ops          quaternion / rotation algebra on tensors
 kinematics   skeleton tree, forward kinematics, body model, motion library
-physics      reduced-coordinate engine (default TGS path), terrain, the
-             block-arrow Cholesky kernels' wrappers and plain versions
+physics      reduced-coordinate engine (TGS and implicit substeps, env-last
+             or batch-major), terrain, the solver kernels' wrappers and
+             plain versions
 envs         pedestrian-terrain env: reset, observe, step
 learning     running normalization, the AMPSept actor
 csrc         the CUDA kernels; build.py compiles them with nvcc at first use

@@ -2,9 +2,11 @@
 
 The sources in csrc/ have a plain C interface and include no PyTorch header,
 so nvcc builds them in seconds (PyTorch's cpp_extension builder would pull in
-its headers and take minutes). The library lands in `build/` at the root of
-the checkout, under a directory named by a hash of the sources and flags, and
-is built at first use; a missing nvcc or a failed build raises.
+its headers and take minutes). One nvcc per source runs at the same time,
+then one more links the objects into a single library. It lands in `build/`
+at the root of the checkout, under a directory named by a hash of the
+sources, headers and flags, and is built at first use; a missing nvcc or a
+failed build raises.
 """
 from __future__ import annotations
 
@@ -17,10 +19,15 @@ import tempfile
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 _ROOT = os.path.dirname(_PKG)
-SOURCES = (os.path.join(_PKG, "csrc", "block_arrow_cholesky.cu"),)
+_CSRC = os.path.join(_PKG, "csrc")
+SOURCES = tuple(os.path.join(_CSRC, f) for f in (
+    "block_arrow_cholesky.cu", "block_arrow_solve.cu", "dense_cholesky.cu",
+    "to_env_last.cu"))
+HEADERS = (os.path.join(_CSRC, "block_arrow.cuh"),)
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 # -fmad=false: the kernels repeat their plain versions' roundings exactly
-FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-         "-shared", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v")
+FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-fmad=false",
+         "-Xptxas", "-v")
 LIB_NAME = "libemloco_kernels.so"
 
 _VP = ctypes.c_void_p
@@ -30,6 +37,13 @@ _SIGNATURES = {
         [_VP, _VP, _INT, _INT, _VP, _INT, _VP, _INT, _VP],
     "emloco_block_arrow_resolve":
         [_VP, _VP, _VP, _VP, _INT, _INT, _VP, _INT, _VP, _INT, _VP],
+    "emloco_block_arrow_solve":
+        [_VP, _VP, _VP, _VP, _VP, _INT, _INT, _VP, _INT, _VP, _INT, _VP],
+    "emloco_block_arrow_resolve_bm":
+        [_VP, _VP, _VP, _VP, _INT, _INT, _VP, _INT, _VP, _INT, _VP],
+    "emloco_dense_cholesky_solve":
+        [_VP, _VP, _VP, _VP, _INT, _INT, _VP],
+    "emloco_to_env_last": [_VP, _VP, _INT, _INT, _INT, _VP],
 }
 
 _loaded = {}
@@ -50,7 +64,7 @@ def nvcc_path() -> str:
 
 def _tag() -> str:
     h = hashlib.sha256()
-    for src in SOURCES:
+    for src in (*SOURCES, *HEADERS):
         with open(src, "rb") as f:
             h.update(f.read())
     h.update(" ".join(FLAGS).encode())
@@ -65,16 +79,31 @@ def build() -> tuple[str, str]:
     if os.path.exists(lib_path):
         return lib_path, ""
     os.makedirs(out_dir, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [nvcc_path(), *FLAGS, "-o", tmp, *SOURCES]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, lib_path)
-    return lib_path, proc.stdout + proc.stderr
+    nvcc = nvcc_path()
+    work = tempfile.mkdtemp(dir=out_dir)
+    try:
+        objs = [os.path.join(work, os.path.basename(src) + ".o")
+                for src in SOURCES]
+        cmds = [[nvcc, *FLAGS, "-c", "-o", obj, src]
+                for src, obj in zip(SOURCES, objs)]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for cmd in cmds]
+        log = [(cmd, proc.communicate()[0], proc.returncode)
+               for cmd, proc in zip(cmds, procs)]
+        tmp = os.path.join(work, LIB_NAME)
+        link = [nvcc, *ARCH, "-shared", "-o", tmp, *objs]
+        if all(rc == 0 for _, _, rc in log):
+            proc = subprocess.run(link, capture_output=True, text=True)
+            log.append((link, proc.stdout + proc.stderr, proc.returncode))
+        failed = [(cmd, out, rc) for cmd, out, rc in log if rc != 0]
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(
+                f"({rc}) {' '.join(cmd)}\n{out}" for cmd, out, rc in failed))
+        os.replace(tmp, lib_path)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return lib_path, "".join(out for _, out, _ in log)
 
 
 def load() -> ctypes.CDLL:

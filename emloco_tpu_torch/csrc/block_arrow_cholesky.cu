@@ -9,26 +9,9 @@
 //       (_chol_resolve_blocked_kernel, _permute_vec_in/_out,
 //        _triangular_solves)
 //
-// Layout. A, L are (M, M, N) and b, x are (M, N), row-major with the env
-// axis N last: element (i, j) of env e sits at (i*M + j)*N + e. Thread e of
-// a block owns env e, so a warp's 32 loads of one matrix element are 128
-// contiguous bytes (one coalesced transaction) — the same "env on lanes"
-// layout the TPU kernel used, mapped onto threads.
-//
-// Structure. The reduced-coordinate matrix is block-arrow once its DoFs are
-// ordered limbs-first: dense limb blocks on the diagonal, couplings only into
-// a trailing shared block, zero between limbs. The permutation (perm[new] =
-// old DoF) and the block bounds (limbs, s_lo) come from the caller, derived
-// from the kinematic tree (emloco_tpu_torch/physics/reduced.py _arrow_blocks);
-// nothing here is specific to the humanoid. A factorization in that order
-// has no fill-in, so each column updates only rest-of-limb + shared rows.
-//
-// Numerics. The kernels do the plain PyTorch versions' operations
-// (emloco_tpu_torch/physics/linalg.py) in the same order: column by column,
-// sums in row order, pivots clamped to 1e-12 before sqrt (NaN passes through,
-// as jnp.maximum lets it). The library is compiled with -fmad=false so no
-// multiply-add is contracted, which keeps kernel and plain version equal to
-// the last bit instead of to a tolerance.
+// Layout, structure and numerics: see block_arrow.cuh, whose factor and
+// sweeps both kernels call (as do the fused solve and the batch-major
+// resolve of block_arrow_solve.cu).
 //
 // Bounds on the H100 (3.35 TB/s HBM, 67 TFLOP/s f32):
 //   factor:  must read A's in-pattern lower triangle (1,437 floats) and
@@ -46,144 +29,35 @@
 //            sweeps keep y in a scratch vector the wrapper allocates and
 //            write z straight into x at its un-permuted row.
 
-#include <cuda_runtime.h>
+#include "block_arrow.cuh"
 
 namespace {
 
-constexpr int kMaxM = 128;
-constexpr int kMaxLimbs = 16;
-constexpr int kThreads = 128;
+using emloco::ArrowPlan;
+using emloco::EnvLastMat;
+using emloco::EnvVec;
 
-struct ArrowPlan {
-  int m;                  // system size
-  int s_lo;               // first row of the shared block (new order)
-  int n_limbs;
-  int limb_lo[kMaxLimbs];  // dense limb blocks [lo, hi) in new order
-  int limb_hi[kMaxLimbs];
-  int perm[kMaxM];        // perm[new index] = old DoF index
-};
-
-__device__ __forceinline__ float clamp_pivot(float d) {
-  return d < 1e-12f ? 1e-12f : d;   // NaN compares false and passes through
-}
-
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(emloco::kThreads)
 factor_kernel(const float* __restrict__ a, float* __restrict__ l,
               const ArrowPlan p, const int n) {
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= n) return;
-  const int m = p.m;
-  const size_t sn = (size_t)n;
-#define L_(i, j) l[((size_t)(i) * m + (j)) * sn + e]
-
-  // permuted copy of the lower triangle (new order); upper triangle zero
-  for (int i = 0; i < m; ++i) {
-    const size_t arow = (size_t)p.perm[i] * m;
-    for (int j = 0; j <= i; ++j) L_(i, j) = a[(arow + p.perm[j]) * sn + e];
-    for (int j = i + 1; j < m; ++j) L_(i, j) = 0.0f;
-  }
-
-  // limb columns: scale the column, then update rest-of-limb and shared rows
-  for (int b = 0; b < p.n_limbs; ++b) {
-    const int hi = p.limb_hi[b];
-    for (int k = p.limb_lo[b]; k < hi; ++k) {
-      const float s = sqrtf(clamp_pivot(L_(k, k)));
-      L_(k, k) = s;
-      for (int i = k + 1; i < hi; ++i) L_(i, k) = L_(i, k) / s;
-      for (int i = p.s_lo; i < m; ++i) L_(i, k) = L_(i, k) / s;
-      for (int i = k + 1; i < hi; ++i) {
-        const float ci = L_(i, k);
-        for (int j = k + 1; j <= i; ++j) L_(i, j) = L_(i, j) - ci * L_(j, k);
-      }
-      for (int i = p.s_lo; i < m; ++i) {
-        const float ci = L_(i, k);
-        for (int j = k + 1; j < hi; ++j) L_(i, j) = L_(i, j) - ci * L_(j, k);
-        for (int j = p.s_lo; j <= i; ++j) L_(i, j) = L_(i, j) - ci * L_(j, k);
-      }
-    }
-  }
-  // shared block: dense Cholesky of the remaining Schur complement
-  for (int k = p.s_lo; k < m; ++k) {
-    const float s = sqrtf(clamp_pivot(L_(k, k)));
-    L_(k, k) = s;
-    for (int i = k + 1; i < m; ++i) L_(i, k) = L_(i, k) / s;
-    for (int i = k + 1; i < m; ++i) {
-      const float ci = L_(i, k);
-      for (int j = k + 1; j <= i; ++j) L_(i, j) = L_(i, j) - ci * L_(j, k);
-    }
-  }
-#undef L_
+  const EnvLastMat<float> L{l, p.m, (size_t)n, e};
+  emloco::load_permuted(EnvLastMat<const float>{a, p.m, (size_t)n, e}, L, p);
+  emloco::arrow_factor(L, p);
 }
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(emloco::kThreads)
 resolve_kernel(const float* __restrict__ l, const float* __restrict__ b,
                float* __restrict__ x, float* __restrict__ y,
                const ArrowPlan p, const int n) {
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= n) return;
-  const int m = p.m;
   const size_t sn = (size_t)n;
-#define L_(i, j) l[((size_t)(i) * m + (j)) * sn + e]
-#define Y_(i) y[(size_t)(i) * sn + e]
-#define Z_(i) x[(size_t)p.perm[i] * sn + e]   // z in new order = x un-permuted
-
-  for (int i = 0; i < m; ++i) Y_(i) = b[(size_t)p.perm[i] * sn + e];
-
-  // forward: L y = Pb, column-oriented (each column pushes into later rows)
-  for (int q = 0; q < p.n_limbs; ++q) {
-    const int hi = p.limb_hi[q];
-    for (int k = p.limb_lo[q]; k < hi; ++k) {
-      const float yk = Y_(k) / L_(k, k);
-      Y_(k) = yk;
-      for (int i = k + 1; i < hi; ++i) Y_(i) = Y_(i) - L_(i, k) * yk;
-      for (int i = p.s_lo; i < m; ++i) Y_(i) = Y_(i) - L_(i, k) * yk;
-    }
-  }
-  for (int k = p.s_lo; k < m; ++k) {
-    const float yk = Y_(k) / L_(k, k);
-    Y_(k) = yk;
-    for (int i = k + 1; i < m; ++i) Y_(i) = Y_(i) - L_(i, k) * yk;
-  }
-
-  // backward: L^T z = y, row-oriented dot products over the pattern
-  for (int k = m - 1; k >= p.s_lo; --k) {
-    float acc = 0.0f;
-    for (int i = k + 1; i < m; ++i) acc = acc + L_(i, k) * Z_(i);
-    Z_(k) = (Y_(k) - acc) / L_(k, k);
-  }
-  for (int q = 0; q < p.n_limbs; ++q) {
-    const int lo = p.limb_lo[q], hi = p.limb_hi[q];
-    for (int k = hi - 1; k >= lo; --k) {
-      float acc = 0.0f;
-      for (int i = p.s_lo; i < m; ++i) acc = acc + L_(i, k) * Z_(i);
-      if (k + 1 < hi) {
-        float acc_l = 0.0f;
-        for (int i = k + 1; i < hi; ++i) acc_l = acc_l + L_(i, k) * Z_(i);
-        acc = acc + acc_l;
-      }
-      Z_(k) = (Y_(k) - acc) / L_(k, k);
-    }
-  }
-#undef L_
-#undef Y_
-#undef Z_
-}
-
-// Host-side plan from the caller's arrays; false if it does not fit.
-bool make_plan(int m, const int* perm, int n_limbs, const int* limbs,
-               int s_lo, ArrowPlan* p) {
-  if (m < 1 || m > kMaxM || n_limbs < 0 || n_limbs > kMaxLimbs ||
-      s_lo < 0 || s_lo > m)
-    return false;
-  p->m = m;
-  p->s_lo = s_lo;
-  p->n_limbs = n_limbs;
-  for (int i = 0; i < n_limbs; ++i) {
-    p->limb_lo[i] = limbs[2 * i];
-    p->limb_hi[i] = limbs[2 * i + 1];
-  }
-  for (int i = 0; i < m; ++i) p->perm[i] = perm[i];
-  return true;
+  emloco::arrow_solves(EnvLastMat<const float>{l, p.m, sn, e},
+                       EnvVec<const float>{b, sn, (size_t)e},
+                       EnvVec<float>{y, sn, (size_t)e},
+                       EnvVec<float>{x, sn, (size_t)e}, p);
 }
 
 }  // namespace
@@ -198,11 +72,11 @@ int emloco_block_arrow_factor(const void* a, void* l, int n, int m,
                               const void* limbs, int s_lo, void* stream) {
   ArrowPlan p;
   if (n < 1 ||
-      !make_plan(m, static_cast<const int*>(perm), n_limbs,
-                 static_cast<const int*>(limbs), s_lo, &p))
+      !emloco::make_plan(m, static_cast<const int*>(perm), n_limbs,
+                         static_cast<const int*>(limbs), s_lo, &p))
     return (int)cudaErrorInvalidValue;
-  const int blocks = (n + kThreads - 1) / kThreads;
-  factor_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  factor_kernel<<<emloco::blocks_for(n), emloco::kThreads, 0,
+                  static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(a), static_cast<float*>(l), p, n);
   return (int)cudaGetLastError();
 }
@@ -215,11 +89,11 @@ int emloco_block_arrow_resolve(const void* l, const void* b, void* x,
                                void* stream) {
   ArrowPlan p;
   if (n < 1 ||
-      !make_plan(m, static_cast<const int*>(perm), n_limbs,
-                 static_cast<const int*>(limbs), s_lo, &p))
+      !emloco::make_plan(m, static_cast<const int*>(perm), n_limbs,
+                         static_cast<const int*>(limbs), s_lo, &p))
     return (int)cudaErrorInvalidValue;
-  const int blocks = (n + kThreads - 1) / kThreads;
-  resolve_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  resolve_kernel<<<emloco::blocks_for(n), emloco::kThreads, 0,
+                   static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(l), static_cast<const float*>(b),
       static_cast<float*>(x), static_cast<float*>(y), p, n);
   return (int)cudaGetLastError();

@@ -1,17 +1,30 @@
-"""Block-arrow Cholesky factor and resolve, env-last.
+"""Batched SPD solvers of the engine: block-arrow and dense Cholesky.
 
-Port of the two kernels of emloco_tpu/physics/pallas_linalg.py that the
-default engine step runs: `cholesky_factor_blocked_t` (once per control step)
-and `cholesky_resolve_blocked_t` (once per substep). On a CUDA tensor each
-wrapper launches its hand-written kernel (csrc/block_arrow_cholesky.cu) or
-raises; on a CPU tensor it runs the plain PyTorch version below, which
-follows `_factor_body` / `_triangular_solves` column by column.
+Port of the six kernels of emloco_tpu/physics/pallas_linalg.py that the
+engine's solver branches run, with the compositions built on them:
 
-The block structure is the caller's: `chunks` lists old DoF ranges in new
-order (the permutation as contiguous moves), `limbs` the dense diagonal
-blocks in new order, `s_lo` the start of the trailing shared block. The
-matrix must be zero outside that pattern (true by construction for the
-engine's reduced-coordinate matrices); then the factorization is exact.
+  kernel (wrapper here)          CUDA source (csrc/)       engine branch
+  cholesky_factor_blocked_t      block_arrow_cholesky.cu   TGS (default)
+  cholesky_resolve_blocked_t     block_arrow_cholesky.cu   TGS (default)
+  cholesky_solve_blocked_t       block_arrow_solve.cu      implicit substeps
+  cholesky_resolve_blocked       block_arrow_solve.cu      TGS, batch-major
+  cholesky_solve_soa_t           dense_cholesky.cu         dense solver
+  to_env_last                    to_env_last.cu            batch-major
+  cholesky_solve_blocked   = to_env_last + cholesky_solve_blocked_t
+  cholesky_factor_blocked  = to_env_last + cholesky_factor_blocked_t
+  cholesky_solve_soa       = permute + cholesky_solve_soa_t
+
+On a CUDA tensor each wrapper launches its hand-written kernel or raises; on
+a CPU tensor it runs the plain PyTorch version below, which follows the
+Pallas kernel's column order (`_factor_body` / `_triangular_solves`,
+`_chol_solve_kernel`) and which the kernel repeats operation for operation.
+
+For the block-arrow entry points the block structure is the caller's:
+`chunks` lists old DoF ranges in new order (the permutation as contiguous
+moves), `limbs` the dense diagonal blocks in new order, `s_lo` the start of
+the trailing shared block. The matrix must be zero outside that pattern
+(true by construction for the engine's reduced-coordinate matrices); then
+the factorization is exact.
 
 Unlike the Pallas kernel, which leaves scratch values above the diagonal,
 the factor returned here is lower triangular: its upper triangle is zero.
@@ -25,7 +38,9 @@ import numpy as np
 import torch
 
 # launches of each kernel since the last reset (the plain path adds none)
-LAUNCHES = {"cholesky_factor_blocked_t": 0, "cholesky_resolve_blocked_t": 0}
+LAUNCHES = {"cholesky_factor_blocked_t": 0, "cholesky_resolve_blocked_t": 0,
+            "cholesky_solve_blocked_t": 0, "cholesky_resolve_blocked": 0,
+            "cholesky_solve_soa_t": 0, "to_env_last": 0}
 
 PIVOT_MIN = 1e-12
 
@@ -73,8 +88,31 @@ def _check(t: torch.Tensor, name: str, shape, device=None):
         raise ValueError(f"{name}: unsupported device {t.device}")
 
 
-def _stream(dev: torch.device):
-    return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+def _check_system(At: torch.Tensor, name: str, M: int | None = None) -> int:
+    """Validate a batched (M, M, N) system (M = its first dim unless
+    given); returns N."""
+    if At.dim() != 3 or At.shape[-1] < 1:
+        raise ValueError(f"{name} must be (M, M, N) with N ≥ 1, got "
+                         f"{tuple(At.shape)}")
+    M = At.shape[0] if M is None else M
+    _check(At, name, (M, M, At.shape[-1]))
+    return At.shape[-1]
+
+
+def _launch(name: str, dev: torch.device, fn, *args):
+    """Call a kernel's C entry point on the current stream of `dev`; raise
+    on the CUDA error it returns, else count the launch."""
+    with torch.cuda.device(dev):
+        err = fn(*args, ctypes.c_void_p(
+            torch.cuda.current_stream(dev).cuda_stream))
+    if err != 0:
+        raise RuntimeError(f"{name} kernel: CUDA error {err}")
+    LAUNCHES[name] += 1
+
+
+def _lib():
+    from .. import build
+    return build.load()
 
 
 # ---------------------------------------------------------------------------
@@ -163,6 +201,54 @@ def resolve_blocked_plain(L: torch.Tensor, bt: torch.Tensor, chunks, limbs,
     return x
 
 
+def solve_blocked_plain(At: torch.Tensor, bt: torch.Tensor, chunks, limbs,
+                        s_lo: int):
+    """The fused solve: exactly factor_blocked_plain then
+    resolve_blocked_plain, A (M, M, N), b (M, N) → x (M, N)."""
+    return resolve_blocked_plain(factor_blocked_plain(At, chunks, limbs, s_lo),
+                                 bt, chunks, limbs, s_lo)
+
+
+def resolve_blocked_bm_plain(L: torch.Tensor, b: torch.Tensor, chunks, limbs,
+                             s_lo: int):
+    """resolve_blocked_plain with a batch-major b, x (N, M)."""
+    return resolve_blocked_plain(L, b.T, chunks, limbs,
+                                 s_lo).T.contiguous()
+
+
+def to_env_last_plain(A: torch.Tensor, out_rows: int | None = None):
+    """(N, X, Y) → (X', Y, N), X' = out_rows or X: rows X'.. are dropped."""
+    return A[:, :out_rows].permute(1, 2, 0).contiguous()
+
+
+def solve_soa_plain(At: torch.Tensor, bt: torch.Tensor):
+    """Dense right-looking Cholesky solve as `_chol_solve_kernel` does it:
+    A (M, M, N), b (M, N) → x (M, N), pivots clamped to PIVOT_MIN, step k
+    updating the trailing (M−k−1)² block, dot products summed in row
+    order."""
+    M = At.shape[0]
+    w = At.clone()
+    for k in range(M):
+        d = w[k, k]
+        s = torch.sqrt(torch.where(d < PIVOT_MIN, PIVOT_MIN, d))
+        w[k, k] = s
+        if k + 1 < M:
+            col = w[k + 1:, k] / s
+            w[k + 1:, k] = col
+            w[k + 1:, k + 1:] = (w[k + 1:, k + 1:]
+                                 - col[:, None] * col[None, :])
+    y = torch.empty_like(bt)
+    for k in range(M):
+        acc = torch.zeros_like(bt[0])
+        for j in range(k):
+            acc = acc + w[k, j] * y[j]
+        y[k] = (bt[k] - acc) / w[k, k]
+    x = torch.empty_like(bt)
+    for k in range(M - 1, -1, -1):
+        x[k] = (y[k] - _dot(w, x, k, k + 1, M)) / w[k, k]
+    return x
+
+
 # ---------------------------------------------------------------------------
 # Wrappers: kernel on a CUDA tensor, plain version on a CPU tensor
 # ---------------------------------------------------------------------------
@@ -174,23 +260,14 @@ def cholesky_factor_blocked_t(At: torch.Tensor, chunks, limbs, s_lo: int):
     chunks, limbs = tuple(chunks), tuple(limbs)
     perm, lim = _plan(chunks, limbs, s_lo)
     M = len(perm)
-    if At.dim() != 3 or At.shape[-1] < 1:
-        raise ValueError(f"At must be (M, M, N) with N ≥ 1, got "
-                         f"{tuple(At.shape)}")
-    _check(At, "At", (M, M, At.shape[-1]))
+    N = _check_system(At, "At", M)
     if At.device.type == "cpu":
         return factor_blocked_plain(At, chunks, limbs, s_lo)
-    from .. import build
-    lib = build.load()
+    lib = _lib()
     L = torch.empty_like(At)
-    with torch.cuda.device(At.device):
-        err = lib.emloco_block_arrow_factor(
-            At.data_ptr(), L.data_ptr(), At.shape[-1], M,
-            perm.ctypes.data, len(lim), lim.ctypes.data, s_lo,
-            _stream(At.device))
-    if err != 0:
-        raise RuntimeError(f"block-arrow factor kernel: CUDA error {err}")
-    LAUNCHES["cholesky_factor_blocked_t"] += 1
+    _launch("cholesky_factor_blocked_t", At.device,
+            lib.emloco_block_arrow_factor, At.data_ptr(), L.data_ptr(), N, M,
+            perm.ctypes.data, len(lim), lim.ctypes.data, s_lo)
     return L
 
 
@@ -201,24 +278,122 @@ def cholesky_resolve_blocked_t(L: torch.Tensor, bt: torch.Tensor, chunks,
     chunks, limbs = tuple(chunks), tuple(limbs)
     perm, lim = _plan(chunks, limbs, s_lo)
     M = len(perm)
-    if L.dim() != 3 or L.shape[-1] < 1:
-        raise ValueError(f"L must be (M, M, N) with N ≥ 1, got "
-                         f"{tuple(L.shape)}")
-    N = L.shape[-1]
-    _check(L, "L", (M, M, N))
+    N = _check_system(L, "L", M)
     _check(bt, "b", (M, N), device=L.device)
     if L.device.type == "cpu":
         return resolve_blocked_plain(L, bt, chunks, limbs, s_lo)
-    from .. import build
-    lib = build.load()
+    lib = _lib()
     x = torch.empty_like(bt)
     y = torch.empty_like(bt)
-    with torch.cuda.device(L.device):
-        err = lib.emloco_block_arrow_resolve(
-            L.data_ptr(), bt.data_ptr(), x.data_ptr(), y.data_ptr(), N, M,
-            perm.ctypes.data, len(lim), lim.ctypes.data, s_lo,
-            _stream(L.device))
-    if err != 0:
-        raise RuntimeError(f"block-arrow resolve kernel: CUDA error {err}")
-    LAUNCHES["cholesky_resolve_blocked_t"] += 1
+    _launch("cholesky_resolve_blocked_t", L.device,
+            lib.emloco_block_arrow_resolve, L.data_ptr(), bt.data_ptr(),
+            x.data_ptr(), y.data_ptr(), N, M, perm.ctypes.data, len(lim),
+            lim.ctypes.data, s_lo)
     return x
+
+
+def cholesky_solve_blocked_t(At: torch.Tensor, bt: torch.Tensor, chunks,
+                             limbs, s_lo: int):
+    """Fused block-arrow solve, env-last: A (M, M, N), b (M, N) → x (M, N).
+    A must be zero outside the block-arrow pattern of (chunks, limbs,
+    s_lo), as for cholesky_factor_blocked_t."""
+    chunks, limbs = tuple(chunks), tuple(limbs)
+    perm, lim = _plan(chunks, limbs, s_lo)
+    M = len(perm)
+    N = _check_system(At, "At", M)
+    _check(bt, "b", (M, N), device=At.device)
+    if At.device.type == "cpu":
+        return solve_blocked_plain(At, bt, chunks, limbs, s_lo)
+    lib = _lib()
+    L = torch.empty_like(At)
+    x = torch.empty_like(bt)
+    y = torch.empty_like(bt)
+    _launch("cholesky_solve_blocked_t", At.device,
+            lib.emloco_block_arrow_solve, At.data_ptr(), L.data_ptr(),
+            bt.data_ptr(), x.data_ptr(), y.data_ptr(), N, M,
+            perm.ctypes.data, len(lim), lim.ctypes.data, s_lo)
+    return x
+
+
+def cholesky_resolve_blocked(L: torch.Tensor, b: torch.Tensor, chunks,
+                             limbs, s_lo: int):
+    """Batch-major resolve with an env-last factor from
+    cholesky_factor_blocked: L (M, M, N), b (N, M) → x (N, M)."""
+    chunks, limbs = tuple(chunks), tuple(limbs)
+    perm, lim = _plan(chunks, limbs, s_lo)
+    M = len(perm)
+    N = _check_system(L, "L", M)
+    _check(b, "b", (N, M), device=L.device)
+    if L.device.type == "cpu":
+        return resolve_blocked_bm_plain(L, b, chunks, limbs, s_lo)
+    lib = _lib()
+    x = torch.empty_like(b)
+    y = torch.empty((M, N), dtype=b.dtype, device=b.device)
+    _launch("cholesky_resolve_blocked", L.device,
+            lib.emloco_block_arrow_resolve_bm, L.data_ptr(), b.data_ptr(),
+            x.data_ptr(), y.data_ptr(), N, M, perm.ctypes.data, len(lim),
+            lim.ctypes.data, s_lo)
+    return x
+
+
+def cholesky_solve_soa_t(At: torch.Tensor, bt: torch.Tensor):
+    """Dense Cholesky solve, env-last: A (M, M, N) SPD, b (M, N) →
+    x (M, N)."""
+    N = _check_system(At, "At")
+    M = At.shape[0]
+    _check(bt, "b", (M, N), device=At.device)
+    if At.device.type == "cpu":
+        return solve_soa_plain(At, bt)
+    lib = _lib()
+    w = torch.empty_like(At)
+    x = torch.empty_like(bt)
+    _launch("cholesky_solve_soa_t", At.device,
+            lib.emloco_dense_cholesky_solve, At.data_ptr(), w.data_ptr(),
+            bt.data_ptr(), x.data_ptr(), N, M)
+    return x
+
+
+def to_env_last(A: torch.Tensor, out_rows: int | None = None):
+    """Relayout batch-major (N, X, Y) → env-last (X', Y, N), X' = out_rows
+    or X, 1 ≤ X' ≤ X: rows X'.. of each env are dropped."""
+    if A.dim() != 3 or A.shape[0] < 1 or A.shape[2] < 1:
+        raise ValueError(f"A must be (N, X, Y) with N, Y ≥ 1, got "
+                         f"{tuple(A.shape)}")
+    N, X, Y = A.shape
+    Xo = X if out_rows is None else out_rows
+    if not 1 <= Xo <= X:
+        raise ValueError(f"out_rows must lie in [1, {X}], got {out_rows}")
+    _check(A, "A", (N, X, Y))
+    if A.device.type == "cpu":
+        return to_env_last_plain(A, Xo)
+    lib = _lib()
+    out = torch.empty((Xo, Y, N), dtype=A.dtype, device=A.device)
+    _launch("to_env_last", A.device, lib.emloco_to_env_last, A.data_ptr(),
+            out.data_ptr(), N, X * Y, Xo * Y)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Compositions (no kernel of their own), batch-major in and out
+# ---------------------------------------------------------------------------
+
+def cholesky_solve_blocked(A: torch.Tensor, b: torch.Tensor, chunks, limbs,
+                           s_lo: int):
+    """Block-arrow solve, batch-major: A (N, M, M), b (N, M) → x (N, M)
+    (a transposed view of the env-last solution)."""
+    return cholesky_solve_blocked_t(to_env_last(A), b.T.contiguous(), chunks,
+                                    limbs, s_lo).T
+
+
+def cholesky_factor_blocked(A: torch.Tensor, chunks, limbs, s_lo: int):
+    """Batch-major A (N, M, M) → permuted env-last L (M, M, N) for
+    cholesky_resolve_blocked."""
+    return cholesky_factor_blocked_t(to_env_last(A), chunks, limbs, s_lo)
+
+
+def cholesky_solve_soa(A: torch.Tensor, b: torch.Tensor):
+    """Dense solve, batch-major: A (N, M, M), b (N, M) → x (N, M) (a
+    transposed view). The relayout is a plain copy, as in the JAX package,
+    where XLA moves the axis outside any Pallas kernel."""
+    return cholesky_solve_soa_t(A.permute(1, 2, 0).contiguous(),
+                                b.T.contiguous()).T

@@ -1,10 +1,16 @@
-"""Reduced-coordinate articulated dynamics — the engine core, default path.
+"""Reduced-coordinate articulated dynamics — the engine core.
 
-Port of emloco_tpu/physics/reduced.py restricted to what the default
-EngineConfig runs: the TGS control step (`_tgs_step`) that builds the merged
-Jacobian rows and the contact set once, assembles the 75×75 implicit system
-as a single-operand √w Gram, factors it once with the block-arrow kernel and
-re-solves it every substep. Per substep the engine solves
+Port of emloco_tpu/physics/reduced.py for capsule ground contacts and the
+single-operand √w Gram. Two control steps, as in the JAX engine:
+  - the TGS step (`_tgs_step`, the default) builds the merged Jacobian rows
+    and the contact set once, assembles the 75×75 implicit system, factors
+    it once with the block-arrow kernel and re-solves it every substep;
+  - the implicit substep (`_implicit_substep`, `tgs_step=False` or
+    `n_substeps=1`) re-assembles and solves the system every substep, with
+    the fused block-arrow or the dense Cholesky kernel.
+Either assembles env-last (75, 75, N) or, with `batch_major_solver`,
+batch-major (N, 75, 75) for the block-arrow kernels' batch-major entry
+points. Per substep the engine solves
 
     A u⁺ = M u + dt·(Q_gravity + Q_bias + Q_spring + Q_contact_explicit)
 
@@ -15,7 +21,8 @@ world), qd_1..23 (world-frame relative joint angular velocities)].
 Positions: root COM position, root rotation, 23 relative joint quaternions.
 
 Layouts follow the JAX engine so tests compare like with like: the LHS is
-emitted env-last (75, 75, N), the right-hand side (75, N).
+emitted env-last (75, 75, N) and the right-hand side (75, N), or (N, 75, 75)
+and (N, 75) batch-major.
 """
 from __future__ import annotations
 
@@ -30,7 +37,10 @@ from ..kinematics import body_model as bm
 from ..kinematics.skeleton import forward_kinematics
 from ..ops import quat
 from ..struct import TensorStruct
-from .linalg import cholesky_factor_blocked_t, cholesky_resolve_blocked_t
+from .linalg import (cholesky_factor_blocked, cholesky_factor_blocked_t,
+                     cholesky_resolve_blocked, cholesky_resolve_blocked_t,
+                     cholesky_solve_blocked, cholesky_solve_blocked_t,
+                     cholesky_solve_soa_t)
 from .terrain import Heightfield, height_and_normal_at
 from .types import EngineConfig
 
@@ -419,21 +429,41 @@ def _merged_rows(model: Model, G, W, ground):
     return torch.cat(rows, dim=1)
 
 
-def _assemble_lhs_merged(model: Model, G, W, diag, ground):
-    """A = SᵀS + diag, emitted env-last (75, 75, N). S is cast to float32
+def _assemble_lhs_rhs(model: Model, G, W, q, v_b, w_b, f_lin, dt, Q_rest,
+                      diag, ground, batch_major: bool = False):
+    """The LHS and RHS of one substep, env-last or batch-major."""
+    return (_assemble_lhs_merged(model, G, W, diag, ground,
+                                 batch_major=batch_major),
+            _assemble_rhs_merged(model, G, W, q, v_b, w_b, f_lin, dt, Q_rest,
+                                 batch_major=batch_major))
+
+
+def _assemble_lhs_merged(model: Model, G, W, diag, ground,
+                         batch_major: bool = False):
+    """A = SᵀS + diag, emitted env-last (75, 75, N), or batch-major
+    (N, 75, 75), the batched product's own layout. S is cast to float32
     BEFORE the product: the JAX engine asks its einsum for float32 output
     from bf16 rows, while a bf16 matmul here would round the sums to bf16."""
     S = _merged_rows(model, G, W, ground).float()
     A = torch.bmm(S.transpose(1, 2), S)                   # (N, 75, 75)
-    At = A.permute(1, 2, 0).contiguous()
     eye = _statics(G.device)["eye"]
+    if batch_major:
+        return A + eye[None] * diag[:, :, None]
+    At = A.permute(1, 2, 0).contiguous()
     return At + eye[:, :, None] * diag.T[:, None, :]
 
 
+def _shift(A, batch_major: bool):
+    """A + 1e-8·I, in either layout."""
+    eye = _statics(A.device)["eye"]
+    return A + 1e-8 * (eye[None] if batch_major else eye[:, :, None])
+
+
 def _assemble_rhs_merged(model: Model, G, W, q, v_b, w_b, f_lin, dt,
-                         Q_rest):
-    """rhs = M·u + dt·Q as matvecs, env-last (75, N): Jv·u is the body
-    velocity cache and W·u = √D·Rᵀ·w_b, so each substep reads G and W once."""
+                         Q_rest, batch_major: bool = False):
+    """rhs = M·u + dt·Q as matvecs, env-last (75, N) or batch-major (N, 75):
+    Jv·u is the body velocity cache and W·u = √D·Rᵀ·w_b, so each substep
+    reads G and W once."""
     p = model.params
     N = G.shape[0]
     rdt = G.dtype
@@ -444,6 +474,8 @@ def _assemble_rhs_merged(model: Model, G, W, q, v_b, w_b, f_lin, dt,
     ang = (torch.einsum("nmc,nm->nc", G.float(), fm.float())
            + torch.einsum("nmc,nm->nc", W.float(), v2m.float()))
     Mu = torch.cat([fvec.sum(dim=1), ang], dim=-1)        # (N,75)
+    if batch_major:
+        return Mu + dt * Q_rest
     return (Mu + dt * Q_rest).T.contiguous()
 
 
@@ -504,10 +536,14 @@ def _point_velocities(x, v_b, w_b, pts, bodies):
 
 
 def _contact_and_jacobians(model: Model, terrain: Heightfield,
-                           st: PhysicsState, cfg: EngineConfig):
+                           st: PhysicsState, cfg: EngineConfig,
+                           speculative: bool = True):
     """Step-start geometry in the row-merged layout. Returns
     (G, W, ground, Jn_a, nrm, active, d_t, pen_f_m, diag, h, radius, pts,
-    contact_body) with ground = (Gc, Jn_a, nrm, wn, wt)."""
+    contact_body) with ground = (Gc, Jn_a, nrm, wn, wt). The TGS step,
+    which reuses the LHS over the control step, wants `speculative` LHS rows
+    (see below); the implicit substep re-assembles every substep and gates
+    its rows by the true penetration."""
     s = _statics(st.u.device)
     p = model.params
     N = st.num_envs
@@ -549,18 +585,22 @@ def _contact_and_jacobians(model: Model, terrain: Heightfield,
     d_t = torch.clamp(d_t, max=cfg.max_friction_damping)
 
     Jn_a = _normal_rows_merged(nrm, Gc)
-    # speculative LHS rows: a contact that can engage within the control
-    # step gets its implicit rows now, so the factor reused across substeps
-    # solves a mid-step touchdown implicitly; RHS forces stay gated by the
-    # true penetration
-    reach = (-cfg.control_dt * torch.clamp(vn, max=0.0)
-             + 0.5 * abs(cfg.gravity) * cfg.control_dt ** 2)
-    pen_pred = pen + reach
-    active_lhs = (pen_pred > 0.0).to(x.dtype)
+    if speculative:
+        # a contact that can engage within the control step gets its
+        # implicit rows now, so the factor reused across substeps solves a
+        # mid-step touchdown implicitly; RHS forces stay gated by the true
+        # penetration
+        reach = (-cfg.control_dt * torch.clamp(vn, max=0.0)
+                 + 0.5 * abs(cfg.gravity) * cfg.control_dt ** 2)
+        pen_pred = pen + reach
+        active_lhs = (pen_pred > 0.0).to(x.dtype)
+        d_t_lhs = mu * (k_n * torch.clamp(pen_pred, 0.0,
+                                          cfg.max_depenetration)) \
+            / (vt_mag + cfg.friction_vel_ref)
+        d_t_lhs = torch.clamp(d_t_lhs, max=cfg.max_friction_damping)
+    else:
+        active_lhs, d_t_lhs = active, d_t
     wn = active_lhs * dt * (dt * k_n + d_n)
-    d_t_lhs = mu * (k_n * torch.clamp(pen_pred, 0.0, cfg.max_depenetration)) \
-        / (vt_mag + cfg.friction_vel_ref)
-    d_t_lhs = torch.clamp(d_t_lhs, max=cfg.max_friction_damping)
     wt = active_lhs * dt * d_t_lhs
     ground = (Gc, Jn_a, nrm, wn, wt)
     return (G, W, ground, Jn_a, nrm, active, d_t, active * pen_f, diag, h,
@@ -639,12 +679,19 @@ def _integrate_pose(model: Model, state: PhysicsState, u_new, dt, tree):
 def step(model: Model, terrain: Heightfield, state: PhysicsState,
          pd_target: torch.Tensor, cfg: EngineConfig = EngineConfig(),
          tree=None) -> PhysicsState:
-    """Advance one control step (cfg.n_substeps substeps)."""
+    """Advance one control step (cfg.n_substeps substeps): the TGS step
+    when `tgs_step` and n_substeps > 1, else n_substeps fully re-assembled
+    implicit substeps, as the JAX engine's `_step` dispatches."""
     if tree is None:
         tree = default_tree()
     target_q = quat.exp_map_to_quat(pd_target)
     with _full_f32_matmul():
-        return _tgs_step(model, terrain, state, target_q, cfg, tree)
+        if cfg.tgs_step and cfg.n_substeps > 1:
+            return _tgs_step(model, terrain, state, target_q, cfg, tree)
+        for _ in range(cfg.n_substeps):
+            state = _implicit_substep(model, terrain, state, target_q, cfg,
+                                      tree)
+        return state
 
 
 @contextlib.contextmanager
@@ -671,12 +718,15 @@ def _tgs_step(model: Model, terrain, state: PhysicsState, target_q,
     substeps refresh penetrations, gravity/bias/spring forces and the PD
     error but reuse the projections (Jacobians, normals, friction
     coefficients) and the factor — the per-step staleness PhysX TGS
-    accepts."""
+    accepts. With `batch_major_solver` the system is assembled batch-major,
+    relaid env-last for the factor, and the substeps' right-hand sides and
+    solutions stay batch-major."""
     dt = cfg.substep_dt
     gvec = torch.tensor([0.0, 0.0, cfg.gravity], device=state.u.device)
     k_n = cfg.contact_stiffness
     d_n = cfg.contact_damping
     arrow = (_ARROW_CHUNKS, _ARROW_LIMBS, _ARROW_S)
+    bm = _batch_major(cfg)
 
     st = state
     (G, W, ground, Jn_a, nrm, active, d_t, pen_f, diag, h0, radius, pts0,
@@ -685,14 +735,20 @@ def _tgs_step(model: Model, terrain, state: PhysicsState, target_q,
                                          st.body_v, st.body_w, st.u,
                                          target_q, gvec)
     Q_rest = Q_rest + _q_contact_merged(k_n * pen_f, nrm, Jn_a)
-    rhs_t = _assemble_rhs_merged(model, G, W, st.body_q, st.body_v,
-                                 st.body_w, f_lin, dt, Q_rest)
-    At = _assemble_lhs_merged(model, G, W, diag, ground)
-    At = At + 1e-8 * _statics(At.device)["eye"][:, :, None]
-    L = cholesky_factor_blocked_t(At, *arrow)
+    At, rhs_t = _assemble_lhs_rhs(model, G, W, st.body_q, st.body_v,
+                                  st.body_w, f_lin, dt, Q_rest, diag, ground,
+                                  batch_major=bm)
+    At = _shift(At, bm)
+    if bm:
+        L = cholesky_factor_blocked(At, *arrow)
 
-    def resolve(rhs):
-        return cholesky_resolve_blocked_t(L, rhs, *arrow).T
+        def resolve(rhs):
+            return cholesky_resolve_blocked(L, rhs, *arrow)
+    else:
+        L = cholesky_factor_blocked_t(At, *arrow)
+
+        def resolve(rhs):
+            return cholesky_resolve_blocked_t(L, rhs, *arrow).T
 
     u_new = _velocity_clamp(resolve(rhs_t), cfg)
     st = _integrate_pose(model, st, u_new, dt, tree)
@@ -709,9 +765,53 @@ def _tgs_step(model: Model, terrain, state: PhysicsState, target_q,
                                         target_q, gvec)
         Q_r = Q_r + _q_contact_merged(k_n * pf, nrm, Jn_a)
         rhs = _assemble_rhs_merged(model, G, W, st.body_q, st.body_v,
-                                   st.body_w, f_l, dt, Q_r)
+                                   st.body_w, f_l, dt, Q_r, batch_major=bm)
         u2 = _velocity_clamp(resolve(rhs), cfg)
         st2 = _integrate_pose(model, st, u2, dt, tree)
         st = st2.replace(contact_force=_readback_contact(
             st2, pts, body, nrm, act, d_t, k_n, pf, dt, d_n))
     return st
+
+
+def _batch_major(cfg: EngineConfig) -> bool:
+    """The JAX engine's rule `batch_major_solver and (blocked_solver or not
+    use_pallas)` on its Pallas side, which the port always takes: the
+    batch-major layout pairs with the block-arrow kernels only."""
+    return cfg.batch_major_solver and cfg.blocked_solver
+
+
+def _implicit_substep(model: Model, terrain, state: PhysicsState, target_q,
+                      cfg: EngineConfig, tree) -> PhysicsState:
+    """One fully re-assembled implicit substep: fresh Jacobians, contact set
+    and LHS rows gated by the true penetration (no speculation: nothing is
+    reused), solved with the fused block-arrow kernel — env-last, or
+    batch-major through the relayout — or the dense Cholesky kernel."""
+    dt = cfg.substep_dt
+    gvec = torch.tensor([0.0, 0.0, cfg.gravity], device=state.u.device)
+    k_n = cfg.contact_stiffness
+    d_n = cfg.contact_damping
+    arrow = (_ARROW_CHUNKS, _ARROW_LIMBS, _ARROW_S)
+    bm = _batch_major(cfg)
+
+    st = state
+    (G, W, ground, Jn_a, nrm, active, d_t, pen_f, diag, _, _, pts,
+     body) = _contact_and_jacobians(model, terrain, st, cfg,
+                                    speculative=False)
+    f_lin, Q_rest = _gravity_bias_spring(model, st.body_x, st.body_q,
+                                         st.body_v, st.body_w, st.u,
+                                         target_q, gvec)
+    Q_rest = Q_rest + _q_contact_merged(k_n * pen_f, nrm, Jn_a)
+    At, rhs_t = _assemble_lhs_rhs(model, G, W, st.body_q, st.body_v,
+                                  st.body_w, f_lin, dt, Q_rest, diag, ground,
+                                  batch_major=bm)
+    At = _shift(At, bm)
+    if bm:
+        u_new = cholesky_solve_blocked(At, rhs_t, *arrow)
+    elif cfg.blocked_solver:
+        u_new = cholesky_solve_blocked_t(At, rhs_t, *arrow).T
+    else:
+        u_new = cholesky_solve_soa_t(At, rhs_t).T
+    u_new = _velocity_clamp(u_new, cfg)
+    st2 = _integrate_pose(model, st, u_new, dt, tree)
+    return st2.replace(contact_force=_readback_contact(
+        st2, pts, body, nrm, active, d_t, k_n, pen_f, dt, d_n))

@@ -1,9 +1,11 @@
 """Engine configuration (port of emloco_tpu/physics/types.py).
 
 Same fields and defaults as the JAX EngineConfig. The port implements the
-default path — TGS step with the block-arrow factor reused across substeps,
-single-operand √w Gram, capsule ground contacts — and refuses the branches
-it does not implement instead of silently running something else.
+TGS step (the default) and the fully re-assembled implicit substeps
+(`tgs_step=False` or `n_substeps=1`), each with the block-arrow or the dense
+solver and the env-last or batch-major layout, all with the single-operand
+√w Gram and capsule ground contacts. It refuses the branches it does not
+implement instead of silently running something else.
 """
 from __future__ import annotations
 
@@ -15,9 +17,6 @@ _UNPORTED = {
     "mesh_contacts": False,
     "terrain_patch": 0,
     "gram_kernel": False,
-    "batch_major_solver": False,
-    "tgs_step": True,
-    "blocked_solver": True,
     "sqrt_gram": True,
 }
 
@@ -58,10 +57,6 @@ class EngineConfig:
                 raise NotImplementedError(
                     f"EngineConfig.{name}={getattr(self, name)!r} is not "
                     "ported to emloco_tpu_torch yet")
-        if self.n_substeps < 2:
-            raise NotImplementedError(
-                "n_substeps < 2 runs the fully re-assembled implicit substep, "
-                "which is not ported to emloco_tpu_torch yet")
         if not (self.substep_dt * self.contact_stiffness
                 + self.contact_damping > self.max_friction_damping):
             raise NotImplementedError(

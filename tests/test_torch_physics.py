@@ -130,23 +130,37 @@ def test_step_matches_jax(world, steps, rows_bf16):
 
 @pytest.mark.parametrize("field,value", [
     ("self_contact", True), ("mesh_contacts", True), ("terrain_patch", 32),
-    ("gram_kernel", True), ("batch_major_solver", True), ("tgs_step", False),
-    ("blocked_solver", False), ("sqrt_gram", False), ("n_substeps", 1)])
+    ("gram_kernel", True), ("sqrt_gram", False)])
 def test_engine_config_refuses_unported_branches(field, value):
     with pytest.raises(NotImplementedError):
         EngineConfig(**{field: value})
 
 
+CONFIG_FIELDS = (
+    "control_dt", "n_substeps", "gravity", "static_friction",
+    "dynamic_friction", "linear_damping", "angular_damping",
+    "contact_stiffness", "contact_damping", "friction_vel_ref",
+    "max_friction_damping", "self_contact", "mesh_contacts",
+    "max_depenetration", "max_linear_velocity", "max_angular_velocity",
+    "blocked_solver", "tgs_step", "rows_bf16", "terrain_patch",
+    "batch_major_solver", "gram_kernel", "sqrt_gram")
+
+
 def test_engine_config_defaults_match_jax():
     j, t = JEngineConfig(), EngineConfig()
-    for f in ("control_dt", "n_substeps", "gravity", "static_friction",
-              "dynamic_friction", "linear_damping", "angular_damping",
-              "contact_stiffness", "contact_damping", "friction_vel_ref",
-              "max_friction_damping", "self_contact", "mesh_contacts",
-              "max_depenetration", "max_linear_velocity",
-              "max_angular_velocity", "blocked_solver", "tgs_step",
-              "rows_bf16", "terrain_patch", "batch_major_solver",
-              "gram_kernel", "sqrt_gram"):
+    for f in CONFIG_FIELDS:
+        assert getattr(t, f) == getattr(j, f), f
+    assert t.substep_dt == j.substep_dt
+
+
+@pytest.mark.parametrize("field,value", [
+    ("batch_major_solver", True), ("tgs_step", False),
+    ("blocked_solver", False), ("n_substeps", 1)])
+def test_engine_config_takes_ported_branches(field, value):
+    """The solver branches the port runs construct, with JAX's values in
+    every other field."""
+    j, t = JEngineConfig(**{field: value}), EngineConfig(**{field: value})
+    for f in CONFIG_FIELDS:
         assert getattr(t, f) == getattr(j, f), f
     assert t.substep_dt == j.substep_dt
 
