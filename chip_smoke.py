@@ -25,13 +25,31 @@ Phases, each printed as one JSON line with its elapsed seconds:
                 batch-major resolve against the env-last one, bit for bit
   7. solver_times — those four kernels' times, their plain versions' and a
                 PyTorch call's that computes the same function
-  8. paths    — each solver configuration of the engine (implicit substeps,
-                one substep, dense solver, batch-major TGS, batch-major
-                implicit) at the bench configuration: one warm-up and 2
-                control steps each, launch counts read around the 2 steps
-  9. reference_implicit — one 8-env step on the card against the CPU for
-                `tgs_step=False` and for `batch_major_solver=True`
-then the kernels' summary line and, last, the device line. Any failed check
+  8. gram_kernel — the weighted Gram kernel against its plain version at
+                4,096 envs on the two-operand rows of the reset state (bf16
+                and, with `rows_bf16=False`, float32), on random rows, and
+                on the (N, 80, 75) staging shape then through to_env_last
+                cropped to 75, the engine's env-last composition
+  9. gram_times — its time, its plain version's and a PyTorch call's that
+                computes the same function (and a bf16 `bmm` with float32
+                output), on the bf16 rows and on the float32 rows
+ 10. paths    — each other configuration of the engine at the bench
+                configuration: the solver paths (implicit substeps, one
+                substep, dense solver, batch-major TGS, batch-major
+                implicit), the `gram_kernel=True` paths (TGS env-last and
+                batch-major, implicit with the block-arrow and the dense
+                solver) and the two-operand Gram (`sqrt_gram=False`); one
+                warm-up and 2 control steps each, launch counts read around
+                the 2 steps
+ 11. reference_implicit — one 8-env step on the card against the CPU for
+                `tgs_step=False`, `batch_major_solver=True`,
+                `gram_kernel=True` and `sqrt_gram=False`, each with the
+                contacts whose `active` flag differs between the two
+                devices at each call of the contact builder (every substep
+                of the implicit step, the first of a TGS step) and their
+                penetrations, and the joints whose PD error exp-map is zero
+                on one device only at each substep (as in `reference`)
+Then the kernels' summary line and, last, the device line. Any failed check
 raises and the script exits non-zero. Without a CUDA device it exits 2 and
 runs nothing.
 """
@@ -59,10 +77,30 @@ PATHS = (
       "cholesky_resolve_blocked": 2}),
     ("implicit_batch_major", dict(tgs_step=False, batch_major_solver=True),
      {"to_env_last": 2, "cholesky_solve_blocked_t": 2}),
+    ("gram", dict(gram_kernel=True),
+     {"gram_diag": 1, "to_env_last": 1, "cholesky_factor_blocked_t": 1,
+      "cholesky_resolve_blocked_t": 2}),
+    ("gram_batch_major", dict(gram_kernel=True, batch_major_solver=True),
+     {"gram_diag": 1, "to_env_last": 1, "cholesky_factor_blocked_t": 1,
+      "cholesky_resolve_blocked": 2}),
+    ("gram_implicit", dict(gram_kernel=True, tgs_step=False),
+     {"gram_diag": 2, "to_env_last": 2, "cholesky_solve_blocked_t": 2}),
+    ("gram_implicit_dense",
+     dict(gram_kernel=True, tgs_step=False, blocked_solver=False),
+     {"gram_diag": 2, "to_env_last": 2, "cholesky_solve_soa_t": 2}),
+    ("two_operand", dict(sqrt_gram=False),
+     {"cholesky_factor_blocked_t": 1, "cholesky_resolve_blocked_t": 2}),
 )
-# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, non-tensor-core f32 FLOP/s
+# configurations of the reference_implicit phase (8 envs, card vs CPU)
+REFERENCES = (dict(tgs_step=False), dict(batch_major_solver=True),
+              dict(gram_kernel=True), dict(sqrt_gram=False))
+# H100 SXM peaks (NVIDIA data sheet, 700 W): HBM bytes/s; non-tensor-core
+# f32 FLOP/s, the peak of every kernel's bound but gram_diag's; dense bf16
+# tensor-core FLOP/s (float32 sums), the peak of gram_diag's bound on bf16
+# rows
 HBM_BYTES_S = 3.35e12
 F32_FLOP_S = 67e12
+BF16_TC_FLOP_S = 989e12
 # Kernel vs plain version: both do the same float32 operations in the same
 # order (the library is built without multiply-add contraction), so they
 # should agree to the last bit; 1e-5 of the largest magnitude leaves room for
@@ -146,14 +184,95 @@ KERNELS = (   # summary key, kernel, CUDA source, line of the TPU kernel
     ("resolve_bm", "cholesky_resolve_blocked", "block_arrow_solve.cu", 450),
     ("solve_soa", "cholesky_solve_soa_t", "dense_cholesky.cu", 62),
     ("to_env_last", "to_env_last", "to_env_last.cu", 380),
+    ("gram_diag", "gram_diag", "gram_diag.cu", 508),
 )
+
+
+def recording(inner, log, extract):
+    """A stand-in for the engine function `inner` that appends
+    extract(args, result), on the CPU, to `log` at each call."""
+    def rec(*args, **kw):
+        out = inner(*args, **kw)
+        log.append(extract(args, out))
+        return out
+
+    return rec
+
+
+def contact_flags(args, out):
+    """_contact_and_jacobians: (active flags, penetrations) of the ground
+    contacts, (N, C) each."""
+    nrm, active, h, radius, pts = out[4], out[5], out[9], out[10], out[11]
+    pen = (h + radius - pts[..., 2]) * nrm[..., 2]
+    return active.cpu() > 0, pen.cpu()
+
+
+def spring_errors(args, out):
+    """_gravity_bias_spring(model, x, q, v_b, w_b, u, target_q, gvec): the
+    PD spring's error exp-map (N, 23, 3), recomputed as the engine forms
+    it."""
+    from emloco_tpu_torch.ops import quat
+    from emloco_tpu_torch.physics import reduced as R
+    q, target_q = args[2], args[6]
+    qp = q[:, R._statics(q.device)["parent_j"]]
+    q_rel = quat.mul(quat.conjugate(qp), q[:, 1:])
+    return quat.to_exp_map(quat.mul(q_rel, quat.conjugate(target_q))).cpu()
+
+
+RECORDED = (("_contact_and_jacobians", contact_flags),
+            ("_gravity_bias_spring", spring_errors))
+
+
+def contact_differences(log_g, log_c, keep):
+    """Per call of the contact builder: the kept envs' contacts active on
+    the card only and on the CPU only, each with (env, contact, penetration
+    on the card, on the CPU), and the largest penetration difference."""
+    calls = []
+    envs = keep.nonzero()[:, 0]
+    for (act_g, pen_g), (act_c, pen_c) in zip(log_g, log_c):
+        act_g, act_c = act_g[keep], act_c[keep]
+        pen_g, pen_c = pen_g[keep], pen_c[keep]
+
+        def listed(mask):
+            return [(int(envs[e]), int(c), pen_g[e, c].item(),
+                     pen_c[e, c].item()) for e, c in mask.nonzero()]
+
+        calls.append(dict(card_only=listed(act_g & ~act_c),
+                          cpu_only=listed(act_c & ~act_g),
+                          active_card=int(act_g.sum()),
+                          active_cpu=int(act_c.sum()),
+                          max_pen_diff=(pen_g - pen_c).abs().max().item()))
+    return calls
+
+
+def spring_differences(log_g, log_c, keep):
+    """Per substep: the kept envs' joints whose PD error exp-map is exactly
+    zero on one device only (to_exp_map returns 0 once the error
+    quaternion's w rounds to 1), each with (env, joint, |error| on the card,
+    on the CPU), and the largest error difference in rad."""
+    calls = []
+    envs = keep.nonzero()[:, 0]
+    for th_g, th_c in zip(log_g, log_c):
+        th_g, th_c = th_g[keep], th_c[keep]
+        zero_g, zero_c = (th_g == 0).all(-1), (th_c == 0).all(-1)
+        n_g, n_c = th_g.norm(dim=-1), th_c.norm(dim=-1)
+        calls.append(dict(
+            zero_on_one_device=[(int(envs[e]), int(j), n_g[e, j].item(),
+                                 n_c[e, j].item())
+                                for e, j in (zero_g ^ zero_c).nonzero()],
+            max_error_diff=(th_g - th_c).abs().max().item()))
+    return calls
 
 
 def card_vs_cpu(phase, cfg, env, gen, **extra):
     """One step of an 8-env copy of `env` (config `cfg`) on the card and on
-    the CPU from the same reset state and actions; fails past STEP_RTOL."""
+    the CPU from the same reset state and actions; fails past STEP_RTOL.
+    Reports, for each call of the contact builder, the contacts whose
+    `active` flag differs between the two devices, and for each substep the
+    joints whose PD error is zero on one device only."""
     import torch
     from emloco_tpu_torch.envs import PedestrianTerrainEnv
+    from emloco_tpu_torch.physics import reduced as R
     small = dataclasses.replace(cfg, num_envs=8)
     dev, cpu = env.device, torch.device("cpu")
     env_g = PedestrianTerrainEnv(small, env.terrain, env.motion_lib,
@@ -164,8 +283,22 @@ def card_vs_cpu(phase, cfg, env, gen, **extra):
     st_c = st_g.to(cpu).replace(rng=torch.Generator().manual_seed(3))
     act = 0.3 * torch.randn((8, small.num_actions), generator=gen,
                             device=dev)
-    st_g, out_g = env_g.step(st_g, act)
-    st_c, out_c = env_c.step(st_c, act.cpu())
+    logs = ({}, {})
+    inner = {name: getattr(R, name) for name, _ in RECORDED}
+
+    def arm(log):
+        for name, extract in RECORDED:
+            log[name] = []
+            setattr(R, name, recording(inner[name], log[name], extract))
+
+    try:
+        arm(logs[0])
+        st_g, out_g = env_g.step(st_g, act)
+        arm(logs[1])
+        st_c, out_c = env_c.step(st_c, act.cpu())
+    finally:
+        for name, fn in inner.items():
+            setattr(R, name, fn)
     keep = ~(out_g.done.cpu() | out_c.done)
     checks = {}
     for name, a, c in (("u", st_g.physics.u, st_c.physics.u),
@@ -174,7 +307,11 @@ def card_vs_cpu(phase, cfg, env, gen, **extra):
                        ("reward", out_g.reward, out_c.reward)):
         checks[name] = rel_err(a.cpu()[keep], c[keep])[1]
     emit(phase, **extra, envs_compared=int(keep.sum()), max_rel_err=checks,
-         tolerance_rel=STEP_RTOL)
+         tolerance_rel=STEP_RTOL,
+         contacts=contact_differences(
+             *(log["_contact_and_jacobians"] for log in logs), keep),
+         springs=spring_differences(
+             *(log["_gravity_bias_spring"] for log in logs), keep))
     if int(keep.sum()) == 0 or not max(checks.values()) <= STEP_RTOL:
         raise SystemExit(f"card and CPU disagree on one step ({extra}): "
                          f"{checks}")
@@ -271,6 +408,100 @@ def solver_times(A, b, L, arrow):
     }
 
 
+def gram_inputs(env, state, engine, gen):
+    """The Gram's inputs at the env's size: the two-operand merged rows of
+    `state` with bf16 rows and with float32 rows (`rows_bf16=False`), and
+    random float32 rows of the same shape with signed weights, each as
+    (R, w, float32 diag)."""
+    import torch
+    from emloco_tpu_torch.physics import reduced as R
+    cases = {}
+    for name, bf16 in (("real_bf16", True), ("real_f32", False)):
+        G, W, ground, *rest = R._contact_and_jacobians(
+            env.model, env.terrain, state.physics,
+            dataclasses.replace(engine, rows_bf16=bf16))
+        rows, wv = R._merged_rows(env.model, G, W, ground)
+        cases[name] = (rows, wv, rest[5].float())
+    rows = cases["real_f32"][0]
+    N, M, C = rows.shape
+    dev = rows.device
+    cases["random_f32"] = (
+        torch.randn((N, M, C), generator=gen, device=dev),
+        torch.randn((N, M), generator=gen, device=dev),
+        torch.rand((N, C), generator=gen, device=dev))
+    return cases
+
+
+def gram_kernels(cases):
+    """gram_diag against its plain version on each case, batch-major and on
+    the (N, 80, 75) staging shape, whose 75 rows are compared and which
+    goes on through to_env_last cropped to 75. Returns the max abs error."""
+    import torch
+    from emloco_tpu_torch.physics import linalg
+    worst = 0.0
+    for name, (Rr, w, d) in cases.items():
+        N, M, C = Rr.shape
+        staged_rows = C + (-C) % 16
+        plain = linalg.gram_diag_plain(Rr, w, d)
+        staged = linalg.gram_diag(Rr, w, d, out_rows=staged_rows)
+        outs = {
+            "batch_major": (linalg.gram_diag(Rr, w, d), plain),
+            "staged_rows": (staged[:, :C], plain),
+            "staged_then_env_last": (linalg.to_env_last(staged, out_rows=C),
+                                     plain.permute(1, 2, 0)),
+        }
+        torch.cuda.synchronize()
+        report, bad = {}, []
+        for key, (k, p) in outs.items():
+            e, r = rel_err(k, p)
+            finite = bool(torch.isfinite(k).all())
+            report[key] = dict(max_abs_err=e, max_rel_err=r, finite=finite,
+                               bit_equal=bool(torch.equal(k, p)))
+            if not (finite and r <= KERNEL_RTOL):
+                bad.append(key)
+            worst = max(worst, e)
+        emit("gram_kernel", case=name, num_envs=N, rows=M, cols=C,
+             dtype=str(Rr.dtype), tolerance_rel=KERNEL_RTOL, outputs=report)
+        if bad:
+            raise SystemExit(f"gram_diag disagrees with its plain version "
+                             f"on {name}: {bad}")
+    return worst
+
+
+def gram_times(Rr, w, d):
+    """ms of gram_diag on the engine's env-last staging shape (20
+    launches), of its plain version (3 calls) and of one PyTorch call of
+    the same function, float32 `baddbmm` with TF32 off (operands cast
+    before the timed region); for bf16 rows also a bf16 `bmm` with float32
+    output on w∘R rounded to bf16, a yardstick of the tensor cores' speed,
+    not of the same rounding. Also the bytes, flops and flop peak of the
+    bound."""
+    import torch
+    from emloco_tpu_torch.physics import linalg
+    N, M, C = Rr.shape
+    staged_rows = C + (-C) % 16
+    Rf = Rr.float()
+    rw_t = (Rf * w.float()[..., None]).transpose(1, 2)
+    D = torch.diag_embed(d)
+    out = dict(
+        ms=time_ms(lambda: linalg.gram_diag(Rr, w, d, out_rows=staged_rows),
+                   20),
+        plain_ms=time_ms(lambda: linalg.gram_diag_plain(Rr, w, d,
+                                                        staged_rows), 3),
+        library_ms=time_ms(lambda: torch.baddbmm(D, rw_t, Rf), 20))
+    if Rr.dtype == torch.bfloat16:
+        rw16_t = (Rr * w[..., None]).transpose(1, 2)
+        out["library_bf16_ms"] = time_ms(
+            lambda: torch.bmm(rw16_t, Rr, out_dtype=torch.float32), 20)
+    rb = Rr.element_size()
+    # R, w and d read once, the C x C sums written once (the staging rows
+    # are not written); 2·M·C² flops of the sums, M·C of w∘R
+    nbytes = N * (M * C * rb + M * rb + C * 4 + C * C * 4)
+    nflops = N * (2 * M * C * C + M * C)
+    peak = BF16_TC_FLOP_S if Rr.dtype == torch.bfloat16 else F32_FLOP_S
+    return out, (nbytes, nflops, peak)
+
+
 def drive_path(rollout, name, engine, per_step, card):
     """The bench rollout under another engine configuration: one warm-up,
     then PATH_STEPS control steps with the launch counts read around them.
@@ -365,6 +596,8 @@ def main():
     diag = _rest[5]
     A_real = (R._assemble_lhs_merged(env.model, G, W, diag, ground)
               + 1e-8 * torch.eye(R.NU, device=dev)[:, :, None]).contiguous()
+    # the Gram's inputs from the same reset state, for phases 8 and 9
+    gcases = gram_inputs(env, state, cfg.engine, gen)
     cases = {
         "real_lhs": (A_real, torch.randn((R.NU, NUM_ENVS), generator=gen,
                                          device=dev)),
@@ -483,13 +716,28 @@ def main():
          bytes={k: v[0] for k, v in bounds.items()},
          flops={k: v[1] for k, v in bounds.items()})
 
-    # 8. the engine's other solver paths ------------------------------------
+    # 8. the Gram kernel against its plain version --------------------------
+    errs["gram_diag"] = gram_kernels(gcases)
+
+    # 9. its times ----------------------------------------------------------
+    times["gram_diag"], (g_bytes, g_flops, g_peak) = gram_times(
+        *gcases["real_bf16"])
+    f32_rows, f32_bound = gram_times(*gcases["real_f32"])
+    del gcases
+    bounds["gram_diag"] = (g_bytes, g_flops)
+    peaks = {"gram_diag": g_peak}
+    emit("gram_times", card=card, gram_diag=times["gram_diag"],
+         bytes=g_bytes, flops=g_flops, flop_peak=g_peak,
+         f32_rows=dict(f32_rows, bytes=f32_bound[0], flops=f32_bound[1],
+                       flop_peak=f32_bound[2]))
+
+    # 10. the engine's other solver and assembly paths ----------------------
     by_path = {"main": launches}
     for name, kw, per_step in PATHS:
         by_path[name] = drive_path(rollout, name, kw, per_step, card)
 
-    # 9. reference on the implicit and batch-major paths --------------------
-    for kw in (dict(tgs_step=False), dict(batch_major_solver=True)):
+    # 11. reference on the other paths --------------------------------------
+    for kw in REFERENCES:
         card_vs_cpu("reference_implicit",
                     dataclasses.replace(cfg, engine=EngineConfig(**kw)), env,
                     gen, engine=kw)
@@ -498,8 +746,9 @@ def main():
     kernels = []
     for key, name, source, line in KERNELS:
         nbytes, nflops = bounds[key]
+        peak = peaks.get(key, F32_FLOP_S)
         t_bytes = nbytes / HBM_BYTES_S * 1e3
-        t_ops = nflops / F32_FLOP_S * 1e3
+        t_ops = nflops / peak * 1e3
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"emloco_tpu_torch/csrc/{source}",
@@ -511,6 +760,7 @@ def main():
             "plain_ms": times[key]["plain_ms"],
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_flop_peak": peak,
             "library_ms": times[key]["library_ms"]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

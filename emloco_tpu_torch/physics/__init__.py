@@ -1,5 +1,6 @@
 from .terrain import (  # noqa: F401
     Heightfield,
+    flat_terrain,
     generate_mixed_terrain,
     height_and_normal_at,
     height_at,

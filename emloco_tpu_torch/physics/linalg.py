@@ -1,7 +1,8 @@
-"""Batched SPD solvers of the engine: block-arrow and dense Cholesky.
+"""Batched kernels of the engine's LHS assembly and SPD solves: the weighted
+Gram, block-arrow and dense Cholesky, and the env-last relayout.
 
-Port of the six kernels of emloco_tpu/physics/pallas_linalg.py that the
-engine's solver branches run, with the compositions built on them:
+Port of the seven kernels of emloco_tpu/physics/pallas_linalg.py, with the
+compositions built on them:
 
   kernel (wrapper here)          CUDA source (csrc/)       engine branch
   cholesky_factor_blocked_t      block_arrow_cholesky.cu   TGS (default)
@@ -9,7 +10,8 @@ engine's solver branches run, with the compositions built on them:
   cholesky_solve_blocked_t       block_arrow_solve.cu      implicit substeps
   cholesky_resolve_blocked       block_arrow_solve.cu      TGS, batch-major
   cholesky_solve_soa_t           dense_cholesky.cu         dense solver
-  to_env_last                    to_env_last.cu            batch-major
+  to_env_last                    to_env_last.cu            batch-major, gram
+  gram_diag                      gram_diag.cu              gram_kernel
   cholesky_solve_blocked   = to_env_last + cholesky_solve_blocked_t
   cholesky_factor_blocked  = to_env_last + cholesky_factor_blocked_t
   cholesky_solve_soa       = permute + cholesky_solve_soa_t
@@ -17,7 +19,8 @@ engine's solver branches run, with the compositions built on them:
 On a CUDA tensor each wrapper launches its hand-written kernel or raises; on
 a CPU tensor it runs the plain PyTorch version below, which follows the
 Pallas kernel's column order (`_factor_body` / `_triangular_solves`,
-`_chol_solve_kernel`) and which the kernel repeats operation for operation.
+`_chol_solve_kernel`) or, for the Gram, sums over the rows in ascending
+order, and which the kernel repeats operation for operation.
 
 For the block-arrow entry points the block structure is the caller's:
 `chunks` lists old DoF ranges in new order (the permutation as contiguous
@@ -40,9 +43,10 @@ import torch
 # launches of each kernel since the last reset (the plain path adds none)
 LAUNCHES = {"cholesky_factor_blocked_t": 0, "cholesky_resolve_blocked_t": 0,
             "cholesky_solve_blocked_t": 0, "cholesky_resolve_blocked": 0,
-            "cholesky_solve_soa_t": 0, "to_env_last": 0}
+            "cholesky_solve_soa_t": 0, "to_env_last": 0, "gram_diag": 0}
 
 PIVOT_MIN = 1e-12
+GRAM_MAX_C = 80      # gram_diag's kernel: 5 x 5 output tiles, 256 threads
 
 
 def reset_launch_counts():
@@ -221,6 +225,26 @@ def to_env_last_plain(A: torch.Tensor, out_rows: int | None = None):
     return A[:, :out_rows].permute(1, 2, 0).contiguous()
 
 
+def gram_diag_plain(R: torch.Tensor, w: torch.Tensor, diag: torch.Tensor,
+                    out_rows: int | None = None):
+    """At[n, :C] = R[n]ᵀ(w[n]∘R[n]) + diag(diag[n]) in float32, R (N, M, C)
+    and w (N, M) in the row dtype, diag (N, C) float32 → (N, C', C),
+    C' = out_rows or C. w∘R is formed in float32, where the product of two
+    bf16 values is exact (as the JAX kernel's float32 dot receives it), and
+    the M outer products are summed in ascending row order. The staging
+    rows C:C' hold NaN, so that any reader of them shows up."""
+    N, M, C = R.shape
+    Rf = R.float()
+    rw = Rf * w.float()[..., None]
+    acc = torch.zeros((N, C, C), dtype=torch.float32, device=R.device)
+    for m in range(M):
+        acc = acc + rw[:, m, :, None] * Rf[:, m, None, :]
+    out = torch.full((N, out_rows or C, C), float("nan"),
+                     dtype=torch.float32, device=R.device)
+    out[:, :C] = acc + torch.diag_embed(diag)
+    return out
+
+
 def solve_soa_plain(At: torch.Tensor, bt: torch.Tensor):
     """Dense right-looking Cholesky solve as `_chol_solve_kernel` does it:
     A (M, M, N), b (M, N) → x (M, N), pivots clamped to PIVOT_MIN, step k
@@ -370,6 +394,47 @@ def to_env_last(A: torch.Tensor, out_rows: int | None = None):
     out = torch.empty((Xo, Y, N), dtype=A.dtype, device=A.device)
     _launch("to_env_last", A.device, lib.emloco_to_env_last, A.data_ptr(),
             out.data_ptr(), N, X * Y, Xo * Y)
+    return out
+
+
+def gram_diag(R: torch.Tensor, w: torch.Tensor, diag: torch.Tensor,
+              out_rows: int | None = None):
+    """Batched weighted Gram + diagonal, batch-major: R (N, M, C) in bf16 or
+    float32, w (N, M) in R's dtype, diag (N, C) float32 → At (N, C', C)
+    float32, C' = out_rows or C, with At[n, :C] = R[n]ᵀ(w[n]∘R[n]) +
+    diag(diag[n]). Rows C:C' are the staging pad of to_env_last and are
+    left unwritten."""
+    if R.dim() != 3 or min(R.shape) < 1:
+        raise ValueError(f"R must be (N, M, C) with N, M, C ≥ 1, got "
+                         f"{tuple(R.shape)}")
+    if R.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"R must be bfloat16 or float32, got {R.dtype}")
+    N, M, C = R.shape
+    if C > GRAM_MAX_C:
+        raise ValueError(f"R has {C} columns; gram_diag takes at most "
+                         f"{GRAM_MAX_C}")
+    Co = C if out_rows is None else out_rows
+    if Co < C:
+        raise ValueError(f"out_rows must be at least {C}, got {out_rows}")
+    for t, name, shape in ((R, "R", (N, M, C)), (w, "w", (N, M))):
+        if t.dtype != R.dtype:
+            raise TypeError(f"{name} must be {R.dtype}, got {t.dtype}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must have shape {shape}, got "
+                             f"{tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.device != R.device:
+            raise ValueError(f"{name} is on {t.device}, expected "
+                             f"{R.device}")
+    _check(diag, "diag", (N, C), device=R.device)
+    if R.device.type == "cpu":
+        return gram_diag_plain(R, w, diag, Co)
+    lib = _lib()
+    out = torch.empty((N, Co, C), dtype=torch.float32, device=R.device)
+    _launch("gram_diag", R.device, lib.emloco_gram_diag, R.data_ptr(),
+            w.data_ptr(), diag.data_ptr(), out.data_ptr(), N, M, C, Co,
+            int(R.dtype == torch.bfloat16))
     return out
 
 

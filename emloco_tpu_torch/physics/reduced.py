@@ -1,7 +1,7 @@
 """Reduced-coordinate articulated dynamics — the engine core.
 
-Port of emloco_tpu/physics/reduced.py for capsule ground contacts and the
-single-operand √w Gram. Two control steps, as in the JAX engine:
+Port of emloco_tpu/physics/reduced.py for capsule ground contacts. Two
+control steps, as in the JAX engine:
   - the TGS step (`_tgs_step`, the default) builds the merged Jacobian rows
     and the contact set once, assembles the 75×75 implicit system, factors
     it once with the block-arrow kernel and re-solves it every substep;
@@ -10,7 +10,10 @@ single-operand √w Gram. Two control steps, as in the JAX engine:
     the fused block-arrow or the dense Cholesky kernel.
 Either assembles env-last (75, 75, N) or, with `batch_major_solver`,
 batch-major (N, 75, 75) for the block-arrow kernels' batch-major entry
-points. Per substep the engine solves
+points, as one weighted Gram of the merged rows: single-operand √w (the
+default), two-operand (`sqrt_gram=False`, or when a weight can be
+negative), or the `gram_diag` kernel (`gram_kernel`). Per substep the engine
+solves
 
     A u⁺ = M u + dt·(Q_gravity + Q_bias + Q_spring + Q_contact_explicit)
 
@@ -40,7 +43,7 @@ from ..struct import TensorStruct
 from .linalg import (cholesky_factor_blocked, cholesky_factor_blocked_t,
                      cholesky_resolve_blocked, cholesky_resolve_blocked_t,
                      cholesky_solve_blocked, cholesky_solve_blocked_t,
-                     cholesky_solve_soa_t)
+                     cholesky_solve_soa_t, gram_diag, to_env_last)
 from .terrain import Heightfield, height_and_normal_at
 from .types import EngineConfig
 
@@ -405,11 +408,16 @@ def _q_contact_merged(kpen, nrm, Jn_a):
                       torch.einsum("nc,ncd->nd", kpen, Jn_a.float())], dim=-1)
 
 
-def _merged_rows(model: Model, G, W, ground):
-    """Stack the LHS row families into S (N, M, 75), each family scaled by
-    √w before the concat: body rows [e_i | G] (w = m_k), inertia rows
-    [0 | W] (w = 1), point rows [e_i | Gc] (w = wt), normal rows [n | Jn]
-    (w = wn − wt). Sums of outer products of S's rows give the whole LHS."""
+def _merged_rows(model: Model, G, W, ground, weight_fn=None):
+    """Stack the LHS row families into R (N, M, 75) with weights wv (N, M):
+    body rows [e_i | G] (w = m_k), inertia rows [0 | W] (w = 1), point rows
+    [e_i | Gc] (w = wt), normal rows [n | Jn] (w = wn − wt). Weighted sums
+    of outer products of R's rows give the whole LHS.
+
+    With `weight_fn` (torch.sqrt for the single-operand √w Gram) each family
+    is scaled by weight_fn(w) in the row dtype before the concat and wv is
+    ones; without it wv is the weights' concat, cast to the row dtype after
+    it, as in the JAX engine."""
     s = _statics(G.device)
     p = model.params
     Gc, Jn_a, nrm, wn, wt = ground
@@ -424,33 +432,76 @@ def _merged_rows(model: Model, G, W, ground):
             torch.cat([iselc, Gc], -1),
             torch.cat([nrm.to(rdt), Jn_a], -1)]
     wgt = [mass_m, None, torch.repeat_interleave(wt, 3, dim=-1), wn - wt]
-    rows = [r if w is None else r * torch.sqrt(w.to(rdt))[..., None]
-            for r, w in zip(rows, wgt)]
-    return torch.cat(rows, dim=1)
+    if weight_fn is not None:
+        rows = [r if w is None else r * weight_fn(w.to(rdt))[..., None]
+                for r, w in zip(rows, wgt)]
+        R = torch.cat(rows, dim=1)
+        return R, torch.ones(R.shape[:2], dtype=rdt, device=R.device)
+    wv = torch.cat([torch.ones_like(mass_m) if w is None else w
+                    for w in wgt], dim=1).to(rdt)
+    return torch.cat(rows, dim=1), wv
 
 
 def _assemble_lhs_rhs(model: Model, G, W, q, v_b, w_b, f_lin, dt, Q_rest,
-                      diag, ground, batch_major: bool = False):
+                      diag, ground, batch_major: bool = False,
+                      gram: bool = False, sqrt_gram: bool = True):
     """The LHS and RHS of one substep, env-last or batch-major."""
     return (_assemble_lhs_merged(model, G, W, diag, ground,
-                                 batch_major=batch_major),
+                                 batch_major=batch_major, gram=gram,
+                                 sqrt_gram=sqrt_gram),
             _assemble_rhs_merged(model, G, W, q, v_b, w_b, f_lin, dt, Q_rest,
                                  batch_major=batch_major))
 
 
 def _assemble_lhs_merged(model: Model, G, W, diag, ground,
-                         batch_major: bool = False):
-    """A = SᵀS + diag, emitted env-last (75, 75, N), or batch-major
-    (N, 75, 75), the batched product's own layout. S is cast to float32
-    BEFORE the product: the JAX engine asks its einsum for float32 output
-    from bf16 rows, while a bf16 matmul here would round the sums to bf16."""
-    S = _merged_rows(model, G, W, ground).float()
-    A = torch.bmm(S.transpose(1, 2), S)                   # (N, 75, 75)
-    eye = _statics(G.device)["eye"]
+                         batch_major: bool = False, gram: bool = False,
+                         sqrt_gram: bool = True):
+    """A = Rᵀ(w∘R) + diag, emitted env-last (75, 75, N) or batch-major
+    (N, 75, 75), in one of the JAX engine's three forms, in its order:
+      - √w (`sqrt_gram and not gram`): S = √w∘R on both sides, SᵀS;
+      - `gram`: the gram_diag kernel, batch-major; env-last it emits the
+        relayout's 80-row staging shape and to_env_last crops it to 75;
+      - two-operand: (w∘R)ᵀR.
+    The products cast their operands to float32 BEFORE the batched matmul
+    (full float32, TF32 off inside `step`): the JAX engine asks its einsum
+    for float32 output from bf16 rows, while a bf16 matmul here would round
+    the sums to bf16. w∘R is formed in float32 (exact for bf16 rows), as
+    the JAX step's two-operand einsum forms it under jit and as gram_diag
+    does, so those two forms differ only in the order of the sums."""
+    if sqrt_gram and not gram:
+        S, _ = _merged_rows(model, G, W, ground, weight_fn=torch.sqrt)
+        S = S.float()
+        return _plus_diag(torch.bmm(S.transpose(1, 2), S), diag, batch_major)
+    R, wv = _merged_rows(model, G, W, ground)
+    if gram:
+        if batch_major:
+            return gram_diag(R, wv, diag)
+        staged = NU + (-NU) % 16
+        return to_env_last(gram_diag(R, wv, diag, out_rows=staged),
+                           out_rows=NU)
+    Rf = R.float()
+    A = torch.bmm((wv.float()[..., None] * Rf).transpose(1, 2), Rf)
+    return _plus_diag(A, diag, batch_major)
+
+
+def _plus_diag(A, diag, batch_major: bool):
+    """A (N, 75, 75) + diag(diag), batch-major or moved env-last."""
+    eye = _statics(A.device)["eye"]
     if batch_major:
         return A + eye[None] * diag[:, :, None]
     At = A.permute(1, 2, 0).contiguous()
     return At + eye[:, :, None] * diag.T[:, None, :]
+
+
+def _sqrt_gram_ok(cfg: EngineConfig) -> bool:
+    """Guard of the single-operand √w Gram, as in the JAX engine: every
+    merged-row weight is ≥ 0 iff dt·k_n + d_n ≥ max_friction_damping (wn −
+    wt = gate·dt·(dt·k_n + d_n − d_t), d_t ≤ max_friction_damping). STRICT
+    inequality, as there: at equality the normal rows' weight can be
+    exactly 0. When it fails the step takes the two-operand form."""
+    return (cfg.sqrt_gram
+            and cfg.substep_dt * cfg.contact_stiffness + cfg.contact_damping
+            > cfg.max_friction_damping)
 
 
 def _shift(A, batch_major: bool):
@@ -737,7 +788,8 @@ def _tgs_step(model: Model, terrain, state: PhysicsState, target_q,
     Q_rest = Q_rest + _q_contact_merged(k_n * pen_f, nrm, Jn_a)
     At, rhs_t = _assemble_lhs_rhs(model, G, W, st.body_q, st.body_v,
                                   st.body_w, f_lin, dt, Q_rest, diag, ground,
-                                  batch_major=bm)
+                                  batch_major=bm, gram=cfg.gram_kernel,
+                                  sqrt_gram=_sqrt_gram_ok(cfg))
     At = _shift(At, bm)
     if bm:
         L = cholesky_factor_blocked(At, *arrow)
@@ -776,7 +828,10 @@ def _tgs_step(model: Model, terrain, state: PhysicsState, target_q,
 def _batch_major(cfg: EngineConfig) -> bool:
     """The JAX engine's rule `batch_major_solver and (blocked_solver or not
     use_pallas)` on its Pallas side, which the port always takes: the
-    batch-major layout pairs with the block-arrow kernels only."""
+    batch-major layout pairs with the block-arrow kernels only. Likewise
+    the JAX rule `gram_kernel and use_pallas` is `cfg.gram_kernel` here: the
+    Gram kernel runs whenever it is asked for (its plain version on a CPU
+    tensor)."""
     return cfg.batch_major_solver and cfg.blocked_solver
 
 
@@ -803,7 +858,8 @@ def _implicit_substep(model: Model, terrain, state: PhysicsState, target_q,
     Q_rest = Q_rest + _q_contact_merged(k_n * pen_f, nrm, Jn_a)
     At, rhs_t = _assemble_lhs_rhs(model, G, W, st.body_q, st.body_v,
                                   st.body_w, f_lin, dt, Q_rest, diag, ground,
-                                  batch_major=bm)
+                                  batch_major=bm, gram=cfg.gram_kernel,
+                                  sqrt_gram=_sqrt_gram_ok(cfg))
     At = _shift(At, bm)
     if bm:
         u_new = cholesky_solve_blocked(At, rhs_t, *arrow)

@@ -49,6 +49,15 @@ def make_heightfield(heights, cell, origin, spawnable_xy,
     )
 
 
+def flat_terrain(extent: float = 40.0, cell: float = 0.1,
+                 device=None) -> Heightfield:
+    """A flat (extent/cell)² grid at height 0 centred on the origin."""
+    n = int(extent / cell)
+    return make_heightfield(np.zeros((n, n), np.float32), cell,
+                            (-extent / 2, -extent / 2),
+                            np.zeros((1, 2), np.float32), device=device)
+
+
 def _grid_coords_xy(hf: Heightfield, x, y):
     """World x/y component arrays → fractional grid coords, clamped."""
     H, W = hf.shape

@@ -3,9 +3,10 @@
 Same fields and defaults as the JAX EngineConfig. The port implements the
 TGS step (the default) and the fully re-assembled implicit substeps
 (`tgs_step=False` or `n_substeps=1`), each with the block-arrow or the dense
-solver and the env-last or batch-major layout, all with the single-operand
-√w Gram and capsule ground contacts. It refuses the branches it does not
-implement instead of silently running something else.
+solver and the env-last or batch-major layout, and each LHS assembly: the
+single-operand √w Gram, the two-operand Gram and the `gram_kernel` Gram, all
+with capsule ground contacts. It refuses the branches it does not implement
+instead of silently running something else.
 """
 from __future__ import annotations
 
@@ -16,8 +17,6 @@ _UNPORTED = {
     "self_contact": False,
     "mesh_contacts": False,
     "terrain_patch": 0,
-    "gram_kernel": False,
-    "sqrt_gram": True,
 }
 
 
@@ -57,11 +56,6 @@ class EngineConfig:
                 raise NotImplementedError(
                     f"EngineConfig.{name}={getattr(self, name)!r} is not "
                     "ported to emloco_tpu_torch yet")
-        if not (self.substep_dt * self.contact_stiffness
-                + self.contact_damping > self.max_friction_damping):
-            raise NotImplementedError(
-                "the single-operand √w Gram needs dt·k_n + d_n > "
-                "max_friction_damping; the two-operand form is not ported")
 
     @property
     def substep_dt(self) -> float:

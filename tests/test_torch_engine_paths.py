@@ -1,6 +1,8 @@
 """The port's engine configurations against the JAX engine's: the fully
 re-assembled implicit substeps (`tgs_step=False`, `n_substeps=1`), the dense
-solver and the batch-major layout.
+solver, the batch-major layout, and the LHS assembly's two-operand Gram
+(`sqrt_gram=False`, or a weak contact whose weights can go negative) and
+`gram_kernel` Gram.
 
 Each configuration runs one three-step rollout in both packages from the
 world of tests/test_torch_physics.py (randomly posed, moving humanoids
@@ -11,6 +13,15 @@ lays the system out batch-major whenever `batch_major_solver` is set; the
 port takes the Pallas side of the JAX rule (batch-major only with the
 block-arrow solver) and its plain kernels clamp pivots. On these SPD systems
 all of them are exact factorizations, so they differ by float32 rounding.
+
+On the CPU the JAX engine never runs its gram branch (`gram_kernel and
+use_pallas`): with `gram_kernel=True` it assembles the √w Gram, which rounds
+√w∘R to bf16 and, over three steps of these stiff contacts, drifts from the
+two-operand Gram by more than one bf16 ulp. The Gram kernel computes the
+two-operand Gram (tests/test_engine.py:889 holds it to that einsum; under
+jit XLA forms w∘R in float32 there, as the kernel does), so the port's gram
+configurations are held against the JAX step with `sqrt_gram=False` (JAX
+below), at the same tolerance.
 """
 import dataclasses
 
@@ -36,7 +47,15 @@ CONFIGS = {
     "tgs_batch_major": dict(batch_major_solver=True),
     "implicit_batch_major": dict(tgs_step=False, batch_major_solver=True),
     "implicit_f32_rows": dict(tgs_step=False, rows_bf16=False),
+    "gram": dict(gram_kernel=True),
+    "gram_batch_major": dict(gram_kernel=True, batch_major_solver=True),
+    "gram_implicit": dict(gram_kernel=True, tgs_step=False),
+    "two_operand": dict(sqrt_gram=False),
+    "weak_contact": dict(contact_stiffness=1000.0, max_friction_damping=1e5),
 }
+# the JAX step a configuration is held against, where it is not the same
+JAX = {name: {**kw, "sqrt_gram": False} for name, kw in CONFIGS.items()
+       if kw.get("gram_kernel")}
 STEPS = (1, 3)
 
 
@@ -48,7 +67,8 @@ def rollouts(world):
     def get(name):
         if name not in cache:
             kw = CONFIGS[name]
-            jcfg, tcfg = JEngineConfig(**kw), EngineConfig(**kw)
+            jcfg = JEngineConfig(**JAX.get(name, kw))
+            tcfg = EngineConfig(**kw)
             js, ts = world["jstate"], world["tstate"]
             tgt = world["target"]
             out = {}
@@ -90,6 +110,17 @@ WRAPPER_CALLS = {
                         "cholesky_resolve_blocked": 2},
     "implicit_batch_major": {"to_env_last": 2,
                              "cholesky_solve_blocked_t": 2},
+    "gram": {"gram_diag": 1, "to_env_last": 1,
+             "cholesky_factor_blocked_t": 1, "cholesky_resolve_blocked_t": 2},
+    "gram_batch_major": {"gram_diag": 1, "to_env_last": 1,
+                         "cholesky_factor_blocked_t": 1,
+                         "cholesky_resolve_blocked": 2},
+    "gram_implicit": {"gram_diag": 2, "to_env_last": 2,
+                      "cholesky_solve_blocked_t": 2},
+    "gram_implicit_dense": {"gram_diag": 2, "to_env_last": 2,
+                            "cholesky_solve_soa_t": 2},
+    "two_operand": {"cholesky_factor_blocked_t": 1,
+                    "cholesky_resolve_blocked_t": 2},
     "default": {"cholesky_factor_blocked_t": 1,
                 "cholesky_resolve_blocked_t": 2},
     "batch_major_dense": {"cholesky_factor_blocked_t": 1,
@@ -104,7 +135,9 @@ def test_engine_configuration_calls_its_solvers(world, monkeypatch, name):
     block-arrow solver is the env-last TGS step, as on a TPU."""
     kw = {"default": {},
           "batch_major_dense": dict(batch_major_solver=True,
-                                    blocked_solver=False)}.get(
+                                    blocked_solver=False),
+          "gram_implicit_dense": dict(gram_kernel=True, tgs_step=False,
+                                      blocked_solver=False)}.get(
         name, CONFIGS.get(name))
     calls = dict.fromkeys(linalg.LAUNCHES, 0)
     for fn in calls:

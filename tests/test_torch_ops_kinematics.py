@@ -109,6 +109,29 @@ def test_quat_matches_jax(name, qdata):
         close(a, b, **tol)
 
 
+def test_exp_map_drops_a_rotation_whose_w_rounds_to_one():
+    """A fault of the reference that the port shares (ROADMAP §C):
+    to_angle_axis takes the angle from acos(w) alone, so a near-identity
+    quaternion whose w rounds to 1.0 in float32 maps to the zero rotation
+    whatever its xyz, while the next float32 below 1 gives about 2·xyz. The
+    quaternion is the PD error q_rel·conj(target) of a joint in one step of
+    the 8-env bench rollout: a 2.1 mrad rotation whose w rounded to 1.0 on
+    one device and to 1 − 2⁻²² on the other after float32 rounding of the
+    LHS sums. The PD spring (physics/reduced.py `_gravity_bias_spring`)
+    takes its error from to_exp_map, so its torque kp·θ is there on one
+    device and not on the other: the card-vs-CPU gap of that step. Both
+    packages agree on both inputs; a fix changes this test."""
+    xyz = np.array([-3.2594055e-4, -3.0726194e-5, 9.926558e-4], np.float32)
+    below_one = np.nextafter(np.float32(1.0), np.float32(0.0))
+    q = np.stack([np.append(xyz, np.float32(1.0)),
+                  np.append(xyz, below_one)]).astype(np.float32)
+    for e in (tq.to_exp_map(torch.as_tensor(q)).numpy(),
+              np.asarray(jq.to_exp_map(jnp.asarray(q)))):
+        assert (e[0] == 0).all()
+        np.testing.assert_allclose(e[1], 2 * xyz, rtol=1e-3)
+        assert np.linalg.norm(e[1]) > 2e-3                  # a 2.1 mrad error
+
+
 def test_forward_kinematics_matches_jax():
     rng = np.random.RandomState(1)
     tree_j = jbm.canonical_skeleton()

@@ -129,8 +129,7 @@ def test_step_matches_jax(world, steps, rows_bf16):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("self_contact", True), ("mesh_contacts", True), ("terrain_patch", 32),
-    ("gram_kernel", True), ("sqrt_gram", False)])
+    ("self_contact", True), ("mesh_contacts", True), ("terrain_patch", 32)])
 def test_engine_config_refuses_unported_branches(field, value):
     with pytest.raises(NotImplementedError):
         EngineConfig(**{field: value})
@@ -155,10 +154,11 @@ def test_engine_config_defaults_match_jax():
 
 @pytest.mark.parametrize("field,value", [
     ("batch_major_solver", True), ("tgs_step", False),
-    ("blocked_solver", False), ("n_substeps", 1)])
+    ("blocked_solver", False), ("n_substeps", 1), ("gram_kernel", True),
+    ("sqrt_gram", False)])
 def test_engine_config_takes_ported_branches(field, value):
-    """The solver branches the port runs construct, with JAX's values in
-    every other field."""
+    """The solver and assembly branches the port runs construct, with JAX's
+    values in every other field."""
     j, t = JEngineConfig(**{field: value}), EngineConfig(**{field: value})
     for f in CONFIG_FIELDS:
         assert getattr(t, f) == getattr(j, f), f
