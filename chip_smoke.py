@@ -49,11 +49,25 @@ Phases, each printed as one JSON line with its elapsed seconds:
                 of the implicit step, the first of a TGS step) and their
                 penetrations, and the joints whose PD error exp-map is zero
                 on one device only at each substep (as in `reference`)
+ 12. probe_kernels — the Gram-layout probe's two tensor-core kernels,
+                gram_dual and gram_dual_batched (blocks of 8 and 32 envs),
+                against their plain version at 4,096 envs on the probe's
+                seed-0 operands (M = 304) and on the reset state's bf16
+                merged rows (M = 256), and on a small ragged case (M = 37):
+                within 2^-13 of the sum of |products| per entry, the three
+                outputs bit-equal, finite, each kernel launched
+ 13. probe_times — their times, their plain version's and a bf16 `bmm`'s
+                with float32 output at the probe's shapes; then `probe`:
+                emloco_tpu_torch.scripts.gram_kernel_probe at full size
+                (4,096 envs), its variant lines echoed under the phase
+                name, with the kernels' launch counts read around it
 Then the kernels' summary line and, last, the device line. Any failed check
 raises and the script exits non-zero. Without a CUDA device it exits 2 and
 runs nothing.
 """
+import contextlib
 import dataclasses
+import io
 import json
 import os
 import subprocess
@@ -110,6 +124,16 @@ KERNEL_RTOL = 1e-5
 # a Jacobian row entry that rounds to the other bfloat16 neighbour moves by
 # 2^-8 of its size; one bfloat16 ulp (0.4%) of each quantity's magnitude.
 STEP_RTOL = 2.0 ** -8
+# Tensor-core Gram vs its plain version, per entry, in units of the sum of
+# |products| (plus |d| on the diagonal): two float32 sums of M ≤ 304 exact
+# products in different orders lie within 304·2⁻²⁴ of that sum each, or
+# 304·2⁻²³ where the tensor core truncates; together under 2⁻¹³.
+PROBE_TOL = 2.0 ** -13
+# the probe's variants, in the order of scripts/gram_kernel_probe.py
+PROBE_VARIANTS = ("einsum_envlast", "einsum_bm", "kernel_at_b", "kernel_dual",
+                  "kernel_dual_batched8", "kernel_dual_batched32",
+                  "kernel_at_b32", "build_rt_xla", "relayout_pallas",
+                  "xla_transpose")
 
 
 def emit(phase, **kw):
@@ -177,14 +201,23 @@ def arrow_work(pattern):
     return factor, resolve, int(pattern.sum())
 
 
-KERNELS = (   # summary key, kernel, CUDA source, line of the TPU kernel
-    ("factor", "cholesky_factor_blocked_t", "block_arrow_cholesky.cu", 303),
-    ("resolve", "cholesky_resolve_blocked_t", "block_arrow_cholesky.cu", 334),
-    ("solve", "cholesky_solve_blocked_t", "block_arrow_solve.cu", 258),
-    ("resolve_bm", "cholesky_resolve_blocked", "block_arrow_solve.cu", 450),
-    ("solve_soa", "cholesky_solve_soa_t", "dense_cholesky.cu", 62),
-    ("to_env_last", "to_env_last", "to_env_last.cu", 380),
-    ("gram_diag", "gram_diag", "gram_diag.cu", 508),
+_PL = "emloco_tpu/physics/pallas_linalg.py"
+_PROBE = "scripts/gram_kernel_probe.py"
+KERNELS = (   # summary key, kernel, CUDA source, file:line of the TPU kernel
+    ("factor", "cholesky_factor_blocked_t", "block_arrow_cholesky.cu",
+     f"{_PL}:303"),
+    ("resolve", "cholesky_resolve_blocked_t", "block_arrow_cholesky.cu",
+     f"{_PL}:334"),
+    ("solve", "cholesky_solve_blocked_t", "block_arrow_solve.cu",
+     f"{_PL}:258"),
+    ("resolve_bm", "cholesky_resolve_blocked", "block_arrow_solve.cu",
+     f"{_PL}:450"),
+    ("solve_soa", "cholesky_solve_soa_t", "dense_cholesky.cu", f"{_PL}:62"),
+    ("to_env_last", "to_env_last", "to_env_last.cu", f"{_PL}:380"),
+    ("gram_diag", "gram_diag", "gram_diag.cu", f"{_PL}:508"),
+    ("gram_dual", "gram_dual", "gram_dual.cu", f"{_PROBE}:63"),
+    ("gram_dual_batched", "gram_dual_batched", "gram_dual.cu",
+     f"{_PROBE}:97"),
 )
 
 
@@ -502,6 +535,130 @@ def gram_times(Rr, w, d):
     return out, (nbytes, nflops, peak)
 
 
+def probe_inputs(engine_rows, dev):
+    """The probe kernels' inputs as (Rt, R, d): the probe's seed-0 operands
+    at 4,096 envs (M = 304), the reset state's bf16 merged rows (M = 256)
+    with Rt = (w∘R in bf16)ᵀ, and 64 envs of random rows with M = 37 (not a
+    multiple of 8: scalar loads and a zero-filled last k16 step)."""
+    import torch
+    from emloco_tpu_torch.scripts import gram_kernel_probe
+    R, _, d, Rt = gram_kernel_probe.operands(NUM_ENVS, dev)
+    Re, we, de = engine_rows
+    gen = torch.Generator(device=dev).manual_seed(4)
+    Rr = torch.randn((64, 37, 75), generator=gen, device=dev).bfloat16()
+    wr = torch.rand((64, 37), generator=gen, device=dev).bfloat16()
+    return {
+        "probe_seed0": (Rt, R, d),
+        "engine_bf16": ((we[..., None] * Re).transpose(1, 2).contiguous(),
+                        Re.contiguous(), de.contiguous()),
+        "ragged": ((wr[..., None] * Rr).transpose(1, 2).contiguous(), Rr,
+                   torch.rand((64, 75), generator=gen, device=dev)),
+    }
+
+
+def probe_kernels(cases):
+    """gram_dual and gram_dual_batched (blocks of 8 and 32) against
+    gram_dual_plain on each case: per entry within PROBE_TOL of the sum of
+    |products| plus |d| on the diagonal, the three outputs bit-equal,
+    finite, and each kernel launched. Returns the max abs errors."""
+    import torch
+    from emloco_tpu_torch.physics import linalg
+    errs = {"gram_dual": 0.0, "gram_dual_batched": 0.0}
+    for name, (Rt, R, d) in cases.items():
+        N, C, M = Rt.shape
+        linalg.reset_launch_counts()
+        outs = {"gram_dual": linalg.gram_dual(Rt, R, d),
+                "gram_dual_batched": linalg.gram_dual_batched(Rt, R, d),
+                "gram_dual_batched32": linalg.gram_dual_batched(
+                    Rt, R, d, block_envs=32)}
+        torch.cuda.synchronize()
+        launches = {k: linalg.LAUNCHES[k]
+                    for k in ("gram_dual", "gram_dual_batched")}
+        plain = linalg.gram_dual_plain(Rt, R, d)
+        gate = PROBE_TOL * (torch.bmm(Rt.abs().double(), R.abs().double())
+                            + torch.diag_embed(d.abs().double()))
+        report, bad = {}, []
+        for key, k in outs.items():
+            diff = (k.double() - plain.double()).abs()
+            ratio = (diff / gate.clamp_min(1e-300)).max().item()
+            finite = bool(torch.isfinite(k).all())
+            report[key] = dict(max_abs_err=diff.max().item(),
+                               max_err_over_gate=ratio, finite=finite,
+                               bit_equal_plain=bool(torch.equal(k, plain)))
+            if not (finite and ratio <= 1.0):
+                bad.append(key)
+            base = key.replace("32", "")
+            errs[base] = max(errs[base], diff.max().item())
+        same = all(torch.equal(outs["gram_dual"], o) for o in outs.values())
+        emit("probe_kernels", case=name, num_envs=N, rows=M, cols=C,
+             gate="2^-13 x (|Rt|.|R| + |d| on the diagonal)",
+             kernels=report, dual_equals_batched=same, launches=launches)
+        if bad or not same or launches != {"gram_dual": 1,
+                                           "gram_dual_batched": 2}:
+            raise SystemExit(f"probe kernels disagree on {name}: {bad}, "
+                             f"bit-equal {same}, launches {launches}")
+        del outs, plain, gate
+    return errs
+
+
+def probe_times(Rt, R, d):
+    """ms of gram_dual and gram_dual_batched at the probe's shapes (20
+    launches; batched also at blocks of 32), of their plain version (3
+    calls) and of one bf16 `bmm` with float32 output plus an in-place
+    diagonal add, the same function. Also the bound's bytes (Rt, R and d
+    read once, the C x C output written once) and flops."""
+    import torch
+    from emloco_tpu_torch.physics import linalg
+    N, C, M = Rt.shape
+
+    def library():
+        out = torch.bmm(Rt, R, out_dtype=torch.float32)
+        out.diagonal(dim1=1, dim2=2).add_(d)
+        return out
+
+    plain_ms = time_ms(lambda: linalg.gram_dual_plain(Rt, R, d), 3)
+    library_ms = time_ms(library, 20)
+    times = {
+        "gram_dual": dict(
+            ms=time_ms(lambda: linalg.gram_dual(Rt, R, d), 20),
+            plain_ms=plain_ms, library_ms=library_ms),
+        "gram_dual_batched": dict(
+            ms=time_ms(lambda: linalg.gram_dual_batched(Rt, R, d), 20),
+            ms_block32=time_ms(lambda: linalg.gram_dual_batched(
+                Rt, R, d, block_envs=32), 20),
+            plain_ms=plain_ms, library_ms=library_ms),
+    }
+    nbytes = N * (2 * C * M * 2 + C * 4 + C * C * 4)
+    nflops = N * (2 * M * C * C + C)
+    return times, (nbytes, nflops)
+
+
+def run_probe():
+    """The probe at full size, its stdout captured; each line is echoed
+    under the phase name. Returns (launch counts around it, its result)."""
+    import torch
+    from emloco_tpu_torch.physics import linalg
+    from emloco_tpu_torch.scripts import gram_kernel_probe
+    torch.cuda.synchronize()
+    linalg.reset_launch_counts()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        res = gram_kernel_probe.main([])
+    torch.cuda.synchronize()
+    launches = dict(linalg.LAUNCHES)
+    lines = [json.loads(ln) for ln in buf.getvalue().splitlines()]
+    for ln in lines:
+        emit("probe", **ln)
+    variants = [ln["variant"] for ln in lines if "ms" in ln]
+    finite = all(bool(torch.isfinite(o).all()) for o in res["out"].values())
+    if (tuple(variants) != PROBE_VARIANTS or not finite
+            or not all(0 < ms < float("inf") for ms in res["ms"].values())
+            or not (launches["gram_dual"] and launches["gram_dual_batched"])):
+        raise SystemExit(f"probe run failed: variants {variants}, finite "
+                         f"{finite}, launches {launches}")
+    return launches, res
+
+
 def drive_path(rollout, name, engine, per_step, card):
     """The bench rollout under another engine configuration: one warm-up,
     then PATH_STEPS control steps with the launch counts read around them.
@@ -723,6 +880,7 @@ def main():
     times["gram_diag"], (g_bytes, g_flops, g_peak) = gram_times(
         *gcases["real_bf16"])
     f32_rows, f32_bound = gram_times(*gcases["real_f32"])
+    engine_rows = gcases["real_bf16"]          # phase 12's second input
     del gcases
     bounds["gram_diag"] = (g_bytes, g_flops)
     peaks = {"gram_diag": g_peak}
@@ -742,9 +900,25 @@ def main():
                     dataclasses.replace(cfg, engine=EngineConfig(**kw)), env,
                     gen, engine=kw)
 
+    # 12. the probe's kernels against their plain version -------------------
+    pcases = probe_inputs(engine_rows, dev)
+    del engine_rows
+    errs.update(probe_kernels(pcases))
+
+    # 13. their times, then the probe itself --------------------------------
+    p_times, (p_bytes, p_flops) = probe_times(*pcases["probe_seed0"])
+    del pcases
+    times.update(p_times)
+    for key in p_times:
+        bounds[key] = (p_bytes, p_flops)
+        peaks[key] = BF16_TC_FLOP_S
+    emit("probe_times", card=card, **p_times, bytes=p_bytes, flops=p_flops,
+         flop_peak=BF16_TC_FLOP_S)
+    by_path["probe"], _ = run_probe()
+
     # summary ---------------------------------------------------------------
     kernels = []
-    for key, name, source, line in KERNELS:
+    for key, name, source, replaces in KERNELS:
         nbytes, nflops = bounds[key]
         peak = peaks.get(key, F32_FLOP_S)
         t_bytes = nbytes / HBM_BYTES_S * 1e3
@@ -752,7 +926,7 @@ def main():
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"emloco_tpu_torch/csrc/{source}",
-            "replaces": f"emloco_tpu/physics/pallas_linalg.py:{line}",
+            "replaces": replaces,
             "launches": sum(c[name] for c in by_path.values()),
             "launches_by_path": {p: c[name] for p, c in by_path.items()
                                  if c[name]},

@@ -17,6 +17,7 @@ csrc         the CUDA kernels; build.py compiles them with nvcc at first use
 convert      JAX-package objects (as numpy pytrees) → this package's objects
 rollout      the env and actor at the bench configuration; the control step
 profile_step where a control step's time goes on the card
+scripts      the Gram-layout probe, port of scripts/gram_kernel_probe.py
 
 Every entry point takes `device=None`, which means CUDA; the CPU runs only
 when the caller asks for it with `device="cpu"`.

@@ -22,7 +22,7 @@ _ROOT = os.path.dirname(_PKG)
 _CSRC = os.path.join(_PKG, "csrc")
 SOURCES = tuple(os.path.join(_CSRC, f) for f in (
     "block_arrow_cholesky.cu", "block_arrow_solve.cu", "dense_cholesky.cu",
-    "to_env_last.cu", "gram_diag.cu"))
+    "to_env_last.cu", "gram_diag.cu", "gram_dual.cu"))
 HEADERS = (os.path.join(_CSRC, "block_arrow.cuh"),)
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 # -fmad=false: the kernels repeat their plain versions' roundings exactly
@@ -46,6 +46,9 @@ _SIGNATURES = {
     "emloco_to_env_last": [_VP, _VP, _INT, _INT, _INT, _VP],
     "emloco_gram_diag":
         [_VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT, _INT, _VP],
+    "emloco_gram_dual": [_VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT, _VP],
+    "emloco_gram_dual_batched":
+        [_VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT, _VP],
 }
 
 _loaded = {}

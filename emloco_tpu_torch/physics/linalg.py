@@ -2,7 +2,9 @@
 Gram, block-arrow and dense Cholesky, and the env-last relayout.
 
 Port of the seven kernels of emloco_tpu/physics/pallas_linalg.py, with the
-compositions built on them:
+compositions built on them, and of the two kernels of
+scripts/gram_kernel_probe.py (on no path of the engine; the probe's port,
+emloco_tpu_torch/scripts/gram_kernel_probe.py, runs them):
 
   kernel (wrapper here)          CUDA source (csrc/)       engine branch
   cholesky_factor_blocked_t      block_arrow_cholesky.cu   TGS (default)
@@ -12,6 +14,7 @@ compositions built on them:
   cholesky_solve_soa_t           dense_cholesky.cu         dense solver
   to_env_last                    to_env_last.cu            batch-major, gram
   gram_diag                      gram_diag.cu              gram_kernel
+  gram_dual, gram_dual_batched   gram_dual.cu              (the probe)
   cholesky_solve_blocked   = to_env_last + cholesky_solve_blocked_t
   cholesky_factor_blocked  = to_env_last + cholesky_factor_blocked_t
   cholesky_solve_soa       = permute + cholesky_solve_soa_t
@@ -20,7 +23,10 @@ On a CUDA tensor each wrapper launches its hand-written kernel or raises; on
 a CPU tensor it runs the plain PyTorch version below, which follows the
 Pallas kernel's column order (`_factor_body` / `_triangular_solves`,
 `_chol_solve_kernel`) or, for the Gram, sums over the rows in ascending
-order, and which the kernel repeats operation for operation.
+order, and which the kernel repeats operation for operation. The probe's
+two kernels sum on the tensor cores, in their own order: they agree with
+gram_dual_plain to float32 rounding of the sums, and with each other to the
+bit.
 
 For the block-arrow entry points the block structure is the caller's:
 `chunks` lists old DoF ranges in new order (the permutation as contiguous
@@ -43,10 +49,13 @@ import torch
 # launches of each kernel since the last reset (the plain path adds none)
 LAUNCHES = {"cholesky_factor_blocked_t": 0, "cholesky_resolve_blocked_t": 0,
             "cholesky_solve_blocked_t": 0, "cholesky_resolve_blocked": 0,
-            "cholesky_solve_soa_t": 0, "to_env_last": 0, "gram_diag": 0}
+            "cholesky_solve_soa_t": 0, "to_env_last": 0, "gram_diag": 0,
+            "gram_dual": 0, "gram_dual_batched": 0}
 
 PIVOT_MIN = 1e-12
-GRAM_MAX_C = 80      # gram_diag's kernel: 5 x 5 output tiles, 256 threads
+GRAM_MAX_C = 80      # gram_diag's kernel: 5 x 5 output tiles, 256 threads;
+                     # gram_dual's: 5 m16 x 10 n8 tensor-core tiles
+GRAM_DUAL_MAX_BATCH = 32   # gram_dual_batched: one warp per env
 
 
 def reset_launch_counts():
@@ -245,6 +254,20 @@ def gram_diag_plain(R: torch.Tensor, w: torch.Tensor, diag: torch.Tensor,
     return out
 
 
+def gram_dual_plain(Rt: torch.Tensor, R: torch.Tensor, diag: torch.Tensor):
+    """out[n] = Rt[n] R[n] + diag(diag[n]) in float32, Rt (N, C, M) and
+    R (N, M, C) in bf16, diag (N, C) float32 → (N, C, C). Each product of
+    two bf16 values is formed in float32, where it is exact, the M products
+    are summed in ascending m, then the diagonal is added (as
+    gram_diag_plain does)."""
+    N, C, M = Rt.shape
+    A, B = Rt.float(), R.float()
+    acc = torch.zeros((N, C, C), dtype=torch.float32, device=R.device)
+    for m in range(M):
+        acc = acc + A[:, :, m, None] * B[:, m, None, :]
+    return acc + torch.diag_embed(diag)
+
+
 def solve_soa_plain(At: torch.Tensor, bt: torch.Tensor):
     """Dense right-looking Cholesky solve as `_chol_solve_kernel` does it:
     A (M, M, N), b (M, N) → x (M, N), pivots clamped to PIVOT_MIN, step k
@@ -436,6 +459,67 @@ def gram_diag(R: torch.Tensor, w: torch.Tensor, diag: torch.Tensor,
             w.data_ptr(), diag.data_ptr(), out.data_ptr(), N, M, C, Co,
             int(R.dtype == torch.bfloat16))
     return out
+
+
+def _gram_dual_args(Rt, R, diag, block_envs, max_block=None):
+    """Validate the probe kernels' operands; returns (N, M, C)."""
+    if Rt.dim() != 3 or min(Rt.shape) < 1:
+        raise ValueError(f"Rt must be (N, C, M) with N, C, M ≥ 1, got "
+                         f"{tuple(Rt.shape)}")
+    N, C, M = Rt.shape
+    if C > GRAM_MAX_C:
+        raise ValueError(f"Rt has {C} rows; gram_dual takes at most "
+                         f"{GRAM_MAX_C}")
+    for t, name, shape in ((Rt, "Rt", (N, C, M)), (R, "R", (N, M, C))):
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"{name} must be bfloat16, got {t.dtype}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must have shape {shape}, got "
+                             f"{tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.device != Rt.device:
+            raise ValueError(f"{name} is on {t.device}, expected "
+                             f"{Rt.device}")
+    _check(diag, "diag", (N, C), device=Rt.device)
+    if block_envs < 1 or (max_block is not None and block_envs > max_block):
+        raise ValueError(f"block_envs must lie in [1, {max_block or N}], "
+                         f"got {block_envs}")
+    if N % block_envs:
+        raise ValueError(f"N = {N} envs is not a multiple of block_envs = "
+                         f"{block_envs}")
+    return N, M, C
+
+
+def _gram_dual_launch(name, Rt, R, diag, block_envs, max_block=None):
+    """The plain version on the CPU, else kernel `name` (C entry point
+    emloco_<name>)."""
+    N, M, C = _gram_dual_args(Rt, R, diag, block_envs, max_block)
+    if Rt.device.type == "cpu":
+        return gram_dual_plain(Rt, R, diag)
+    out = torch.empty((N, C, C), dtype=torch.float32, device=Rt.device)
+    _launch(name, Rt.device, getattr(_lib(), f"emloco_{name}"),
+            Rt.data_ptr(), R.data_ptr(), diag.data_ptr(), out.data_ptr(), N,
+            M, C, block_envs)
+    return out
+
+
+def gram_dual(Rt: torch.Tensor, R: torch.Tensor, diag: torch.Tensor,
+              block_envs: int = 8):
+    """The probe's Gram of two operands: Rt (N, C, M) = (w∘R)ᵀ and
+    R (N, M, C) in bf16, diag (N, C) float32 → (N, C, C) float32,
+    out[n] = Rt[n] R[n] + diag(diag[n]); C ≤ 80, N a multiple of
+    block_envs. On the card, one block per `block_envs` envs, taken one after
+    another."""
+    return _gram_dual_launch("gram_dual", Rt, R, diag, block_envs)
+
+
+def gram_dual_batched(Rt: torch.Tensor, R: torch.Tensor, diag: torch.Tensor,
+                      block_envs: int = 8):
+    """gram_dual with the block's envs in flight together (one warp each),
+    block_envs ≤ 32; the same bits as gram_dual on the card."""
+    return _gram_dual_launch("gram_dual_batched", Rt, R, diag, block_envs,
+                             GRAM_DUAL_MAX_BATCH)
 
 
 # ---------------------------------------------------------------------------

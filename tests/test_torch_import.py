@@ -1,5 +1,6 @@
-"""The port stands alone: it imports torch and numpy, never jax, flax or
-emloco_tpu, and its chip smoke script refuses to run without a card."""
+"""The port stands alone: it imports torch and numpy, never jax, flax,
+emloco_tpu or the JAX package's scripts, and its chip smoke script refuses
+to run without a card."""
 import ast
 import os
 import pathlib
@@ -11,7 +12,7 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "emloco_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "emloco_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "emloco_tpu", "scripts")
 
 
 def _no_gpu_env():
@@ -27,7 +28,8 @@ def test_import_pulls_in_no_jax():
         "import emloco_tpu_torch, emloco_tpu_torch.convert, "
         "emloco_tpu_torch.build\n"
         "import emloco_tpu_torch.envs, emloco_tpu_torch.learning, "
-        "emloco_tpu_torch.physics.linalg\n"
+        "emloco_tpu_torch.physics.linalg, "
+        "emloco_tpu_torch.scripts.gram_kernel_probe\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "print(','.join(bad))\n")

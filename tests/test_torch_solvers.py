@@ -248,7 +248,8 @@ def test_solver_kernels_match_plain_on_card(pallas, case, cuda):
     assert linalg.LAUNCHES == {
         "cholesky_factor_blocked_t": 1, "cholesky_resolve_blocked_t": 0,
         "cholesky_solve_blocked_t": 1, "cholesky_resolve_blocked": 1,
-        "cholesky_solve_soa_t": 1, "to_env_last": 1, "gram_diag": 0}
+        "cholesky_solve_soa_t": 1, "to_env_last": 1, "gram_diag": 0,
+        "gram_dual": 0, "gram_dual_batched": 0}
     exact = dict(rtol=0, atol=0)
     torch.testing.assert_close(
         x_f, linalg.solve_blocked_plain(A, b, *ARROW), **exact)
