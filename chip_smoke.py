@@ -5,12 +5,19 @@
 
 Phases, each printed as one JSON line with its elapsed seconds:
   1. build    — nvcc builds the kernels' library into build/ (plain C
-                interface, loaded with ctypes)
+                interface, loaded with ctypes); ptxas's lines (registers,
+                static shared memory, spills per kernel), and the launch
+                shape and dynamic shared memory of the two kernels that
+                keep an env's matrix in shared memory
   2. card     — the card's name and power limit from nvidia-smi
   3. kernels  — both block-arrow Cholesky kernels against their plain
-                PyTorch versions on a real assembled LHS at 4,096 envs and
-                on a random block-arrow SPD batch with a clamped and a
-                near-singular pivot; kernel, plain and library times
+                PyTorch versions on a real assembled LHS at 4,096 envs, on
+                a random block-arrow SPD batch with a clamped and a
+                near-singular pivot, on a ragged one of 4,093 envs (not a
+                multiple of a block's envs) and on a dense SPD batch (every
+                entry nonzero: the factor copies the entries outside the
+                pattern through, as its plain version does); the factor
+                must be bit-equal; kernel, plain and library times
   4. main     — the rollout step at the bench configuration (4,096 envs,
                 sensor_res 32, 15 AMP steps, episode length 168): observe →
                 normalize → actor → env.step for a few control steps, with
@@ -19,10 +26,11 @@ Phases, each printed as one JSON line with its elapsed seconds:
                 the CPU (the port's plain path)
   6. solver_kernels — the fused block-arrow solve, the batch-major resolve,
                 the dense Cholesky solve and the env-last relayout against
-                their plain versions on the same two inputs at 4,096 envs
-                (the relayout also on the (N, 80, 75) staging shape cropped
-                to 75); the fused solve against factor + resolve and the
-                batch-major resolve against the env-last one, bit for bit
+                their plain versions on the same four inputs (the
+                relayout also on the (N, 80, 75) staging shape cropped to
+                75), the dense solve bit for bit; the fused solve against
+                factor + resolve and the batch-major resolve against the
+                env-last one, bit for bit
   7. solver_times — those four kernels' times, their plain versions' and a
                 PyTorch call's that computes the same function
   8. gram_kernel — the weighted Gram kernel against its plain version at
@@ -77,6 +85,7 @@ import time
 T0 = time.time()
 
 NUM_ENVS = 4096
+RAGGED_ENVS = 4093     # a multiple of neither block's envs (32, 16)
 MAIN_STEPS = 4
 PATH_STEPS = 2
 # the engine's solver configurations beside the default, and the kernels
@@ -118,7 +127,8 @@ BF16_TC_FLOP_S = 989e12
 # Kernel vs plain version: both do the same float32 operations in the same
 # order (the library is built without multiply-add contraction), so they
 # should agree to the last bit; 1e-5 of the largest magnitude leaves room for
-# a few ulps and nothing more.
+# a few ulps and nothing more. The factor and the dense solve, whose
+# redesign for the card keeps every entry's roundings, must be bit-equal.
 KERNEL_RTOL = 1e-5
 # Whole step on the card vs on the CPU: matmul sums run in another order, and
 # a Jacobian row entry that rounds to the other bfloat16 neighbour moves by
@@ -184,6 +194,19 @@ def random_arrow_spd(n, arrow, pattern, gen, dev):
     A_new = torch.einsum("ikn,jkn->ijn", L0, L0)
     A = torch.empty_like(A_new)
     A[perm[:, None], perm[None, :]] = A_new
+    return A.contiguous()
+
+
+def dense_spd(n, M, gen, dev):
+    """A = I + (0.1/M)·X Xᵀ, X standard normal: SPD with every entry
+    nonzero. Off-diagonals are about 0.0115 against a diagonal of about
+    1.1, so the part inside the block-arrow pattern is SPD too (diagonally
+    dominant), and the factor of that part has no clamped pivot."""
+    import torch
+    X = torch.randn((M, M, n), generator=gen, device=dev)
+    A = (0.1 / M) * torch.einsum("ikn,jkn->ijn", X, X)
+    d = torch.arange(M, device=dev)
+    A[d, d] += 1.0
     return A.contiguous()
 
 
@@ -351,9 +374,10 @@ def card_vs_cpu(phase, cfg, env, gen, **extra):
 
 
 def solver_kernels(cases, arrow):
-    """Kernels 3, 5, 6 and 7 against their plain versions on each case;
-    the fused solve against factor + resolve and the batch-major resolve
-    against the env-last one, bit for bit. Returns the max abs errors."""
+    """Kernels 3, 5, 6 and 7 against their plain versions on each case,
+    the dense solve bit for bit; the fused solve against factor + resolve
+    and the batch-major resolve against the env-last one, bit for bit.
+    Returns the max abs errors."""
     import torch
     from emloco_tpu_torch.physics import linalg
     errs = dict.fromkeys(("solve", "resolve_bm", "solve_soa", "to_env_last"),
@@ -387,7 +411,8 @@ def solver_kernels(cases, arrow):
             finite = bool(torch.isfinite(k).all())
             report[key] = dict(max_abs_err=e, max_rel_err=r, finite=finite,
                                bit_equal=bool(torch.equal(k, p)))
-            if not (finite and r <= KERNEL_RTOL):
+            if not (finite and r <= KERNEL_RTOL) or (
+                    key == "solve_soa" and not torch.equal(k, p)):
                 bad.append(key)
             base = key.replace("_staged", "")
             errs[base] = max(errs[base], e)
@@ -720,10 +745,16 @@ def main():
     t = time.time()
     lib_path, log = build.build()
     build.load()
+    arrow = (R._ARROW_CHUNKS, R._ARROW_LIMBS, R._ARROW_S)
     emit("build", seconds=round(time.time() - t, 3),
          library=os.path.relpath(lib_path),
          ptxas=[ln.strip() for ln in log.splitlines()
-                if "registers" in ln or "spill" in ln or "Compiling" in ln])
+                if "registers" in ln or "spill" in ln or "Compiling" in ln],
+         shared_memory_kernels={
+             "cholesky_factor_blocked_t": dict(
+                 threads_per_env=32, **linalg.factor_launch_shape(*arrow)),
+             "cholesky_solve_soa_t": dict(
+                 threads_per_env=32, **linalg.dense_launch_shape(R.NU))})
 
     # 2. card ---------------------------------------------------------------
     smi = subprocess.run(
@@ -745,7 +776,6 @@ def main():
          obs_dim=cfg.obs_dim)
 
     # 3. kernels against their plain versions -------------------------------
-    arrow = (R._ARROW_CHUNKS, R._ARROW_LIMBS, R._ARROW_S)
     pattern = linalg.arrow_pattern(R._ARROW_LIMBS, R._ARROW_S, R.NU)
     gen = torch.Generator(device=dev).manual_seed(2)
     (G, W, ground, *_rest) = R._contact_and_jacobians(
@@ -755,12 +785,20 @@ def main():
               + 1e-8 * torch.eye(R.NU, device=dev)[:, :, None]).contiguous()
     # the Gram's inputs from the same reset state, for phases 8 and 9
     gcases = gram_inputs(env, state, cfg.engine, gen)
+    # its own generator, so the later phases' draws stay as they were
+    gen_dense = torch.Generator(device=dev).manual_seed(3)
     cases = {
         "real_lhs": (A_real, torch.randn((R.NU, NUM_ENVS), generator=gen,
                                          device=dev)),
         "random_spd": (random_arrow_spd(NUM_ENVS, arrow, pattern, gen, dev),
                        torch.randn((R.NU, NUM_ENVS), generator=gen,
                                    device=dev)),
+        "ragged": (random_arrow_spd(RAGGED_ENVS, arrow, pattern, gen, dev),
+                   torch.randn((R.NU, RAGGED_ENVS), generator=gen,
+                               device=dev)),
+        "dense_spd": (dense_spd(NUM_ENVS, R.NU, gen_dense, dev),
+                      torch.randn((R.NU, NUM_ENVS), generator=gen_dense,
+                                  device=dev)),
     }
     errs = {"factor": 0.0, "resolve": 0.0}
     for name, (A, b) in cases.items():
@@ -777,9 +815,11 @@ def main():
              resolve_max_rel_err=rx, tolerance_rel=KERNEL_RTOL,
              factor_bit_equal=bool(torch.equal(L_k, L_p)),
              resolve_bit_equal=bool(torch.equal(x_k, x_p)), finite=finite)
-        if not finite or rL > KERNEL_RTOL or rx > KERNEL_RTOL:
+        if (not finite or rL > KERNEL_RTOL or rx > KERNEL_RTOL
+                or not torch.equal(L_k, L_p)):
             raise SystemExit(f"kernel disagrees with its plain version "
-                             f"on {name}: factor {rL:.3g}, resolve {rx:.3g}")
+                             f"on {name}: factor {rL:.3g} (bit-equal "
+                             f"{torch.equal(L_k, L_p)}), resolve {rx:.3g}")
         errs["factor"] = max(errs["factor"], eL)
         errs["resolve"] = max(errs["resolve"], ex)
 

@@ -35,14 +35,15 @@ _INT = ctypes.c_int
 _SIGNATURES = {
     "emloco_block_arrow_factor":
         [_VP, _VP, _INT, _INT, _VP, _INT, _VP, _INT, _VP],
+    "emloco_block_arrow_factor_shape": [_INT, _VP, _INT, _VP, _INT, _VP],
     "emloco_block_arrow_resolve":
         [_VP, _VP, _VP, _VP, _INT, _INT, _VP, _INT, _VP, _INT, _VP],
     "emloco_block_arrow_solve":
         [_VP, _VP, _VP, _VP, _VP, _INT, _INT, _VP, _INT, _VP, _INT, _VP],
     "emloco_block_arrow_resolve_bm":
         [_VP, _VP, _VP, _VP, _INT, _INT, _VP, _INT, _VP, _INT, _VP],
-    "emloco_dense_cholesky_solve":
-        [_VP, _VP, _VP, _VP, _INT, _INT, _VP],
+    "emloco_dense_cholesky_solve": [_VP, _VP, _VP, _INT, _INT, _VP],
+    "emloco_dense_cholesky_shape": [_INT, _VP],
     "emloco_to_env_last": [_VP, _VP, _INT, _INT, _INT, _VP],
     "emloco_gram_diag":
         [_VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT, _INT, _VP],

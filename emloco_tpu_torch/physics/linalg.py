@@ -128,6 +128,42 @@ def _lib():
     return build.load()
 
 
+def _launch_shape(fn, *args) -> dict | None:
+    shape = (ctypes.c_int * 3)()
+    if fn(*args, shape) != 0:
+        return None
+    return dict(envs_per_block=shape[0], threads=shape[1],
+                dynamic_smem_bytes=shape[2])
+
+
+@functools.lru_cache(maxsize=None)
+def factor_launch_shape(chunks, limbs, s_lo: int) -> dict:
+    """The factor kernel's launch for this block structure, from its plan in
+    csrc/block_arrow_cholesky.cu: envs (one warp each), threads and dynamic
+    shared memory bytes a block. Raises ValueError where the kernel cannot
+    take it: limbs that do not tile [0, s_lo) in order, a column with more
+    than 32 rows below its pivot, or a block's envs past its shared memory.
+    Builds the kernels' library on first use."""
+    perm, lim = _plan(tuple(chunks), tuple(limbs), s_lo)
+    shape = _launch_shape(_lib().emloco_block_arrow_factor_shape, len(perm),
+                          perm.ctypes.data, len(lim), lim.ctypes.data, s_lo)
+    if shape is None:
+        raise ValueError(f"the factor kernel cannot take limbs {limbs}, "
+                         f"s_lo = {s_lo}, M = {len(perm)}")
+    return shape
+
+
+@functools.lru_cache(maxsize=None)
+def dense_launch_shape(M: int) -> dict:
+    """The dense solve kernel's launch for M, from its plan in
+    csrc/dense_cholesky.cu, as factor_launch_shape. Raises ValueError for an
+    M past a block's shared memory (M > 83)."""
+    shape = _launch_shape(_lib().emloco_dense_cholesky_shape, M)
+    if shape is None:
+        raise ValueError(f"the dense solve kernel cannot take M = {M}")
+    return shape
+
+
 # ---------------------------------------------------------------------------
 # Plain versions (CPU path, tests, and the kernels' check on the card)
 # ---------------------------------------------------------------------------
@@ -303,13 +339,15 @@ def solve_soa_plain(At: torch.Tensor, bt: torch.Tensor):
 def cholesky_factor_blocked_t(At: torch.Tensor, chunks, limbs, s_lo: int):
     """Factor A (M, M, N) → permuted-order lower-triangular L (M, M, N).
     Pair with cholesky_resolve_blocked_t to reuse one factorization over
-    several solves."""
+    several solves. On the card it raises ValueError on a block structure
+    the kernel cannot take (factor_launch_shape)."""
     chunks, limbs = tuple(chunks), tuple(limbs)
     perm, lim = _plan(chunks, limbs, s_lo)
     M = len(perm)
     N = _check_system(At, "At", M)
     if At.device.type == "cpu":
         return factor_blocked_plain(At, chunks, limbs, s_lo)
+    factor_launch_shape(chunks, limbs, s_lo)
     lib = _lib()
     L = torch.empty_like(At)
     _launch("cholesky_factor_blocked_t", At.device,
@@ -385,18 +423,19 @@ def cholesky_resolve_blocked(L: torch.Tensor, b: torch.Tensor, chunks,
 
 def cholesky_solve_soa_t(At: torch.Tensor, bt: torch.Tensor):
     """Dense Cholesky solve, env-last: A (M, M, N) SPD, b (M, N) →
-    x (M, N)."""
+    x (M, N). On the card it raises ValueError for an M the kernel cannot
+    take (dense_launch_shape)."""
     N = _check_system(At, "At")
     M = At.shape[0]
     _check(bt, "b", (M, N), device=At.device)
     if At.device.type == "cpu":
         return solve_soa_plain(At, bt)
+    dense_launch_shape(M)
     lib = _lib()
-    w = torch.empty_like(At)
     x = torch.empty_like(bt)
     _launch("cholesky_solve_soa_t", At.device,
-            lib.emloco_dense_cholesky_solve, At.data_ptr(), w.data_ptr(),
-            bt.data_ptr(), x.data_ptr(), N, M)
+            lib.emloco_dense_cholesky_solve, At.data_ptr(), bt.data_ptr(),
+            x.data_ptr(), N, M)
     return x
 
 

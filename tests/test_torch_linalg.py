@@ -207,3 +207,78 @@ def test_kernels_match_plain_on_card(systems, case, cuda):
     torch.testing.assert_close(L, L_p, rtol=0, atol=0)
     torch.testing.assert_close(
         x, linalg.resolve_blocked_plain(L_p, b, *ARROW), rtol=0, atol=0)
+
+
+# --------------------------------------------------------------------------
+# lower entries outside the block-arrow pattern
+# --------------------------------------------------------------------------
+
+PATTERN = linalg.arrow_pattern(TR._ARROW_LIMBS, TR._ARROW_S, TR.NU)
+OUTSIDE = np.tril(~PATTERN)              # lower, new order, never updated
+
+
+def _off_pattern(A, seed):
+    """A plus symmetric noise on the entries outside the block-arrow pattern
+    (new order), in A's old order; the entries inside keep their bits."""
+    n = A.shape[-1]
+    noise = (0.01 * np.random.RandomState(seed).randn(TR.NU, TR.NU, n)
+             * OUTSIDE[:, :, None])
+    noise = noise + noise.transpose(1, 0, 2)
+    perm = linalg._plan(*ARROW)[0]
+    B = np.array(A, np.float64)
+    B[perm[:, None], perm[None, :]] += noise
+    return B.astype(np.float32)
+
+
+def _permuted(A):
+    perm = linalg._plan(*ARROW)[0]
+    return A[perm[:, None], perm[None, :]]
+
+
+@pytest.mark.parametrize("case", ["rest_pose", "moving", "random_spd"])
+def test_factor_passes_entries_outside_the_pattern_through(systems, case):
+    """The factor of a matrix that is not zero outside the block-arrow
+    pattern, the function the card's kernel is held to bit for bit: L's
+    lower entries outside the pattern are the permuted A's (no column step
+    updates them, in the Pallas kernel neither), and inside the pattern L
+    is the factor of A without them, bit for bit."""
+    A = systems[case][0]
+    A2 = _off_pattern(A, 18)
+    L = linalg.cholesky_factor_blocked_t(torch.as_tensor(A), *ARROW).numpy()
+    L2 = linalg.cholesky_factor_blocked_t(torch.as_tensor(A2),
+                                          *ARROW).numpy()
+    keep, out = PATTERN[:, :, None], OUTSIDE[:, :, None]
+    np.testing.assert_array_equal(np.where(keep, L2, 0), np.where(keep, L, 0))
+    np.testing.assert_array_equal(np.where(out, L2, 0),
+                                  np.where(out, _permuted(A2), 0))
+    L2_pl = np.asarray(PL.cholesky_factor_blocked_t(jnp.asarray(A2), *ARROW,
+                                                    interpret=True))
+    lower = np.tril(np.ones((TR.NU, TR.NU), bool))[:, :, None]
+    assert_rel_close(np.where(lower, L2, 0.0), np.where(lower, L2_pl, 0.0))
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("n", [1, 37, 4093])
+@pytest.mark.parametrize("kind", ["clamped_pivot", "nan", "off_pattern"])
+def test_factor_kernel_bit_equal_to_plain_on_card(n, kind, cuda):
+    """One block or a ragged last block; env 0's first pivot lies below the
+    clamp; a NaN on a diagonal passes through as in the plain version;
+    entries outside the pattern are copied through untouched."""
+    A = _random_arrow_spd(n, 31)
+    if kind == "nan":
+        A[3, 3, n - 1] = np.nan
+    if kind == "off_pattern":
+        A = _off_pattern(A, 34)
+        want = np.where(OUTSIDE[:, :, None], _permuted(A), 0)
+    A = torch.as_tensor(A, device=cuda)
+    linalg.reset_launch_counts()
+    L = linalg.cholesky_factor_blocked_t(A, *ARROW)
+    torch.cuda.synchronize()
+    assert linalg.LAUNCHES["cholesky_factor_blocked_t"] == 1
+    torch.testing.assert_close(L, linalg.factor_blocked_plain(A, *ARROW),
+                               rtol=0, atol=0, equal_nan=True)
+    assert L[0, 0, 0].item() == pytest.approx(1e-6)      # √(1e-12)
+    assert L[..., n - 1].isnan().any() == (kind == "nan")
+    if kind == "off_pattern":
+        np.testing.assert_array_equal(
+            np.where(OUTSIDE[:, :, None], L.cpu().numpy(), 0), want)

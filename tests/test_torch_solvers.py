@@ -268,3 +268,36 @@ def test_to_env_last_kernel_matches_plain_on_card(pallas, name, cuda):
     torch.testing.assert_close(linalg.to_env_last(R, out_rows=rows),
                                linalg.to_env_last_plain(R, rows),
                                rtol=0, atol=0)
+
+
+# --------------------------------------------------------------------------
+# on the card: the dense solve kernel, bit for bit
+# --------------------------------------------------------------------------
+
+def _dense_spd(n, seed):
+    """X Xᵀ + 10 I, X standard normal: SPD with every entry nonzero."""
+    X = np.random.RandomState(seed).randn(n, M, M)
+    A = X @ X.transpose(0, 2, 1) + 10 * np.eye(M)
+    return np.ascontiguousarray(A.transpose(1, 2, 0)).astype(np.float32)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("n", [1, 37, 4093])
+@pytest.mark.parametrize("kind", ["clamped_pivot", "nan", "dense"])
+def test_dense_solve_kernel_bit_equal_to_plain_on_card(n, kind, cuda):
+    """One block or a ragged last block; env 0's first pivot lies below the
+    clamp; a NaN on a diagonal passes through as in the plain version; a
+    dense SPD matrix updates every entry of the triangle."""
+    A = _dense_spd(n, 35) if kind == "dense" else _random_arrow_spd(n, 32)
+    if kind == "nan":
+        A[3, 3, n - 1] = np.nan
+    A = torch.as_tensor(A, device=cuda)
+    b = torch.as_tensor(np.random.RandomState(33).randn(M, n)
+                        .astype(np.float32), device=cuda)
+    linalg.reset_launch_counts()
+    x = linalg.cholesky_solve_soa_t(A, b)
+    torch.cuda.synchronize()
+    assert linalg.LAUNCHES["cholesky_solve_soa_t"] == 1
+    torch.testing.assert_close(x, linalg.solve_soa_plain(A, b), rtol=0,
+                               atol=0, equal_nan=True)
+    assert x[:, n - 1].isnan().any() == (kind == "nan")
