@@ -7,8 +7,9 @@ Phases, each printed as one JSON line with its elapsed seconds:
   1. build    — nvcc builds the kernels' library into build/ (plain C
                 interface, loaded with ctypes); ptxas's lines (registers,
                 static shared memory, spills per kernel), and the launch
-                shape and dynamic shared memory of the two kernels that
-                keep an env's matrix in shared memory
+                shape and dynamic shared memory of the four kernels that
+                keep an env's matrix in shared memory (factor, resolve,
+                fused solve, dense solve)
   2. card     — the card's name and power limit from nvidia-smi
   3. kernels  — both block-arrow Cholesky kernels against their plain
                 PyTorch versions on a real assembled LHS at 4,096 envs, on
@@ -17,7 +18,8 @@ Phases, each printed as one JSON line with its elapsed seconds:
                 multiple of a block's envs) and on a dense SPD batch (every
                 entry nonzero: the factor copies the entries outside the
                 pattern through, as its plain version does); the factor
-                must be bit-equal; kernel, plain and library times
+                and the resolve must be bit-equal; kernel, plain and
+                library times
   4. main     — the rollout step at the bench configuration (4,096 envs,
                 sensor_res 32, 15 AMP steps, episode length 168): observe →
                 normalize → actor → env.step for a few control steps, with
@@ -28,9 +30,9 @@ Phases, each printed as one JSON line with its elapsed seconds:
                 the dense Cholesky solve and the env-last relayout against
                 their plain versions on the same four inputs (the
                 relayout also on the (N, 80, 75) staging shape cropped to
-                75), the dense solve bit for bit; the fused solve against
-                factor + resolve and the batch-major resolve against the
-                env-last one, bit for bit
+                75), the fused and the dense solve bit for bit; the fused
+                solve against factor + resolve and the batch-major resolve
+                against the env-last one, bit for bit
   7. solver_times — those four kernels' times, their plain versions' and a
                 PyTorch call's that computes the same function
   8. gram_kernel — the weighted Gram kernel against its plain version at
@@ -127,8 +129,9 @@ BF16_TC_FLOP_S = 989e12
 # Kernel vs plain version: both do the same float32 operations in the same
 # order (the library is built without multiply-add contraction), so they
 # should agree to the last bit; 1e-5 of the largest magnitude leaves room for
-# a few ulps and nothing more. The factor and the dense solve, whose
-# redesign for the card keeps every entry's roundings, must be bit-equal.
+# a few ulps and nothing more. The factor, the resolve, the fused and the
+# dense solve, whose redesigns for the card keep every entry's roundings,
+# must be bit-equal.
 KERNEL_RTOL = 1e-5
 # Whole step on the card vs on the CPU: matmul sums run in another order, and
 # a Jacobian row entry that rounds to the other bfloat16 neighbour moves by
@@ -139,6 +142,8 @@ STEP_RTOL = 2.0 ** -8
 # products in different orders lie within 304·2⁻²⁴ of that sum each, or
 # 304·2⁻²³ where the tensor core truncates; together under 2⁻¹³.
 PROBE_TOL = 2.0 ** -13
+# solver_kernels' outputs that must be bit-equal to their plain versions
+BIT_EQUAL = ("solve", "solve_soa")
 # the probe's variants, in the order of scripts/gram_kernel_probe.py
 PROBE_VARIANTS = ("einsum_envlast", "einsum_bm", "kernel_at_b", "kernel_dual",
                   "kernel_dual_batched8", "kernel_dual_batched32",
@@ -375,7 +380,8 @@ def card_vs_cpu(phase, cfg, env, gen, **extra):
 
 def solver_kernels(cases, arrow):
     """Kernels 3, 5, 6 and 7 against their plain versions on each case,
-    the dense solve bit for bit; the fused solve against factor + resolve
+    the fused and the dense solve bit for bit; the fused solve against
+    factor + resolve
     and the batch-major resolve against the env-last one, bit for bit.
     Returns the max abs errors."""
     import torch
@@ -412,7 +418,7 @@ def solver_kernels(cases, arrow):
             report[key] = dict(max_abs_err=e, max_rel_err=r, finite=finite,
                                bit_equal=bool(torch.equal(k, p)))
             if not (finite and r <= KERNEL_RTOL) or (
-                    key == "solve_soa" and not torch.equal(k, p)):
+                    key in BIT_EQUAL and not torch.equal(k, p)):
                 bad.append(key)
             base = key.replace("_staged", "")
             errs[base] = max(errs[base], e)
@@ -753,6 +759,9 @@ def main():
          shared_memory_kernels={
              "cholesky_factor_blocked_t": dict(
                  threads_per_env=32, **linalg.factor_launch_shape(*arrow)),
+             "cholesky_resolve_blocked_t and cholesky_solve_blocked_t":
+                 dict(threads_per_env=32,
+                      **linalg.solve_launch_shape(*arrow)),
              "cholesky_solve_soa_t": dict(
                  threads_per_env=32, **linalg.dense_launch_shape(R.NU))})
 
@@ -816,10 +825,11 @@ def main():
              factor_bit_equal=bool(torch.equal(L_k, L_p)),
              resolve_bit_equal=bool(torch.equal(x_k, x_p)), finite=finite)
         if (not finite or rL > KERNEL_RTOL or rx > KERNEL_RTOL
-                or not torch.equal(L_k, L_p)):
+                or not torch.equal(L_k, L_p) or not torch.equal(x_k, x_p)):
             raise SystemExit(f"kernel disagrees with its plain version "
                              f"on {name}: factor {rL:.3g} (bit-equal "
-                             f"{torch.equal(L_k, L_p)}), resolve {rx:.3g}")
+                             f"{torch.equal(L_k, L_p)}), resolve {rx:.3g} "
+                             f"(bit-equal {torch.equal(x_k, x_p)})")
         errs["factor"] = max(errs["factor"], eL)
         errs["resolve"] = max(errs["resolve"], ex)
 

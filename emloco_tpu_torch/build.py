@@ -37,9 +37,10 @@ _SIGNATURES = {
         [_VP, _VP, _INT, _INT, _VP, _INT, _VP, _INT, _VP],
     "emloco_block_arrow_factor_shape": [_INT, _VP, _INT, _VP, _INT, _VP],
     "emloco_block_arrow_resolve":
-        [_VP, _VP, _VP, _VP, _INT, _INT, _VP, _INT, _VP, _INT, _VP],
+        [_VP, _VP, _VP, _INT, _INT, _VP, _INT, _VP, _INT, _VP],
     "emloco_block_arrow_solve":
-        [_VP, _VP, _VP, _VP, _VP, _INT, _INT, _VP, _INT, _VP, _INT, _VP],
+        [_VP, _VP, _VP, _INT, _INT, _VP, _INT, _VP, _INT, _VP],
+    "emloco_block_arrow_solve_shape": [_INT, _VP, _INT, _VP, _INT, _VP],
     "emloco_block_arrow_resolve_bm":
         [_VP, _VP, _VP, _VP, _INT, _INT, _VP, _INT, _VP, _INT, _VP],
     "emloco_dense_cholesky_solve": [_VP, _VP, _VP, _INT, _INT, _VP],

@@ -1,11 +1,15 @@
 // Device code shared by the block-arrow Cholesky kernels
 // (block_arrow_cholesky.cu: factor, resolve; block_arrow_solve.cu: fused
-// solve, batch-major resolve): the plan, the permuted load of A, the
-// in-place factor and the two triangular sweeps, one thread per env; and
-// the factor in shared memory, one warp per env (packed_factor_warp, at the
-// end), which the dense solve of dense_cholesky.cu runs too. Both factors
-// give every entry the same float32 operations in the same order, so the
-// fused and the split kernels agree to the bit.
+// solve, batch-major resolve) and the dense solve of dense_cholesky.cu.
+//
+// Two designs live here. One thread per env, working in device memory
+// (ArrowPlan, arrow_solves): only the batch-major resolve still runs it.
+// One warp per env with the env's packed triangle in shared memory
+// (PackedPlan, gather_packed, packed_factor_warp, packed_solves_warp,
+// solve_block): the factor, the fused solve, the resolve and, with no limbs,
+// the dense solve's factor. Every design gives every entry the same float32
+// operations in the same order, so the fused and the split kernels, and the
+// env-last and the batch-major resolves, agree to the bit.
 //
 // Layout. A, L are (M, M, N) and env-last vectors (M, N), row-major with the
 // env axis N last: element (i, j) of env e sits at (i*M + j)*N + e. A warp's
@@ -91,53 +95,7 @@ struct EnvVec {
   }
 };
 
-// L = permuted copy of A's lower triangle (new order); upper triangle zero.
-__device__ __forceinline__ void load_permuted(const EnvLastMat<const float>& a,
-                                              const EnvLastMat<float>& l,
-                                              const ArrowPlan& p) {
-  const int m = p.m;
-  for (int i = 0; i < m; ++i) {
-    const int pi = p.perm[i];
-    for (int j = 0; j <= i; ++j) l(i, j) = a(pi, p.perm[j]);
-    for (int j = i + 1; j < m; ++j) l(i, j) = 0.0f;
-  }
-}
-
-// In-place block-arrow Cholesky of the permuted lower triangle in l.
-__device__ __forceinline__ void arrow_factor(const EnvLastMat<float>& l,
-                                             const ArrowPlan& p) {
-  const int m = p.m;
-  // limb columns: scale the column, then update rest-of-limb and shared rows
-  for (int b = 0; b < p.n_limbs; ++b) {
-    const int hi = p.limb_hi[b];
-    for (int k = p.limb_lo[b]; k < hi; ++k) {
-      const float s = sqrtf(clamp_pivot(l(k, k)));
-      l(k, k) = s;
-      for (int i = k + 1; i < hi; ++i) l(i, k) = l(i, k) / s;
-      for (int i = p.s_lo; i < m; ++i) l(i, k) = l(i, k) / s;
-      for (int i = k + 1; i < hi; ++i) {
-        const float ci = l(i, k);
-        for (int j = k + 1; j <= i; ++j) l(i, j) = l(i, j) - ci * l(j, k);
-      }
-      for (int i = p.s_lo; i < m; ++i) {
-        const float ci = l(i, k);
-        for (int j = k + 1; j < hi; ++j) l(i, j) = l(i, j) - ci * l(j, k);
-        for (int j = p.s_lo; j <= i; ++j) l(i, j) = l(i, j) - ci * l(j, k);
-      }
-    }
-  }
-  // shared block: dense Cholesky of the remaining Schur complement
-  for (int k = p.s_lo; k < m; ++k) {
-    const float s = sqrtf(clamp_pivot(l(k, k)));
-    l(k, k) = s;
-    for (int i = k + 1; i < m; ++i) l(i, k) = l(i, k) / s;
-    for (int i = k + 1; i < m; ++i) {
-      const float ci = l(i, k);
-      for (int j = k + 1; j <= i; ++j) l(i, j) = l(i, j) - ci * l(j, k);
-    }
-  }
-}
-
+// The batch-major resolve's sweeps, one thread per env in device memory.
 // Solve L Lᵀ (P x) = P b with the permuted factor: b and x indexed by old
 // DoF, y a scratch vector in new order. The forward sweep is column-
 // oriented (each column pushes into later rows), the backward sweep row-
@@ -191,9 +149,10 @@ __device__ __forceinline__ void arrow_solves(const L& l,
 inline int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
 
 // ---------------------------------------------------------------------------
-// The factor in shared memory, one warp per env: the block-arrow factor of
-// block_arrow_cholesky.cu and, with no limbs (s_lo = 0), the dense solve of
-// dense_cholesky.cu.
+// One warp per env, the env's packed triangle in shared memory: the factor
+// and the resolve of block_arrow_cholesky.cu, the fused solve of
+// block_arrow_solve.cu and, with no limbs (s_lo = 0), the dense solve's
+// factor in dense_cholesky.cu.
 //
 // Packing. The env's in-pattern lower triangle (new order) is stored column
 // by column: column k holds its pivot, then the rows of its pattern below
@@ -212,6 +171,8 @@ struct PackedPlan {
   int m;
   int s_lo;
   int stride;             // floats per env in shared memory (odd)
+  int n_limbs;
+  int limb_lo[kMaxM];     // limb q is [limb_lo[q], col_hi[limb_lo[q]])
   int perm[kMaxM];        // perm[new index] = old DoF index
   int col_hi[kMaxM];      // end of column k's first row segment
   int off[kMaxM + 1];     // column k's first entry; off[m] entries in all
@@ -226,10 +187,12 @@ inline bool make_packed_plan(int m, const int* perm, int n_limbs,
   if (m < 1 || m > kMaxM || n_limbs < 0 || s_lo < 0 || s_lo > m) return false;
   p->m = m;
   p->s_lo = s_lo;
+  p->n_limbs = n_limbs;
   int k = 0;
   for (int b = 0; b < n_limbs; ++b) {
     const int lo = limbs[2 * b], hi = limbs[2 * b + 1];
     if (lo != k || hi <= lo || hi > s_lo) return false;
+    p->limb_lo[b] = lo;
     for (; k < hi; ++k) p->col_hi[k] = hi;
   }
   if (k != s_lo) return false;
@@ -262,11 +225,12 @@ __device__ __forceinline__ int packed_slot(const PackedPlan& p, int i, int j) {
 }
 
 // A block's envs e0.. (env el at smem + el*stride) gather their packed
-// entries from the env-last (m, m, n) A through perm, coalesced: thread tid
-// takes env tid % kEnvs, so consecutive threads read consecutive envs of one
-// element, and the entries tid / kEnvs + r * kThreads / kEnvs, kLoads loads
-// in flight. Envs past n read zeros.
-template <int kEnvs, int kThreads, int kLoads>
+// entries from the env-last (m, m, n) A through perm (kPermute; else A is
+// already in new order, as a factor is), coalesced: thread tid takes env
+// tid % kEnvs, so consecutive threads read consecutive envs of one element,
+// and the entries tid / kEnvs + r * kThreads / kEnvs, kLoads loads in
+// flight. Envs past n read zeros.
+template <int kEnvs, int kThreads, int kLoads, bool kPermute = true>
 __device__ __forceinline__ void gather_packed(const float* __restrict__ a,
                                               float* smem, const PackedPlan& p,
                                               const int e0, const int n) {
@@ -283,7 +247,8 @@ __device__ __forceinline__ void gather_packed(const float* __restrict__ a,
       if (pe < total) {
         while (pe >= p.off[j + 1]) ++j;
         const int i = packed_row(p, j, pe - p.off[j]);
-        v[q] = e < n ? a[((size_t)p.perm[i] * m + p.perm[j]) * sn + e] : 0.0f;
+        const int ai = kPermute ? p.perm[i] : i, aj = kPermute ? p.perm[j] : j;
+        v[q] = e < n ? a[((size_t)ai * m + aj) * sn + e] : 0.0f;
       }
     }
 #pragma unroll
@@ -368,7 +333,7 @@ __device__ __forceinline__ void packed_panel(float* L, const PackedPlan& p,
 // shared memory by the 32 lanes of a warp, RPL rows a lane (a plan with at
 // most 32*RPL rows below a pivot), in panels of 8, 4, 2 or 1 columns that
 // stay inside a limb (or the shared block). Every entry takes its updates
-// in ascending k, as arrow_factor does, so the two agree to the bit.
+// in ascending k, as factor_blocked_plain does, so the two agree to the bit.
 template <int RPL>
 __device__ __forceinline__ void packed_factor_warp(float* L,
                                                    const PackedPlan& p,
@@ -392,6 +357,157 @@ __device__ __forceinline__ void packed_factor_warp(float* L,
       packed_panel<1, RPL>(L, p, lane, k, n1, nr);
       k += 1;
     }
+  }
+}
+
+// Launch shape for a C entry point's caller: shape[0] envs (= warps) a
+// block, shape[1] threads a block, shape[2] dynamic shared memory a block
+// in bytes. Returns 0, or cudaErrorInvalidValue where the plan refused
+// (bytes 0).
+inline int report_shape(size_t bytes, int envs, int threads, void* shape) {
+  if (bytes == 0) return (int)cudaErrorInvalidValue;
+  int* const out = static_cast<int*>(shape);
+  out[0] = envs;
+  out[1] = threads;
+  out[2] = (int)bytes;
+  return 0;
+}
+
+// The two triangular sweeps of one env by the 32 lanes of a warp, with the
+// plain resolve's (resolve_blocked_plain, arrow_solves) operations in its
+// order: L the env's packed factor (at most 32 rows below a pivot), v its
+// right-hand side in new order on entry and its solution in new order on
+// exit, s m floats of scratch, all in shared memory.
+//   Forward, column by column in ascending k: every lane forms
+//   y_k = y_k / L(k,k); lane t takes row i = R_k[t], y_i = y_i - L(i,k)*y_k.
+//   So each y_i takes its updates once per column of its pattern, in
+//   ascending k, whichever lane applies them.
+//   Backward, the shared columns from the last: every lane alike sums
+//   acc = L(i,k)*z_i over the rows i > k in ascending order from 0, and
+//   z_k = (y_k - acc) / L(k,k). Then lane t sums limb column k = t, t+32,
+//   ... over the shared rows in ascending order from 0, into s[k]. Then, the
+//   limbs being independent once the shared z are known, lane q takes limb
+//   q from its last column: the sum over the later rows of the limb in
+//   ascending order from 0 is added to s[k] (a limb's last column adds
+//   nothing), and z_k = (y_k - acc) / L(k,k).
+__device__ __forceinline__ void packed_solves_warp(const float* L, float* v,
+                                                   float* s,
+                                                   const PackedPlan& p,
+                                                   const int lane) {
+  const int m = p.m, s_lo = p.s_lo;
+  for (int k = 0; k < m; ++k) {
+    const int base = p.off[k];
+    const int nr = p.off[k + 1] - base - 1;                 // |R_k| <= 32
+    const float yk = v[k] / L[base];
+    __syncwarp();
+    if (lane == 0) v[k] = yk;
+    if (lane < nr) {
+      const int i = packed_row(p, k, lane + 1);
+      v[i] = v[i] - L[base + 1 + lane] * yk;
+    }
+    __syncwarp();
+  }
+
+  for (int k = m - 1; k >= s_lo; --k) {
+    const float* const col = L + p.off[k] - k;     // col[i] = L(i, k), i >= k
+    float acc = 0.0f;
+    for (int i = k + 1; i < m; ++i) acc = acc + col[i] * v[i];
+    const float zk = (v[k] - acc) / col[k];
+    __syncwarp();
+    if (lane == 0) v[k] = zk;
+    __syncwarp();
+  }
+  for (int k = lane; k < s_lo; k += 32) {
+    // sh[i] = L(i, k) for the shared rows i >= s_lo
+    const float* const sh = L + p.off[k] + p.col_hi[k] - k - s_lo;
+    float acc = 0.0f;
+    for (int i = s_lo; i < m; ++i) acc = acc + sh[i] * v[i];
+    s[k] = acc;
+  }
+  __syncwarp();
+  for (int q = lane; q < p.n_limbs; q += 32) {
+    const int lo = p.limb_lo[q], hi = p.col_hi[lo];
+    for (int k = hi - 1; k >= lo; --k) {
+      const float* const col = L + p.off[k] - k;   // col[i] = L(i, k), i < hi
+      float acc = s[k];
+      if (k + 1 < hi) {
+        float acc_l = 0.0f;
+        for (int i = k + 1; i < hi; ++i) acc_l = acc_l + col[i] * v[i];
+        acc = acc + acc_l;
+      }
+      v[k] = (v[k] - acc) / col[k];
+    }
+  }
+  __syncwarp();
+}
+
+// The block-arrow kernels in shared memory (factor, resolve, fused solve):
+// a block takes kArrowEnvs envs, one warp each. Shared memory holds the
+// envs' packed triangles at p.stride floats, then, for the resolve and the
+// fused solve, their vectors (v, s) at solve_vec_stride(m) floats (odd, so a
+// gather's 32 envs of one element fall on distinct banks).
+constexpr int kArrowEnvs = 32;
+constexpr int kArrowThreads = 32 * kArrowEnvs;
+constexpr int kArrowLoads = 8;         // global loads a thread keeps in flight
+
+__host__ __device__ inline int solve_vec_stride(int m) { return 2 * m + 1; }
+
+// The plan for this block structure and the block's dynamic shared memory in
+// bytes, with vec_floats floats an env after the triangles; 0 if the kernel
+// cannot take it (limbs that do not tile [0, s_lo) in order, more than 32
+// rows below a pivot, or past a block's shared memory).
+inline size_t arrow_plan(int m, const void* perm, int n_limbs,
+                         const void* limbs, int s_lo, int vec_floats,
+                         PackedPlan* p) {
+  if (!make_packed_plan(m, static_cast<const int*>(perm), n_limbs,
+                        static_cast<const int*>(limbs), s_lo, 32, p))
+    return 0;
+  const size_t bytes = sizeof(float) * kArrowEnvs * (p->stride + vec_floats);
+  return bytes <= (size_t)kMaxSmem ? bytes : 0;
+}
+
+// arrow_plan for the resolve and the fused solve.
+inline size_t solve_plan(int m, const void* perm, int n_limbs,
+                         const void* limbs, int s_lo, PackedPlan* p) {
+  return arrow_plan(m, perm, n_limbs, limbs, s_lo, solve_vec_stride(m), p);
+}
+
+// One block of the fused solve (kFactor: A (m, m, n) gathered through perm,
+// then factored) or of the resolve (L (m, m, n) already in new order,
+// gathered as it is): the block gathers its envs' packed triangles and b
+// through perm, coalesced across envs, each warp factors (kFactor) and
+// sweeps its env, and the block writes x through perm, coalesced across
+// envs. No scratch in device memory.
+template <bool kFactor>
+__device__ __forceinline__ void solve_block(float* smem,
+                                            const float* __restrict__ a,
+                                            const float* __restrict__ b,
+                                            float* __restrict__ x,
+                                            const PackedPlan& p, const int n) {
+  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
+  const int e0 = blockIdx.x * kArrowEnvs, m = p.m, vs = solve_vec_stride(m);
+  const size_t sn = (size_t)n;
+  float* const vecs = smem + kArrowEnvs * p.stride;
+
+  gather_packed<kArrowEnvs, kArrowThreads, kArrowLoads, kFactor>(a, smem, p,
+                                                                  e0, n);
+  for (int idx = tid; idx < m * kArrowEnvs; idx += kArrowThreads) {
+    const int el = idx % kArrowEnvs, i = idx / kArrowEnvs, e = e0 + el;
+    if (e < n) vecs[el * vs + i] = b[(size_t)p.perm[i] * sn + e];
+  }
+  __syncthreads();
+
+  if (e0 + w < n) {
+    float* const L = smem + w * p.stride;
+    float* const v = vecs + w * vs;
+    if (kFactor) packed_factor_warp<1>(L, p, lane);
+    packed_solves_warp(L, v, v + m, p, lane);
+  }
+  __syncthreads();
+
+  for (int idx = tid; idx < m * kArrowEnvs; idx += kArrowThreads) {
+    const int el = idx % kArrowEnvs, i = idx / kArrowEnvs, e = e0 + el;
+    if (e < n) x[(size_t)p.perm[i] * sn + e] = vecs[el * vs + i];
   }
 }
 

@@ -9,94 +9,104 @@
 //       (_chol_resolve_blocked_kernel, _permute_vec_in/_out,
 //        _triangular_solves)
 //
-// Layout, structure and numerics: see block_arrow.cuh. The factor runs
-// packed_factor_warp, the resolve arrow_solves (as do the fused solve and
-// the batch-major resolve of block_arrow_solve.cu, with arrow_factor, which
-// rounds every entry as packed_factor_warp does).
+// Layout, structure and numerics: see block_arrow.cuh. Both kernels run
+// one warp per env with the env's packed triangle in shared memory: the
+// factor packed_factor_warp, the resolve packed_solves_warp (the fused solve
+// of block_arrow_solve.cu runs both, so it equals factor + resolve bit for
+// bit).
 //
 // Bounds on the H100 (3.35 TB/s HBM, 67 TFLOP/s f32):
 //   factor:  must read A's in-pattern lower triangle (1,437 floats) and
 //            write the dense L (75*75 floats): 28 KB per env, 116 MB at
 //            4,096 envs -> 0.035 ms. About 31k flops per env (127 MFLOP at
 //            4,096 envs) are far below the compute roof, so bytes bound it.
-//            Design: a block takes kEnvs = 32 envs, one warp each (1,024
+//            Design: a block takes kArrowEnvs = 32 envs, one warp each (1,024
 //            threads). It gathers its envs' in-pattern entries through
 //            perm, once, 32 consecutive envs per element (128-byte loads,
-//            kLoads in flight a thread), into dynamic shared memory, packed
-//            column by column (block_arrow.cuh): 32 * 1,437 * 4 = 183,936
-//            bytes a block, one block an SM, 128 blocks for 4,096 envs, one
-//            wave. Each warp factors its env there in panels of up to 8
-//            columns of a limb, one lane per row below the panel (at most
-//            14 limb + 15 shared rows); then the block writes the dense L,
-//            128 bytes a warp store. A's lower entries outside the pattern
-//            (1,413 floats, zero in the engine's matrices, which the bound
-//            leaves out) are copied from A to L untouched, as the plain
-//            version leaves them. No working copy in device memory. ptxas
-//            (sm_90a): 51 registers, no spill.
+//            kArrowLoads in flight a thread), into dynamic shared memory,
+//            packed column by column (block_arrow.cuh): 32 * 1,437 * 4 =
+//            183,936 bytes a block, one block an SM, 128 blocks for 4,096
+//            envs, one wave. Each warp factors its env there in panels of
+//            up to 8 columns of a limb, one lane per row below the panel
+//            (at most 14 limb + 15 shared rows); then the block writes the
+//            dense L, 128 bytes a warp store. A's lower entries outside the
+//            pattern (1,413 floats, zero in the engine's matrices, which
+//            the bound leaves out) are copied from A to L untouched, as the
+//            plain version leaves them. No working copy in device memory.
+//            ptxas (sm_90a): 51 registers, no spill.
 //            What limits it now (PERF.md): instruction issue in the factor
 //            in shared memory, with half the lanes idle on average in a
 //            panel's triangular update; the gather's reads through perm;
 //            the 5,625-float dense write.
-//   resolve: reads the in-pattern lower triangle of L (1,437 floats = 5.7 KB
-//            per env) plus b and x: 26 MB at 4,096 envs -> 0.008 ms; one
-//            thread per env, the two sweeps keep y in a scratch vector the
-//            wrapper allocates and write z straight into x at its
-//            un-permuted row.
+//   resolve: must read the in-pattern lower triangle of L (1,437 floats)
+//            and b, and write x: 6.3 KB per env, 26 MB at 4,096 envs ->
+//            0.0078 ms; 2 * (2 * 1,362 + 75) flops per env, far below the
+//            compute roof, so bytes bound it.
+//            Design: solve_block<false> of block_arrow.cuh, the fused
+//            solve's block without its factor: 32 envs a block, one warp
+//            each; the block gathers L's in-pattern entries (L is in new
+//            order: no perm) and b through perm into shared memory, each
+//            warp runs the two sweeps there (packed_solves_warp: the
+//            forward sweep a lane per row of a column, the backward sums on
+//            one lane per shared column, then per limb column, then per
+//            limb), the block writes x through perm, coalesced. Only L's
+//            in-pattern entries are read, as the plain resolve and the
+//            Pallas _triangular_solves read only those. 203,264 bytes of
+//            dynamic shared memory a block, 128 blocks for 4,096 envs, one
+//            wave; no scratch in device memory. ptxas (sm_90a): 32
+//            registers, no spill.
+//            What limits it now (PERF.md): the sweeps in shared memory, not
+//            device memory (the gather's 26 MB take about a sixth of its
+//            time at the card's rate): 75 forward column steps, each a
+//            division on every lane and two warp syncs, with at most 29 of
+//            the 32 lanes busy; the backward sums on one lane a column (the
+//            shared block), then a lane a limb (5 of 32 busy).
 
 #include "block_arrow.cuh"
 
 namespace {
 
-using emloco::ArrowPlan;
-using emloco::EnvLastMat;
-using emloco::EnvVec;
+using emloco::kArrowEnvs;
+using emloco::kArrowLoads;
+using emloco::kArrowThreads;
 using emloco::PackedPlan;
 
-constexpr int kEnvs = 32;              // envs (= warps) a block
-constexpr int kFactorThreads = 32 * kEnvs;
-constexpr int kLoads = 8;              // global loads a thread keeps in flight
-
-// The plan for this block structure and its dynamic shared memory a block,
-// in bytes; 0 if the kernel cannot take it (a column with more than 32 rows
-// below its pivot, or kEnvs envs past a block's shared memory).
+// The factor's plan: the packed triangles alone.
 size_t factor_plan(int m, const void* perm, int n_limbs, const void* limbs,
                    int s_lo, PackedPlan* p) {
-  if (!emloco::make_packed_plan(m, static_cast<const int*>(perm), n_limbs,
-                                static_cast<const int*>(limbs), s_lo, 32, p))
-    return 0;
-  const size_t bytes = sizeof(float) * kEnvs * p->stride;
-  return bytes <= (size_t)emloco::kMaxSmem ? bytes : 0;
+  return emloco::arrow_plan(m, perm, n_limbs, limbs, s_lo, 0, p);
 }
 
-__global__ void __launch_bounds__(kFactorThreads)
+__global__ void __launch_bounds__(kArrowThreads)
 factor_kernel(const float* __restrict__ a, float* __restrict__ l,
               const PackedPlan p, const int n) {
   extern __shared__ float smem[];
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
   const int m = p.m;
-  const int e = blockIdx.x * kEnvs + lane;     // this lane's env in I/O
+  const int e = blockIdx.x * kArrowEnvs + lane;     // this lane's env in I/O
   const size_t sn = (size_t)n;
 
   // A's in-pattern entries: warp w takes packed entries w, w+32, ...; lanes
   // the envs
-  emloco::gather_packed<kEnvs, kFactorThreads, kLoads>(
-      a, smem, p, blockIdx.x * kEnvs, n);
+  emloco::gather_packed<kArrowEnvs, kArrowThreads, kArrowLoads>(
+      a, smem, p, blockIdx.x * kArrowEnvs, n);
   __syncthreads();
 
-  if (blockIdx.x * kEnvs + w < n)
+  if (blockIdx.x * kArrowEnvs + w < n)
     emloco::packed_factor_warp<1>(smem + w * p.stride, p, lane);
   __syncthreads();
 
   // the dense L: the factor in the pattern, A's other lower entries copied
   // through untouched (as the plain version leaves them), zero above the
-  // diagonal; warp w takes entries w, w+32, ... of the m*m, kLoads in flight
+  // diagonal; warp w takes entries w, w+32, ... of the m*m, kArrowLoads in
+  // flight
   const float* const mine = smem + lane * p.stride;
   const int mm = m * m;
-  for (int p0 = w; p0 < mm; p0 += kLoads * kEnvs) {
-    float v[kLoads];
+  for (int p0 = w; p0 < mm; p0 += kArrowLoads * kArrowEnvs) {
+    float v[kArrowLoads];
 #pragma unroll
-    for (int q = 0; q < kLoads; ++q) {
-      const int idx = p0 + q * kEnvs, i = idx / m, j = idx - i * m;
+    for (int q = 0; q < kArrowLoads; ++q) {
+      const int idx = p0 + q * kArrowEnvs, i = idx / m, j = idx - i * m;
       v[q] = 0.0f;
       if (idx < mm && j <= i) {
         const int t = emloco::packed_slot(p, i, j);
@@ -107,24 +117,18 @@ factor_kernel(const float* __restrict__ a, float* __restrict__ l,
       }
     }
 #pragma unroll
-    for (int q = 0; q < kLoads; ++q) {
-      const int idx = p0 + q * kEnvs;
+    for (int q = 0; q < kArrowLoads; ++q) {
+      const int idx = p0 + q * kArrowEnvs;
       if (idx < mm && e < n) l[(size_t)idx * sn + e] = v[q];
     }
   }
 }
 
-__global__ void __launch_bounds__(emloco::kThreads)
+__global__ void __launch_bounds__(kArrowThreads)
 resolve_kernel(const float* __restrict__ l, const float* __restrict__ b,
-               float* __restrict__ x, float* __restrict__ y,
-               const ArrowPlan p, const int n) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= n) return;
-  const size_t sn = (size_t)n;
-  emloco::arrow_solves(EnvLastMat<const float>{l, p.m, sn, e},
-                       EnvVec<const float>{b, sn, (size_t)e},
-                       EnvVec<float>{y, sn, (size_t)e},
-                       EnvVec<float>{x, sn, (size_t)e}, p);
+               float* __restrict__ x, const PackedPlan p, const int n) {
+  extern __shared__ float smem[];
+  emloco::solve_block<false>(smem, l, b, x, p, n);
 }
 
 }  // namespace
@@ -145,44 +149,42 @@ int emloco_block_arrow_factor(const void* a, void* l, int n, int m,
       factor_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)bytes);
   if (err != cudaSuccess) return (int)err;
-  factor_kernel<<<(n + kEnvs - 1) / kEnvs, kFactorThreads, bytes,
+  factor_kernel<<<(n + kArrowEnvs - 1) / kArrowEnvs, kArrowThreads, bytes,
                   static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(a), static_cast<float*>(l), p, n);
   return (int)cudaGetLastError();
 }
 
-// emloco_block_arrow_factor's launch for this block structure: shape[0]
-// envs (= warps) a block, shape[1] threads a block, shape[2] dynamic shared
-// memory a block in bytes. Returns 0, or cudaErrorInvalidValue where the
-// factor would refuse it.
+// emloco_block_arrow_factor's launch for this block structure (see
+// emloco::report_shape).
 int emloco_block_arrow_factor_shape(int m, const void* perm, int n_limbs,
                                     const void* limbs, int s_lo,
                                     void* shape) {
   PackedPlan p;
-  const size_t bytes = factor_plan(m, perm, n_limbs, limbs, s_lo, &p);
-  if (bytes == 0) return (int)cudaErrorInvalidValue;
-  int* const out = static_cast<int*>(shape);
-  out[0] = kEnvs;
-  out[1] = kFactorThreads;
-  out[2] = (int)bytes;
-  return 0;
+  return emloco::report_shape(factor_plan(m, perm, n_limbs, limbs, s_lo, &p),
+                              kArrowEnvs, kArrowThreads, shape);
 }
 
-// L (m, m, n) from emloco_block_arrow_factor, b (m, n) -> x (m, n);
-// y (m, n) is scratch the caller allocates.
-int emloco_block_arrow_resolve(const void* l, const void* b, void* x,
-                               void* y, int n, int m, const void* perm,
-                               int n_limbs, const void* limbs, int s_lo,
-                               void* stream) {
-  ArrowPlan p;
-  if (n < 1 ||
-      !emloco::make_plan(m, static_cast<const int*>(perm), n_limbs,
-                         static_cast<const int*>(limbs), s_lo, &p))
-    return (int)cudaErrorInvalidValue;
-  resolve_kernel<<<emloco::blocks_for(n), emloco::kThreads, 0,
+// L (m, m, n) from emloco_block_arrow_factor, b (m, n) -> x (m, n). perm:
+// m ints (host); limbs: n_limbs (lo, hi) pairs (host). Launches on
+// `stream`, allocates nothing, returns cudaGetLastError()
+// (cudaErrorInvalidValue for a block structure solve_plan refuses). Its
+// launch is the fused solve's (emloco_block_arrow_solve_shape).
+int emloco_block_arrow_resolve(const void* l, const void* b, void* x, int n,
+                               int m, const void* perm, int n_limbs,
+                               const void* limbs, int s_lo, void* stream) {
+  PackedPlan p;
+  const size_t bytes = emloco::solve_plan(m, perm, n_limbs, limbs, s_lo, &p);
+  if (n < 1 || bytes == 0) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      resolve_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  resolve_kernel<<<(n + kArrowEnvs - 1) / kArrowEnvs,
+                   kArrowThreads, bytes,
                    static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(l), static_cast<const float*>(b),
-      static_cast<float*>(x), static_cast<float*>(y), p, n);
+      static_cast<float*>(x), p, n);
   return (int)cudaGetLastError();
 }
 

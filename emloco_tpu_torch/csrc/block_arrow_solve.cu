@@ -1,7 +1,6 @@
 // Fused block-arrow Cholesky solve and batch-major resolve for batched
-// 75x75 SPD systems, one thread per env. Built with plain nvcc into the
-// same shared library as block_arrow_cholesky.cu (see
-// emloco_tpu_torch/build.py).
+// 75x75 SPD systems. Built with plain nvcc into the same shared library as
+// block_arrow_cholesky.cu (see emloco_tpu_torch/build.py).
 //
 // Replaces two Pallas TPU kernels of emloco_tpu/physics/pallas_linalg.py:
 //   emloco_block_arrow_solve      <- cholesky_solve_blocked_t
@@ -10,27 +9,37 @@
 //   emloco_block_arrow_resolve_bm <- cholesky_resolve_blocked
 //       (_chol_resolve_blocked_bm_kernel: env-last L, batch-major b and x)
 //
-// Both run the factor and the sweeps of block_arrow.cuh, the same code as
-// the factor and resolve kernels, so the fused solve equals factor + resolve
-// bit for bit and the batch-major resolve equals the env-last one
-// transposed. The TPU kernel kept its factor in VMEM; here it goes to an
-// (M, M, N) scratch in device memory that the wrapper allocates (on the
-// TPU the fused kernel's point was one HBM read of A; on this first GPU
-// design the factor's read-modify-writes go through L1/L2 as in the split
-// kernels).
-//
 // Bounds on the H100 (3.35 TB/s HBM, 67 TFLOP/s f32), 4,096 envs:
 //   solve:      must read A's in-pattern lower triangle (1,437 floats) and
 //               b, and write x: 6.3 KB per env, 26 MB -> 0.0078 ms; the
 //               factor's and sweeps' 37k flops per env (0.15 GFLOP) are
 //               below the compute roof, so bytes bound it.
-//   resolve_bm: as the env-last resolve, 26 MB -> 0.0078 ms. Thread e reads
-//               b and writes x at e*M + i: a warp's 32 accesses to one
-//               element are 300 bytes apart (uncoalesced, one sector each).
-//               This first design does no staging through shared memory;
-//               each env's 75 b values and 75 x values are touched once on
-//               read and up to twice on write, so the cost is 150 sectors
-//               per env against 1,437 coalesced reads of L.
+//               Design: the TPU kernel kept its factor in VMEM; this one
+//               keeps it in shared memory (solve_block<true> of
+//               block_arrow.cuh). A block takes 32 envs, one warp each
+//               (1,024 threads); it gathers their in-pattern entries of A
+//               through perm (the factor's gather_packed, 128-byte loads, 8
+//               in flight a thread) and b through perm; each warp factors
+//               its env with packed_factor_warp, the factor kernel's code,
+//               then runs packed_solves_warp, the resolve's code, so the
+//               fused solve equals factor + resolve bit for bit; the block
+//               writes x through perm, coalesced. 32 * (1,437 + 151) * 4 =
+//               203,264 bytes of dynamic shared memory a block, one block an
+//               SM, 128 blocks for 4,096 envs, one wave. No scratch in device
+//               memory, and no dense factor written. ptxas (sm_90a): 54
+//               registers, no spill.
+//               What limits it now (PERF.md): instruction issue in the factor
+//               in shared memory, as in the factor kernel (the fused solve
+//               takes less than the factor kernel, which also writes the
+//               dense L); then the sweeps' dependent chains, as in the
+//               resolve. How the time splits between the parts is not
+//               measured.
+//   resolve_bm: as the env-last resolve, 26 MB -> 0.0078 ms. Still the first
+//               design, one thread per env (arrow_solves): thread e reads L
+//               in device memory, b and x at e*M + i (a warp's 32 accesses
+//               to one element are 300 bytes apart, one sector each), y in a
+//               scratch vector the wrapper allocates. Its redesign runs
+//               solve_block<false> with batch-major b and x.
 
 #include "block_arrow.cuh"
 
@@ -39,20 +48,13 @@ namespace {
 using emloco::ArrowPlan;
 using emloco::EnvLastMat;
 using emloco::EnvVec;
+using emloco::PackedPlan;
 
-__global__ void __launch_bounds__(emloco::kThreads)
-solve_kernel(const float* __restrict__ a, float* __restrict__ l,
-             const float* __restrict__ b, float* __restrict__ x,
-             float* __restrict__ y, const ArrowPlan p, const int n) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= n) return;
-  const size_t sn = (size_t)n;
-  const EnvLastMat<float> L{l, p.m, sn, e};
-  emloco::load_permuted(EnvLastMat<const float>{a, p.m, sn, e}, L, p);
-  emloco::arrow_factor(L, p);
-  emloco::arrow_solves(L, EnvVec<const float>{b, sn, (size_t)e},
-                       EnvVec<float>{y, sn, (size_t)e},
-                       EnvVec<float>{x, sn, (size_t)e}, p);
+__global__ void __launch_bounds__(emloco::kArrowThreads)
+solve_kernel(const float* __restrict__ a, const float* __restrict__ b,
+             float* __restrict__ x, const PackedPlan p, const int n) {
+  extern __shared__ float smem[];
+  emloco::solve_block<true>(smem, a, b, x, p, n);
 }
 
 __global__ void __launch_bounds__(emloco::kThreads)
@@ -73,25 +75,36 @@ resolve_bm_kernel(const float* __restrict__ l, const float* __restrict__ b,
 
 extern "C" {
 
-// A (m, m, n), b (m, n) -> x (m, n). l (m, m, n) and y (m, n) are scratch
-// the caller allocates (l ends up holding the permuted factor). perm: m
-// ints (host); limbs: n_limbs (lo, hi) pairs (host). Launches on `stream`,
-// allocates nothing, returns cudaGetLastError().
-int emloco_block_arrow_solve(const void* a, void* l, const void* b, void* x,
-                             void* y, int n, int m, const void* perm,
-                             int n_limbs, const void* limbs, int s_lo,
-                             void* stream) {
-  ArrowPlan p;
-  if (n < 1 ||
-      !emloco::make_plan(m, static_cast<const int*>(perm), n_limbs,
-                         static_cast<const int*>(limbs), s_lo, &p))
-    return (int)cudaErrorInvalidValue;
-  solve_kernel<<<emloco::blocks_for(n), emloco::kThreads, 0,
+// A (m, m, n), b (m, n) -> x (m, n). perm: m ints (host); limbs: n_limbs
+// (lo, hi) pairs (host). Launches on `stream`, allocates nothing, returns
+// cudaGetLastError() (cudaErrorInvalidValue for a block structure
+// solve_plan refuses).
+int emloco_block_arrow_solve(const void* a, const void* b, void* x, int n,
+                             int m, const void* perm, int n_limbs,
+                             const void* limbs, int s_lo, void* stream) {
+  PackedPlan p;
+  const size_t bytes = emloco::solve_plan(m, perm, n_limbs, limbs, s_lo, &p);
+  if (n < 1 || bytes == 0) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      solve_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  solve_kernel<<<(n + emloco::kArrowEnvs - 1) / emloco::kArrowEnvs,
+                 emloco::kArrowThreads, bytes,
                  static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(a), static_cast<float*>(l),
-      static_cast<const float*>(b), static_cast<float*>(x),
-      static_cast<float*>(y), p, n);
+      static_cast<const float*>(a), static_cast<const float*>(b),
+      static_cast<float*>(x), p, n);
   return (int)cudaGetLastError();
+}
+
+// emloco_block_arrow_solve's launch for this block structure, and
+// emloco_block_arrow_resolve's, which has the same plan (see
+// emloco::report_shape).
+int emloco_block_arrow_solve_shape(int m, const void* perm, int n_limbs,
+                                   const void* limbs, int s_lo, void* shape) {
+  PackedPlan p;
+  return emloco::report_shape(
+      emloco::solve_plan(m, perm, n_limbs, limbs, s_lo, &p),
+      emloco::kArrowEnvs, emloco::kArrowThreads, shape);
 }
 
 // L (m, m, n) env-last from emloco_block_arrow_factor, b (n, m)

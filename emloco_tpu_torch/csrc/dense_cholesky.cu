@@ -157,19 +157,10 @@ int emloco_dense_cholesky_solve(const void* a, const void* b, void* x, int n,
   return (int)cudaGetLastError();
 }
 
-// emloco_dense_cholesky_solve's launch for m: shape[0] envs (= warps) a
-// block, shape[1] threads a block, shape[2] dynamic shared memory a block
-// in bytes. Returns 0, or cudaErrorInvalidValue where the solve would
-// refuse m.
+// emloco_dense_cholesky_solve's launch for m (see emloco::report_shape).
 int emloco_dense_cholesky_shape(int m, void* shape) {
   PackedPlan p;
-  const size_t bytes = dense_plan(m, &p);
-  if (bytes == 0) return (int)cudaErrorInvalidValue;
-  int* const out = static_cast<int*>(shape);
-  out[0] = kEnvs;
-  out[1] = kThreads;
-  out[2] = (int)bytes;
-  return 0;
+  return emloco::report_shape(dense_plan(m, &p), kEnvs, kThreads, shape);
 }
 
 }  // extern "C"

@@ -136,6 +136,16 @@ def _launch_shape(fn, *args) -> dict | None:
                 dynamic_smem_bytes=shape[2])
 
 
+def _arrow_launch_shape(kernel, entry, chunks, limbs, s_lo) -> dict:
+    perm, lim = _plan(tuple(chunks), tuple(limbs), s_lo)
+    shape = _launch_shape(getattr(_lib(), entry), len(perm),
+                          perm.ctypes.data, len(lim), lim.ctypes.data, s_lo)
+    if shape is None:
+        raise ValueError(f"the {kernel} kernel cannot take limbs {limbs}, "
+                         f"s_lo = {s_lo}, M = {len(perm)}")
+    return shape
+
+
 @functools.lru_cache(maxsize=None)
 def factor_launch_shape(chunks, limbs, s_lo: int) -> dict:
     """The factor kernel's launch for this block structure, from its plan in
@@ -144,13 +154,17 @@ def factor_launch_shape(chunks, limbs, s_lo: int) -> dict:
     take it: limbs that do not tile [0, s_lo) in order, a column with more
     than 32 rows below its pivot, or a block's envs past its shared memory.
     Builds the kernels' library on first use."""
-    perm, lim = _plan(tuple(chunks), tuple(limbs), s_lo)
-    shape = _launch_shape(_lib().emloco_block_arrow_factor_shape, len(perm),
-                          perm.ctypes.data, len(lim), lim.ctypes.data, s_lo)
-    if shape is None:
-        raise ValueError(f"the factor kernel cannot take limbs {limbs}, "
-                         f"s_lo = {s_lo}, M = {len(perm)}")
-    return shape
+    return _arrow_launch_shape("factor", "emloco_block_arrow_factor_shape",
+                               chunks, limbs, s_lo)
+
+
+@functools.lru_cache(maxsize=None)
+def solve_launch_shape(chunks, limbs, s_lo: int) -> dict:
+    """The launch of the fused solve (csrc/block_arrow_solve.cu) and of the
+    resolve (csrc/block_arrow_cholesky.cu), which share one plan, as
+    factor_launch_shape: their block also holds each env's two vectors."""
+    return _arrow_launch_shape("solve", "emloco_block_arrow_solve_shape",
+                               chunks, limbs, s_lo)
 
 
 @functools.lru_cache(maxsize=None)
@@ -359,7 +373,9 @@ def cholesky_factor_blocked_t(At: torch.Tensor, chunks, limbs, s_lo: int):
 def cholesky_resolve_blocked_t(L: torch.Tensor, bt: torch.Tensor, chunks,
                                limbs, s_lo: int):
     """Solve with a factor from cholesky_factor_blocked_t: L (M, M, N),
-    b (M, N) → x (M, N)."""
+    b (M, N) → x (M, N). Reads only L's entries in the block-arrow pattern.
+    On the card it raises ValueError on a block structure the kernel cannot
+    take (solve_launch_shape)."""
     chunks, limbs = tuple(chunks), tuple(limbs)
     perm, lim = _plan(chunks, limbs, s_lo)
     M = len(perm)
@@ -367,13 +383,12 @@ def cholesky_resolve_blocked_t(L: torch.Tensor, bt: torch.Tensor, chunks,
     _check(bt, "b", (M, N), device=L.device)
     if L.device.type == "cpu":
         return resolve_blocked_plain(L, bt, chunks, limbs, s_lo)
-    lib = _lib()
+    solve_launch_shape(chunks, limbs, s_lo)
     x = torch.empty_like(bt)
-    y = torch.empty_like(bt)
     _launch("cholesky_resolve_blocked_t", L.device,
-            lib.emloco_block_arrow_resolve, L.data_ptr(), bt.data_ptr(),
-            x.data_ptr(), y.data_ptr(), N, M, perm.ctypes.data, len(lim),
-            lim.ctypes.data, s_lo)
+            _lib().emloco_block_arrow_resolve, L.data_ptr(), bt.data_ptr(),
+            x.data_ptr(), N, M, perm.ctypes.data, len(lim), lim.ctypes.data,
+            s_lo)
     return x
 
 
@@ -381,7 +396,9 @@ def cholesky_solve_blocked_t(At: torch.Tensor, bt: torch.Tensor, chunks,
                              limbs, s_lo: int):
     """Fused block-arrow solve, env-last: A (M, M, N), b (M, N) → x (M, N).
     A must be zero outside the block-arrow pattern of (chunks, limbs,
-    s_lo), as for cholesky_factor_blocked_t."""
+    s_lo), as for cholesky_factor_blocked_t (its entries outside the
+    pattern are not read). On the card it raises ValueError on a block structure the
+    kernel cannot take (solve_launch_shape)."""
     chunks, limbs = tuple(chunks), tuple(limbs)
     perm, lim = _plan(chunks, limbs, s_lo)
     M = len(perm)
@@ -389,14 +406,12 @@ def cholesky_solve_blocked_t(At: torch.Tensor, bt: torch.Tensor, chunks,
     _check(bt, "b", (M, N), device=At.device)
     if At.device.type == "cpu":
         return solve_blocked_plain(At, bt, chunks, limbs, s_lo)
-    lib = _lib()
-    L = torch.empty_like(At)
+    solve_launch_shape(chunks, limbs, s_lo)
     x = torch.empty_like(bt)
-    y = torch.empty_like(bt)
     _launch("cholesky_solve_blocked_t", At.device,
-            lib.emloco_block_arrow_solve, At.data_ptr(), L.data_ptr(),
-            bt.data_ptr(), x.data_ptr(), y.data_ptr(), N, M,
-            perm.ctypes.data, len(lim), lim.ctypes.data, s_lo)
+            _lib().emloco_block_arrow_solve, At.data_ptr(), bt.data_ptr(),
+            x.data_ptr(), N, M, perm.ctypes.data, len(lim), lim.ctypes.data,
+            s_lo)
     return x
 
 

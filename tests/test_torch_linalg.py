@@ -9,24 +9,35 @@ rounding: 1e-5 of the largest magnitude (a few ulps, amplified only by the
 system's conditioning, which is below ~1e3 for these matrices).
 
 The CUDA kernels cannot run here; the tests marked requires_cuda hold them
-against the plain versions on a card and skip without one.
+against the plain versions on a card and skip without one. The `*_bit_equal_
+to_plain_on_card` tests need neither jax nor the JAX package, so they also
+run where jax is not installed, without the test harness's conftest (which
+imports jax):
+
+    python -m pytest --noconftest tests/test_torch_linalg.py \
+        tests/test_torch_solvers.py -k bit_equal_to_plain_on_card
 """
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from emloco_tpu.kinematics import body_model as jbm
-from emloco_tpu.ops import quat as jq
-from emloco_tpu.physics import EngineConfig as JEngineConfig
-from emloco_tpu.physics import pallas_linalg as PL
-from emloco_tpu.physics import reduced as JR
-from emloco_tpu.physics.terrain import flat_terrain
+try:
+    import jax.numpy as jnp
+    from emloco_tpu.kinematics import body_model as jbm
+    from emloco_tpu.ops import quat as jq
+    from emloco_tpu.physics import EngineConfig as JEngineConfig
+    from emloco_tpu.physics import pallas_linalg as PL
+    from emloco_tpu.physics import reduced as JR
+    from emloco_tpu.physics.terrain import flat_terrain
+except ModuleNotFoundError:      # only the card tests can run without jax
+    jnp = None
 from emloco_tpu_torch.physics import linalg
 from emloco_tpu_torch.physics import reduced as TR
 
 ARROW = (TR._ARROW_CHUNKS, TR._ARROW_LIMBS, TR._ARROW_S)
 RTOL = 1e-5
+PATTERN = linalg.arrow_pattern(TR._ARROW_LIMBS, TR._ARROW_S, TR.NU)
+OUTSIDE = np.tril(~PATTERN)              # lower, new order, never updated
 
 
 def assert_rel_close(actual, desired, rtol=RTOL):
@@ -113,6 +124,19 @@ def systems():
     return out
 
 
+@pytest.fixture(scope="module")
+def nan_outside(systems):
+    """Per case: the Pallas resolve of the Pallas factor with NaN in every
+    entry outside the block-arrow pattern (the upper triangle included), at
+    the shapes `systems` traced."""
+    out = {}
+    for name, (_, b, L_pl, _) in systems.items():
+        L_nan = np.where(PATTERN[:, :, None], L_pl, np.float32(np.nan))
+        out[name] = np.asarray(PL.cholesky_resolve_blocked_t(
+            jnp.asarray(L_nan), jnp.asarray(b), *ARROW, interpret=True))
+    return out
+
+
 def test_arrow_blocks_match_jax():
     assert TR._arrow_blocks() == JR._arrow_blocks()
     assert ARROW == (JR._ARROW_CHUNKS, JR._ARROW_LIMBS, JR._ARROW_S)
@@ -138,6 +162,22 @@ def test_plain_resolve_matches_pallas(systems, case):
     L = linalg.cholesky_factor_blocked_t(torch.as_tensor(A), *ARROW)
     x = linalg.cholesky_resolve_blocked_t(L, torch.as_tensor(b), *ARROW)
     assert_rel_close(x.numpy(), x_pl)
+
+
+@pytest.mark.parametrize("case", ["rest_pose", "moving", "random_spd"])
+def test_resolve_reads_only_the_pattern(systems, nan_outside, case):
+    """NaN in every entry of L outside the block-arrow pattern changes
+    neither the plain resolve nor the Pallas one (run on its own factor) by
+    a bit: both read only the pattern, the contract the resolve kernel's
+    packed gather rests on."""
+    A, b, L_pl, x_pl = systems[case]
+    L = linalg.cholesky_factor_blocked_t(torch.as_tensor(A), *ARROW)
+    L_nan = L.masked_fill(~torch.as_tensor(PATTERN)[:, :, None], np.nan)
+    b = torch.as_tensor(b)
+    torch.testing.assert_close(
+        linalg.cholesky_resolve_blocked_t(L_nan, b, *ARROW),
+        linalg.cholesky_resolve_blocked_t(L, b, *ARROW), rtol=0, atol=0)
+    np.testing.assert_array_equal(nan_outside[case], x_pl)
 
 
 def test_plain_solve_is_a_solution():
@@ -213,9 +253,6 @@ def test_kernels_match_plain_on_card(systems, case, cuda):
 # lower entries outside the block-arrow pattern
 # --------------------------------------------------------------------------
 
-PATTERN = linalg.arrow_pattern(TR._ARROW_LIMBS, TR._ARROW_S, TR.NU)
-OUTSIDE = np.tril(~PATTERN)              # lower, new order, never updated
-
 
 def _off_pattern(A, seed):
     """A plus symmetric noise on the entries outside the block-arrow pattern
@@ -282,3 +319,36 @@ def test_factor_kernel_bit_equal_to_plain_on_card(n, kind, cuda):
     if kind == "off_pattern":
         np.testing.assert_array_equal(
             np.where(OUTSIDE[:, :, None], L.cpu().numpy(), 0), want)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("n", [1, 37, 4093])
+@pytest.mark.parametrize("kind", ["clamped_pivot", "nan",
+                                  "nan_outside_pattern"])
+def test_resolve_kernel_bit_equal_to_plain_on_card(n, kind, cuda):
+    """One block or a ragged last block; env 0's first pivot was clamped; a
+    NaN on a diagonal of A passes through the factor and the resolve as in
+    the plain versions; NaN in L outside the pattern is never read. The
+    resolve of the factor is the fused solve, bit for bit."""
+    A = _random_arrow_spd(n, 38)
+    if kind == "nan":
+        A[3, 3, n - 1] = np.nan
+    A = torch.as_tensor(A, device=cuda)
+    b = torch.as_tensor(np.random.RandomState(39).randn(TR.NU, n)
+                        .astype(np.float32), device=cuda)
+    L = linalg.cholesky_factor_blocked_t(A, *ARROW)
+    if kind == "nan_outside_pattern":
+        L = L.masked_fill(~torch.as_tensor(PATTERN, device=cuda)[:, :, None],
+                          np.nan)
+    linalg.reset_launch_counts()
+    x = linalg.cholesky_resolve_blocked_t(L, b, *ARROW)
+    torch.cuda.synchronize()
+    want = dict.fromkeys(linalg.LAUNCHES, 0)
+    want["cholesky_resolve_blocked_t"] = 1
+    assert linalg.LAUNCHES == want
+    exact = dict(rtol=0, atol=0, equal_nan=True)
+    torch.testing.assert_close(
+        x, linalg.resolve_blocked_plain(L, b, *ARROW), **exact)
+    torch.testing.assert_close(
+        x, linalg.cholesky_solve_blocked_t(A, b, *ARROW), **exact)
+    assert x[:, n - 1].isnan().any() == (kind == "nan")

@@ -13,18 +13,24 @@ are the same, so fused vs split and batch-major vs env-last agree bit for
 bit, as the JAX kernels do (tests/test_engine.py:836-839).
 
 The CUDA kernels cannot run here; the tests marked requires_cuda hold them
-against the plain versions on a card and skip without one.
+against the plain versions on a card and skip without one (the
+`*_bit_equal_to_plain_on_card` ones also run without jax: see
+tests/test_torch_linalg.py).
 """
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from emloco_tpu.physics import pallas_linalg as PL
+try:
+    import jax.numpy as jnp
+    from emloco_tpu.physics import pallas_linalg as PL
+except ModuleNotFoundError:      # only the card tests can run without jax
+    jnp = None
 from emloco_tpu_torch.physics import linalg
 from emloco_tpu_torch.physics import reduced as TR
 from test_torch_linalg import (ARROW, _jax_lhs_moving, _jax_lhs_rest_pose,
-                               _random_arrow_spd, assert_rel_close)
+                               _off_pattern, _random_arrow_spd,
+                               assert_rel_close)
 
 CASES = ("rest_pose", "moving", "random_spd")
 E = 4                                   # envs per case
@@ -54,6 +60,10 @@ def pallas():
     out = dict(A=A, b=b, L=L)
     out["x_fused"] = np.asarray(PL.cholesky_solve_blocked_t(
         jnp.asarray(A), jnp.asarray(b), *ARROW, interpret=True))
+    # A with noise on its entries outside the block-arrow pattern
+    out["A_off"] = _off_pattern(A, 28)
+    out["x_fused_off"] = np.asarray(PL.cholesky_solve_blocked_t(
+        jnp.asarray(out["A_off"]), jnp.asarray(b), *ARROW, interpret=True))
     out["x_soa"] = np.asarray(PL.cholesky_solve_soa_t(
         jnp.asarray(A), jnp.asarray(b), interpret=True))
     # the batch-major resolve takes the port's factor: the Pallas kernel
@@ -78,6 +88,21 @@ def test_plain_fused_solve_matches_pallas(pallas, case):
     A, b = _cases(pallas["A"], case), _cases(pallas["b"], case)
     x = linalg.cholesky_solve_blocked_t(_t(A), _t(b), *ARROW)
     assert_rel_close(x.numpy(), _cases(pallas["x_fused"], case))
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_fused_solve_reads_only_the_pattern(pallas, case):
+    """A's entries outside the block-arrow pattern change neither the plain
+    fused solve nor the Pallas one by a bit: both read only the pattern, the
+    contract the fused kernel's packed gather rests on."""
+    A, b = _cases(pallas["A"], case), _t(_cases(pallas["b"], case))
+    A_off = _cases(pallas["A_off"], case)
+    assert not np.array_equal(A_off, A)
+    torch.testing.assert_close(
+        linalg.cholesky_solve_blocked_t(_t(A_off), b, *ARROW),
+        linalg.cholesky_solve_blocked_t(_t(A), b, *ARROW), rtol=0, atol=0)
+    np.testing.assert_array_equal(_cases(pallas["x_fused_off"], case),
+                                  _cases(pallas["x_fused"], case))
 
 
 @pytest.mark.parametrize("case", CASES)
@@ -300,4 +325,39 @@ def test_dense_solve_kernel_bit_equal_to_plain_on_card(n, kind, cuda):
     assert linalg.LAUNCHES["cholesky_solve_soa_t"] == 1
     torch.testing.assert_close(x, linalg.solve_soa_plain(A, b), rtol=0,
                                atol=0, equal_nan=True)
+    assert x[:, n - 1].isnan().any() == (kind == "nan")
+
+
+# --------------------------------------------------------------------------
+# on the card: the fused solve kernel, bit for bit
+# --------------------------------------------------------------------------
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("n", [1, 37, 4093])
+@pytest.mark.parametrize("kind", ["clamped_pivot", "nan", "off_pattern"])
+def test_fused_solve_kernel_bit_equal_to_plain_on_card(n, kind, cuda):
+    """One block or a ragged last block; env 0's first pivot lies below the
+    clamp; a NaN on a diagonal passes through as in the plain version;
+    entries outside the pattern are never read. The fused solve is the
+    factor then the resolve, bit for bit."""
+    A = _random_arrow_spd(n, 36)
+    if kind == "nan":
+        A[3, 3, n - 1] = np.nan
+    if kind == "off_pattern":
+        A = _off_pattern(A, 37)
+    A = torch.as_tensor(A, device=cuda)
+    b = torch.as_tensor(np.random.RandomState(40).randn(M, n)
+                        .astype(np.float32), device=cuda)
+    linalg.reset_launch_counts()
+    x = linalg.cholesky_solve_blocked_t(A, b, *ARROW)
+    torch.cuda.synchronize()
+    want = dict.fromkeys(linalg.LAUNCHES, 0)
+    want["cholesky_solve_blocked_t"] = 1
+    assert linalg.LAUNCHES == want
+    exact = dict(rtol=0, atol=0, equal_nan=True)
+    torch.testing.assert_close(
+        x, linalg.solve_blocked_plain(A, b, *ARROW), **exact)
+    L = linalg.cholesky_factor_blocked_t(A, *ARROW)
+    torch.testing.assert_close(
+        x, linalg.cholesky_resolve_blocked_t(L, b, *ARROW), **exact)
     assert x[:, n - 1].isnan().any() == (kind == "nan")
