@@ -65,9 +65,12 @@ Phases, each printed as one JSON line with its elapsed seconds:
                 seed-0 operands (M = 304) and on the reset state's bf16
                 merged rows (M = 256), and on a small ragged case (M = 37):
                 within 2^-13 of the sum of |products| per entry, the three
-                outputs bit-equal, finite, each kernel launched
+                outputs bit-equal, finite, each kernel launched; with the
+                SHA-256 of each output's bytes, so that two trees' kernels
+                can be compared by their smokes' probe_kernels lines
  13. probe_times — their times, their plain version's and a bf16 `bmm`'s
-                with float32 output at the probe's shapes; then `probe`:
+                with float32 output at the probe's shapes, each kernel's
+                bound and its time's share of it; then `probe`:
                 emloco_tpu_torch.scripts.gram_kernel_probe at full size
                 (4,096 envs), its variant lines echoed under the phase
                 name, with the kernels' launch counts read around it
@@ -77,6 +80,7 @@ runs nothing.
 """
 import contextlib
 import dataclasses
+import hashlib
 import io
 import json
 import os
@@ -591,7 +595,8 @@ def probe_kernels(cases):
     """gram_dual and gram_dual_batched (blocks of 8 and 32) against
     gram_dual_plain on each case: per entry within PROBE_TOL of the sum of
     |products| plus |d| on the diagonal, the three outputs bit-equal,
-    finite, and each kernel launched. Returns the max abs errors."""
+    finite, and each kernel launched; reports the SHA-256 of each output's
+    bytes. Returns the max abs errors."""
     import torch
     from emloco_tpu_torch.physics import linalg
     errs = {"gram_dual": 0.0, "gram_dual_batched": 0.0}
@@ -615,7 +620,10 @@ def probe_kernels(cases):
             finite = bool(torch.isfinite(k).all())
             report[key] = dict(max_abs_err=diff.max().item(),
                                max_err_over_gate=ratio, finite=finite,
-                               bit_equal_plain=bool(torch.equal(k, plain)))
+                               bit_equal_plain=bool(torch.equal(k, plain)),
+                               sha256=hashlib.sha256(
+                                   k.contiguous().cpu().numpy().tobytes()
+                               ).hexdigest())
             if not (finite and ratio <= 1.0):
                 bad.append(key)
             base = key.replace("32", "")
@@ -962,6 +970,11 @@ def main():
     for key in p_times:
         bounds[key] = (p_bytes, p_flops)
         peaks[key] = BF16_TC_FLOP_S
+    p_bound = max(p_bytes / HBM_BYTES_S, p_flops / BF16_TC_FLOP_S) * 1e3
+    for t in p_times.values():
+        t.update(bound_ms=p_bound, bound_share=p_bound / t["ms"])
+    p_times["gram_dual_batched"]["bound_share_block32"] = (
+        p_bound / p_times["gram_dual_batched"]["ms_block32"])
     emit("probe_times", card=card, **p_times, bytes=p_bytes, flops=p_flops,
          flop_peak=BF16_TC_FLOP_S)
     by_path["probe"], _ = run_probe()

@@ -55,7 +55,6 @@ LAUNCHES = {"cholesky_factor_blocked_t": 0, "cholesky_resolve_blocked_t": 0,
 PIVOT_MIN = 1e-12
 GRAM_MAX_C = 80      # gram_diag's kernel: 5 x 5 output tiles, 256 threads;
                      # gram_dual's: 5 m16 x 10 n8 tensor-core tiles
-GRAM_DUAL_MAX_BATCH = 32   # gram_dual_batched: one warp per env
 
 
 def reset_launch_counts():
@@ -515,7 +514,7 @@ def gram_diag(R: torch.Tensor, w: torch.Tensor, diag: torch.Tensor,
     return out
 
 
-def _gram_dual_args(Rt, R, diag, block_envs, max_block=None):
+def _gram_dual_args(Rt, R, diag, block_envs):
     """Validate the probe kernels' operands; returns (N, M, C)."""
     if Rt.dim() != 3 or min(Rt.shape) < 1:
         raise ValueError(f"Rt must be (N, C, M) with N, C, M ≥ 1, got "
@@ -536,19 +535,19 @@ def _gram_dual_args(Rt, R, diag, block_envs, max_block=None):
             raise ValueError(f"{name} is on {t.device}, expected "
                              f"{Rt.device}")
     _check(diag, "diag", (N, C), device=Rt.device)
-    if block_envs < 1 or (max_block is not None and block_envs > max_block):
-        raise ValueError(f"block_envs must lie in [1, {max_block or N}], "
-                         f"got {block_envs}")
+    if not 1 <= block_envs <= N:
+        raise ValueError(f"block_envs must lie in [1, {N}], got "
+                         f"{block_envs}")
     if N % block_envs:
         raise ValueError(f"N = {N} envs is not a multiple of block_envs = "
                          f"{block_envs}")
     return N, M, C
 
 
-def _gram_dual_launch(name, Rt, R, diag, block_envs, max_block=None):
+def _gram_dual_launch(name, Rt, R, diag, block_envs):
     """The plain version on the CPU, else kernel `name` (C entry point
     emloco_<name>)."""
-    N, M, C = _gram_dual_args(Rt, R, diag, block_envs, max_block)
+    N, M, C = _gram_dual_args(Rt, R, diag, block_envs)
     if Rt.device.type == "cpu":
         return gram_dual_plain(Rt, R, diag)
     out = torch.empty((N, C, C), dtype=torch.float32, device=Rt.device)
@@ -570,10 +569,10 @@ def gram_dual(Rt: torch.Tensor, R: torch.Tensor, diag: torch.Tensor,
 
 def gram_dual_batched(Rt: torch.Tensor, R: torch.Tensor, diag: torch.Tensor,
                       block_envs: int = 8):
-    """gram_dual with the block's envs in flight together (one warp each),
-    block_envs ≤ 32; the same bits as gram_dual on the card."""
-    return _gram_dual_launch("gram_dual_batched", Rt, R, diag, block_envs,
-                             GRAM_DUAL_MAX_BATCH)
+    """gram_dual with two of the block's envs in flight together, the block
+    in rounds of two (one env at a time where block_envs is odd); the same
+    bits as gram_dual on the card."""
+    return _gram_dual_launch("gram_dual_batched", Rt, R, diag, block_envs)
 
 
 # ---------------------------------------------------------------------------

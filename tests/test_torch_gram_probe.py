@@ -11,6 +11,10 @@ the sum of |products|; at M ≤ 304 the two together stay under
 2⁻¹⁵, plus one rounding of the diagonal's add. The CUDA kernels sum on the
 tensor cores in their own order; the test marked requires_cuda holds them to
 2⁻¹³ of the same sum (as chip_smoke.py does) and skips without a card.
+It needs neither jax nor the JAX package, so it also runs where jax is not
+installed, without the test harness's conftest (which imports jax):
+
+    python -m pytest --noconftest tests/test_torch_gram_probe.py -k on_card
 
 The JAX probe has no package and sets M, C and its size at import; it is
 loaded from its file, and its gram_dual reads M from the module, so the
@@ -23,16 +27,19 @@ import json
 import pathlib
 import re
 
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from emloco_tpu.physics import EngineConfig as JEngineConfig
-from emloco_tpu.physics import reduced as JR
+try:
+    import jax.numpy as jnp
+    from emloco_tpu.physics import EngineConfig as JEngineConfig
+    from emloco_tpu.physics import reduced as JR
+    from test_torch_physics import world  # noqa: F401
+except ModuleNotFoundError:      # only the card test can run without jax
+    jnp = None
 from emloco_tpu_torch.physics import linalg
 from emloco_tpu_torch.scripts import gram_kernel_probe as probe
-from test_torch_physics import world  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 JAX_PROBE = ROOT / "scripts" / "gram_kernel_probe.py"
@@ -153,7 +160,34 @@ def test_wrappers_run_plain_on_cpu_and_check_inputs():
                 fn(*args, **kw)
     with pytest.raises(ValueError, match="block_envs"):
         linalg.gram_dual_batched(*(t.repeat(8, 1, 1) for t in (Rt, R)),
-                                 d.repeat(8, 1), block_envs=64)
+                                 d.repeat(8, 1), block_envs=128)
+
+
+@pytest.mark.parametrize("fn", [linalg.gram_dual, linalg.gram_dual_batched])
+def test_wrappers_take_any_block_that_divides_the_envs(fn):
+    """(c') Both wrappers take any block_envs in [1, N] that divides N: the
+    batched kernel goes through the block in rounds of two envs (one at a
+    time for an odd block), so it has no cap of its own (the first design's
+    one warp per env capped it at 32); 0, more than N and a non-divisor
+    raise."""
+    g = torch.Generator().manual_seed(1)
+    R = torch.randn((64, 24, 9), generator=g).bfloat16()
+    Rt = (torch.rand((64, 24), generator=g).bfloat16()[..., None]
+          * R).transpose(1, 2).contiguous()
+    d = torch.rand((64, 9), generator=g)
+    want = linalg.gram_dual_plain(Rt, R, d)
+    linalg.reset_launch_counts()
+    for block in (1, 2, 8, 32, 64):
+        torch.testing.assert_close(fn(Rt, R, d, block_envs=block), want,
+                                   rtol=0, atol=0)
+    torch.testing.assert_close(fn(Rt[:63], R[:63], d[:63], block_envs=63),
+                               want[:63], rtol=0, atol=0)
+    assert set(linalg.LAUNCHES.values()) == {0}
+    for block, msg in ((0, r"\[1, 64\]"), (65, r"\[1, 64\]"),
+                       (128, r"\[1, 64\]"), (3, "not a multiple"),
+                       (48, "not a multiple")):
+        with pytest.raises(ValueError, match=msg):
+            fn(Rt, R, d, block_envs=block)
 
 
 def test_probe_check_run_matches_the_jax_probe(jprobe):
@@ -197,27 +231,56 @@ def cuda():
     return torch.device("cuda")
 
 
+# (n, m, c, offset), against the ring's chunks of 32 rows of R (kKr) and
+# 160 columns of Rt (kKa): the probe's M = 304, 9.5 chunks of R (a half
+# last one) and 2 of Rt (160 + 144); M = 37 at C = 75 and at C = 1, not a
+# multiple of 8 (plain loads for both operands, a zero-filled last k16
+# step); C = 17 at M = 40, a chunk of R and a quarter; M = 8 and 16, shorter
+# than one chunk of R (8 ends in a partial k16 step); M = 48, one chunk of R
+# and a half; M = 304 at C = 80 (every tensor-core warp's 16 rows full) and
+# at C = 75 with Rt and R one element past a 16-byte boundary (plain loads);
+# M = 64 at C = 1 (one tensor-core warp with one row, bulk copies); N = 8,
+# one block of 8 envs, on the engine's M = 256 (8 chunks of R, 2 of Rt)
+CARD_CASES = [(64, 304, 75, 0), (32, 37, 75, 0), (8, 40, 17, 0),
+              (32, 8, 75, 0), (32, 16, 75, 0), (32, 48, 75, 0),
+              (32, 304, 80, 0), (32, 304, 75, 1), (32, 64, 1, 0),
+              (32, 37, 1, 0), (8, 256, 75, 0)]
+
+
+def _unaligned(t, offset):
+    """A contiguous copy of t whose data starts `offset` elements into its
+    storage (offset 1: 2 bytes past a 16-byte boundary)."""
+    if not offset:
+        return t.contiguous()
+    flat = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    out = flat[offset:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
 @pytest.mark.requires_cuda
-@pytest.mark.parametrize("n,m,c", [(64, 304, 75), (32, 37, 75), (8, 40, 17)])
-def test_gram_dual_kernels_match_plain_on_card(cuda, n, m, c):
-    """(e) Both kernels within 2⁻¹³ of the sum of |products| (plus the
-    diagonal's rounding) of the plain version, bit-equal to each other at
-    every block size, finite; M = 37 takes the scalar loads and a
-    zero-filled last k16 step, C = 17 the narrow tiles."""
-    g = torch.Generator().manual_seed(n + m + c)
+@pytest.mark.parametrize("n,m,c,offset", CARD_CASES)
+def test_gram_dual_kernels_match_plain_on_card(cuda, n, m, c, offset):
+    """(e) Both kernels at 1, 8 and 32 (or N) envs a block within 2⁻¹³ of
+    the sum of |products| (plus the diagonal's rounding) of the plain
+    version, bit-equal to each other at every block size, finite, each
+    launch counted; the cases cover the ring's edges (CARD_CASES)."""
+    g = torch.Generator().manual_seed(n + m + c + offset)
     R = torch.randn((n, m, c), generator=g).bfloat16()
     w = torch.rand((n, m), generator=g).bfloat16()
-    Rt = (w[..., None] * R).transpose(1, 2).contiguous().to(cuda)
-    R, d = R.to(cuda), torch.rand((n, c), generator=g).to(cuda)
+    Rt = _unaligned((w[..., None] * R).transpose(1, 2).to(cuda), offset)
+    R = _unaligned(R.to(cuda), offset)
+    d = torch.rand((n, c), generator=g).to(cuda)
+    assert (Rt.data_ptr() % 16 == 0) == (R.data_ptr() % 16 == 0) == (
+        offset == 0)
+    blocks = sorted({1, min(8, n), min(32, n)})
     linalg.reset_launch_counts()
-    dual = linalg.gram_dual(Rt, R, d)
-    others = [linalg.gram_dual(Rt, R, d, block_envs=1),
-              linalg.gram_dual_batched(Rt, R, d),
-              linalg.gram_dual_batched(Rt, R, d, block_envs=32 if n >= 32
-                                       else n)]
+    dual = linalg.gram_dual(Rt, R, d, block_envs=blocks[-1])
+    others = [fn(Rt, R, d, block_envs=b) for b in blocks
+              for fn in (linalg.gram_dual, linalg.gram_dual_batched)]
     torch.cuda.synchronize()
-    assert linalg.LAUNCHES["gram_dual"] == 2
-    assert linalg.LAUNCHES["gram_dual_batched"] == 2
+    assert linalg.LAUNCHES["gram_dual"] == len(blocks) + 1
+    assert linalg.LAUNCHES["gram_dual_batched"] == len(blocks)
     assert bool(torch.isfinite(dual).all())
     for o in others:
         torch.testing.assert_close(o, dual, rtol=0, atol=0)
