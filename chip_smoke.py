@@ -7,9 +7,10 @@ Phases, each printed as one JSON line with its elapsed seconds:
   1. build    — nvcc builds the kernels' library into build/ (plain C
                 interface, loaded with ctypes); ptxas's lines (registers,
                 static shared memory, spills per kernel), and the launch
-                shape and dynamic shared memory of the four kernels that
+                shape and dynamic shared memory of the five kernels that
                 keep an env's matrix in shared memory (factor, resolve,
-                fused solve, dense solve)
+                fused solve, batch-major resolve, dense solve) and of
+                gram_diag (with its CTAs an SM, from the occupancy query)
   2. card     — the card's name and power limit from nvidia-smi
   3. kernels  — both block-arrow Cholesky kernels against their plain
                 PyTorch versions on a real assembled LHS at 4,096 envs, on
@@ -30,19 +31,22 @@ Phases, each printed as one JSON line with its elapsed seconds:
                 the dense Cholesky solve and the env-last relayout against
                 their plain versions on the same four inputs (the
                 relayout also on the (N, 80, 75) staging shape cropped to
-                75), the fused and the dense solve bit for bit; the fused
-                solve against factor + resolve and the batch-major resolve
-                against the env-last one, bit for bit
+                75), the fused solve, the batch-major resolve and the dense
+                solve bit for bit; the fused solve against factor + resolve
+                and the batch-major resolve against the env-last one, bit
+                for bit
   7. solver_times — those four kernels' times, their plain versions' and a
                 PyTorch call's that computes the same function
   8. gram_kernel — the weighted Gram kernel against its plain version at
-                4,096 envs on the two-operand rows of the reset state (bf16
-                and, with `rows_bf16=False`, float32), on random rows, and
-                on the (N, 80, 75) staging shape then through to_env_last
-                cropped to 75, the engine's env-last composition
+                4,096 envs, bit for bit, on the two-operand rows of the reset
+                state (bf16 and, with `rows_bf16=False`, float32), on random
+                rows, and on the (N, 80, 75) staging shape then through
+                to_env_last cropped to 75, the engine's env-last composition
   9. gram_times — its time, its plain version's and a PyTorch call's that
                 computes the same function (and a bf16 `bmm` with float32
-                output), on the bf16 rows and on the float32 rows
+                output), on the bf16 rows and on the float32 rows, each
+                with its bound, its time's share of it and the CUDA cores'
+                floor (the multiply-adds it sums at the float32 peak)
  10. paths    — each other configuration of the engine at the bench
                 configuration: the solver paths (implicit substeps, one
                 substep, dense solver, batch-major TGS, batch-major
@@ -133,9 +137,9 @@ BF16_TC_FLOP_S = 989e12
 # Kernel vs plain version: both do the same float32 operations in the same
 # order (the library is built without multiply-add contraction), so they
 # should agree to the last bit; 1e-5 of the largest magnitude leaves room for
-# a few ulps and nothing more. The factor, the resolve, the fused and the
-# dense solve, whose redesigns for the card keep every entry's roundings,
-# must be bit-equal.
+# a few ulps and nothing more. The factor, the resolve, the fused solve, the
+# batch-major resolve, the dense solve and gram_diag, whose redesigns for the
+# card keep every entry's roundings, must be bit-equal.
 KERNEL_RTOL = 1e-5
 # Whole step on the card vs on the CPU: matmul sums run in another order, and
 # a Jacobian row entry that rounds to the other bfloat16 neighbour moves by
@@ -147,7 +151,7 @@ STEP_RTOL = 2.0 ** -8
 # 304·2⁻²³ where the tensor core truncates; together under 2⁻¹³.
 PROBE_TOL = 2.0 ** -13
 # solver_kernels' outputs that must be bit-equal to their plain versions
-BIT_EQUAL = ("solve", "solve_soa")
+BIT_EQUAL = ("solve", "resolve_bm", "solve_soa")
 # the probe's variants, in the order of scripts/gram_kernel_probe.py
 PROBE_VARIANTS = ("einsum_envlast", "einsum_bm", "kernel_at_b", "kernel_dual",
                   "kernel_dual_batched8", "kernel_dual_batched32",
@@ -503,7 +507,9 @@ def gram_inputs(env, state, engine, gen):
 def gram_kernels(cases):
     """gram_diag against its plain version on each case, batch-major and on
     the (N, 80, 75) staging shape, whose 75 rows are compared and which
-    goes on through to_env_last cropped to 75. Returns the max abs error."""
+    goes on through to_env_last cropped to 75; every output bit-equal (on
+    bf16 rows the kernel sums the lower triangle and mirrors it, so this is
+    the mirror's full-width check). Returns the max abs error."""
     import torch
     from emloco_tpu_torch.physics import linalg
     worst = 0.0
@@ -525,7 +531,7 @@ def gram_kernels(cases):
             finite = bool(torch.isfinite(k).all())
             report[key] = dict(max_abs_err=e, max_rel_err=r, finite=finite,
                                bit_equal=bool(torch.equal(k, p)))
-            if not (finite and r <= KERNEL_RTOL):
+            if not (finite and r <= KERNEL_RTOL and torch.equal(k, p)):
                 bad.append(key)
             worst = max(worst, e)
         emit("gram_kernel", case=name, num_envs=N, rows=M, cols=C,
@@ -543,7 +549,8 @@ def gram_times(Rr, w, d):
     before the timed region); for bf16 rows also a bf16 `bmm` with float32
     output on w∘R rounded to bf16, a yardstick of the tensor cores' speed,
     not of the same rounding. Also the bytes, flops and flop peak of the
-    bound."""
+    bound, and the multiply-adds the kernel sums (the lower triangle for
+    bf16 rows, every entry for float32 rows)."""
     import torch
     from emloco_tpu_torch.physics import linalg
     N, M, C = Rr.shape
@@ -567,6 +574,8 @@ def gram_times(Rr, w, d):
     nbytes = N * (M * C * rb + M * rb + C * 4 + C * C * 4)
     nflops = N * (2 * M * C * C + M * C)
     peak = BF16_TC_FLOP_S if Rr.dtype == torch.bfloat16 else F32_FLOP_S
+    entries = C * (C + 1) // 2 if Rr.dtype == torch.bfloat16 else C * C
+    out["cuda_core_floor_ms"] = N * M * entries * 2 / F32_FLOP_S * 1e3
     return out, (nbytes, nflops, peak)
 
 
@@ -767,11 +776,14 @@ def main():
          shared_memory_kernels={
              "cholesky_factor_blocked_t": dict(
                  threads_per_env=32, **linalg.factor_launch_shape(*arrow)),
-             "cholesky_resolve_blocked_t and cholesky_solve_blocked_t":
+             "cholesky_resolve_blocked_t, cholesky_solve_blocked_t and "
+             "cholesky_resolve_blocked":
                  dict(threads_per_env=32,
                       **linalg.solve_launch_shape(*arrow)),
              "cholesky_solve_soa_t": dict(
-                 threads_per_env=32, **linalg.dense_launch_shape(R.NU))})
+                 threads_per_env=32, **linalg.dense_launch_shape(R.NU))},
+         gram_diag={"bf16_rows": linalg.gram_launch_shape(R.NU, True),
+                    "float32_rows": linalg.gram_launch_shape(R.NU, False)})
 
     # 2. card ---------------------------------------------------------------
     smi = subprocess.run(
@@ -942,6 +954,10 @@ def main():
     del gcases
     bounds["gram_diag"] = (g_bytes, g_flops)
     peaks = {"gram_diag": g_peak}
+    for t, (nb, nf, pk) in ((times["gram_diag"], (g_bytes, g_flops, g_peak)),
+                            (f32_rows, f32_bound)):
+        bound_ms = max(nb / HBM_BYTES_S, nf / pk) * 1e3
+        t.update(bound_ms=bound_ms, bound_share=bound_ms / t["ms"])
     emit("gram_times", card=card, gram_diag=times["gram_diag"],
          bytes=g_bytes, flops=g_flops, flop_peak=g_peak,
          f32_rows=dict(f32_rows, bytes=f32_bound[0], flops=f32_bound[1],

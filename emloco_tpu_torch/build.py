@@ -23,7 +23,8 @@ _CSRC = os.path.join(_PKG, "csrc")
 SOURCES = tuple(os.path.join(_CSRC, f) for f in (
     "block_arrow_cholesky.cu", "block_arrow_solve.cu", "dense_cholesky.cu",
     "to_env_last.cu", "gram_diag.cu", "gram_dual.cu"))
-HEADERS = (os.path.join(_CSRC, "block_arrow.cuh"),)
+HEADERS = tuple(os.path.join(_CSRC, f) for f in (
+    "block_arrow.cuh", "async_copy.cuh"))
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 # -fmad=false: the kernels repeat their plain versions' roundings exactly
 FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-fmad=false",
@@ -42,12 +43,13 @@ _SIGNATURES = {
         [_VP, _VP, _VP, _INT, _INT, _VP, _INT, _VP, _INT, _VP],
     "emloco_block_arrow_solve_shape": [_INT, _VP, _INT, _VP, _INT, _VP],
     "emloco_block_arrow_resolve_bm":
-        [_VP, _VP, _VP, _VP, _INT, _INT, _VP, _INT, _VP, _INT, _VP],
+        [_VP, _VP, _VP, _INT, _INT, _VP, _INT, _VP, _INT, _VP],
     "emloco_dense_cholesky_solve": [_VP, _VP, _VP, _INT, _INT, _VP],
     "emloco_dense_cholesky_shape": [_INT, _VP],
     "emloco_to_env_last": [_VP, _VP, _INT, _INT, _INT, _VP],
     "emloco_gram_diag":
         [_VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT, _INT, _VP],
+    "emloco_gram_diag_shape": [_INT, _INT, _VP],
     "emloco_gram_dual": [_VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT, _VP],
     "emloco_gram_dual_batched":
         [_VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT, _VP],

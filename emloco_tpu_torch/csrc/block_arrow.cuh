@@ -2,19 +2,19 @@
 // (block_arrow_cholesky.cu: factor, resolve; block_arrow_solve.cu: fused
 // solve, batch-major resolve) and the dense solve of dense_cholesky.cu.
 //
-// Two designs live here. One thread per env, working in device memory
-// (ArrowPlan, arrow_solves): only the batch-major resolve still runs it.
-// One warp per env with the env's packed triangle in shared memory
-// (PackedPlan, gather_packed, packed_factor_warp, packed_solves_warp,
-// solve_block): the factor, the fused solve, the resolve and, with no limbs,
-// the dense solve's factor. Every design gives every entry the same float32
-// operations in the same order, so the fused and the split kernels, and the
-// env-last and the batch-major resolves, agree to the bit.
+// One design lives here: one warp per env with the env's packed triangle
+// in shared memory (PackedPlan, gather_packed, packed_factor_warp,
+// packed_solves_warp, solve_block), run by the factor, the resolve, the
+// fused solve, the batch-major resolve and, with no limbs, the dense
+// solve's factor. Each kernel gives every entry the same float32 operations
+// in the same order as its plain version, so the fused and the split
+// kernels, and the env-last and the batch-major resolves, agree to the bit.
 //
 // Layout. A, L are (M, M, N) and env-last vectors (M, N), row-major with the
 // env axis N last: element (i, j) of env e sits at (i*M + j)*N + e. A warp's
 // 32 loads of one matrix element for 32 consecutive envs are 128 contiguous
-// bytes. A batch-major vector (N, M) puts element i of env e at e*M + i.
+// bytes. A batch-major vector (N, M) puts element i of env e at e*M + i:
+// a block's 32 envs of it are 32*M contiguous floats.
 //
 // Structure. The reduced-coordinate matrix is block-arrow once its DoFs are
 // ordered limbs-first: dense limb blocks on the diagonal, couplings only into
@@ -38,115 +38,10 @@
 namespace emloco {
 
 constexpr int kMaxM = 128;
-constexpr int kMaxLimbs = 16;
-constexpr int kThreads = 128;
-
-struct ArrowPlan {
-  int m;                  // system size
-  int s_lo;               // first row of the shared block (new order)
-  int n_limbs;
-  int limb_lo[kMaxLimbs];  // dense limb blocks [lo, hi) in new order
-  int limb_hi[kMaxLimbs];
-  int perm[kMaxM];        // perm[new index] = old DoF index
-};
-
-// Host-side plan from the caller's arrays; false if it does not fit.
-inline bool make_plan(int m, const int* perm, int n_limbs, const int* limbs,
-                      int s_lo, ArrowPlan* p) {
-  if (m < 1 || m > kMaxM || n_limbs < 0 || n_limbs > kMaxLimbs ||
-      s_lo < 0 || s_lo > m)
-    return false;
-  p->m = m;
-  p->s_lo = s_lo;
-  p->n_limbs = n_limbs;
-  for (int i = 0; i < n_limbs; ++i) {
-    p->limb_lo[i] = limbs[2 * i];
-    p->limb_hi[i] = limbs[2 * i + 1];
-  }
-  for (int i = 0; i < m; ++i) p->perm[i] = perm[i];
-  return true;
-}
 
 __device__ __forceinline__ float clamp_pivot(float d) {
   return d < 1e-12f ? 1e-12f : d;   // NaN compares false and passes through
 }
-
-// Element (i, j) of env e in an env-last (m, m, n) matrix.
-template <class T>
-struct EnvLastMat {
-  T* p;
-  int m;
-  size_t n;
-  int e;
-  __device__ __forceinline__ T& operator()(int i, int j) const {
-    return p[((size_t)i * m + j) * n + e];
-  }
-};
-
-// Element i of one env's vector: p[i*stride + off] — env-last with
-// (stride, off) = (n, e), batch-major with (1, e*m).
-template <class T>
-struct EnvVec {
-  T* p;
-  size_t stride;
-  size_t off;
-  __device__ __forceinline__ T& operator()(int i) const {
-    return p[(size_t)i * stride + off];
-  }
-};
-
-// The batch-major resolve's sweeps, one thread per env in device memory.
-// Solve L Lᵀ (P x) = P b with the permuted factor: b and x indexed by old
-// DoF, y a scratch vector in new order. The forward sweep is column-
-// oriented (each column pushes into later rows), the backward sweep row-
-// oriented dot products over the pattern; z in new order is written
-// straight into x at its un-permuted row.
-template <class L>
-__device__ __forceinline__ void arrow_solves(const L& l,
-                                             const EnvVec<const float>& b,
-                                             const EnvVec<float>& y,
-                                             const EnvVec<float>& x,
-                                             const ArrowPlan& p) {
-  const int m = p.m;
-  for (int i = 0; i < m; ++i) y(i) = b(p.perm[i]);
-
-  for (int q = 0; q < p.n_limbs; ++q) {
-    const int hi = p.limb_hi[q];
-    for (int k = p.limb_lo[q]; k < hi; ++k) {
-      const float yk = y(k) / l(k, k);
-      y(k) = yk;
-      for (int i = k + 1; i < hi; ++i) y(i) = y(i) - l(i, k) * yk;
-      for (int i = p.s_lo; i < m; ++i) y(i) = y(i) - l(i, k) * yk;
-    }
-  }
-  for (int k = p.s_lo; k < m; ++k) {
-    const float yk = y(k) / l(k, k);
-    y(k) = yk;
-    for (int i = k + 1; i < m; ++i) y(i) = y(i) - l(i, k) * yk;
-  }
-
-  for (int k = m - 1; k >= p.s_lo; --k) {
-    float acc = 0.0f;
-    for (int i = k + 1; i < m; ++i) acc = acc + l(i, k) * x(p.perm[i]);
-    x(p.perm[k]) = (y(k) - acc) / l(k, k);
-  }
-  for (int q = 0; q < p.n_limbs; ++q) {
-    const int lo = p.limb_lo[q], hi = p.limb_hi[q];
-    for (int k = hi - 1; k >= lo; --k) {
-      float acc = 0.0f;
-      for (int i = p.s_lo; i < m; ++i) acc = acc + l(i, k) * x(p.perm[i]);
-      if (k + 1 < hi) {
-        float acc_l = 0.0f;
-        for (int i = k + 1; i < hi; ++i)
-          acc_l = acc_l + l(i, k) * x(p.perm[i]);
-        acc = acc + acc_l;
-      }
-      x(p.perm[k]) = (y(k) - acc) / l(k, k);
-    }
-  }
-}
-
-inline int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
 
 // ---------------------------------------------------------------------------
 // One warp per env, the env's packed triangle in shared memory: the factor
@@ -174,13 +69,15 @@ struct PackedPlan {
   int n_limbs;
   int limb_lo[kMaxM];     // limb q is [limb_lo[q], col_hi[limb_lo[q]])
   int perm[kMaxM];        // perm[new index] = old DoF index
+  int iperm[kMaxM];       // its inverse: iperm[old DoF index] = new index
   int col_hi[kMaxM];      // end of column k's first row segment
   int off[kMaxM + 1];     // column k's first entry; off[m] entries in all
 };
 
 // Host-side plan; false unless the limbs tile [0, s_lo) in order and no
 // column has more than max_below rows below its pivot. perm null: the
-// identity. The caller checks its block's shared memory.
+// identity; else a permutation of 0..m-1 (the caller's check). The caller
+// checks its block's shared memory.
 inline bool make_packed_plan(int m, const int* perm, int n_limbs,
                              const int* limbs, int s_lo, int max_below,
                              PackedPlan* p) {
@@ -205,7 +102,10 @@ inline bool make_packed_plan(int m, const int* perm, int n_limbs,
     p->off[k + 1] = p->off[k] + 1 + below;
   }
   p->stride = p->off[m] | 1;          // odd: the envs on distinct banks
-  for (int i = 0; i < m; ++i) p->perm[i] = perm ? perm[i] : i;
+  for (int i = 0; i < m; ++i) {
+    p->perm[i] = perm ? perm[i] : i;
+    p->iperm[p->perm[i]] = i;
+  }
   return true;
 }
 
@@ -374,7 +274,7 @@ inline int report_shape(size_t bytes, int envs, int threads, void* shape) {
 }
 
 // The two triangular sweeps of one env by the 32 lanes of a warp, with the
-// plain resolve's (resolve_blocked_plain, arrow_solves) operations in its
+// plain resolve's (resolve_blocked_plain) operations in its
 // order: L the env's packed factor (at most 32 rows below a pivot), v its
 // right-hand side in new order on entry and its solution in new order on
 // exit, s m floats of scratch, all in shared memory.
@@ -473,12 +373,15 @@ inline size_t solve_plan(int m, const void* perm, int n_limbs,
 }
 
 // One block of the fused solve (kFactor: A (m, m, n) gathered through perm,
-// then factored) or of the resolve (L (m, m, n) already in new order,
+// then factored) or of a resolve (L (m, m, n) already in new order,
 // gathered as it is): the block gathers its envs' packed triangles and b
 // through perm, coalesced across envs, each warp factors (kFactor) and
-// sweeps its env, and the block writes x through perm, coalesced across
-// envs. No scratch in device memory.
-template <bool kFactor>
+// sweeps its env, and the block writes x through perm, coalesced. b and x
+// are env-last (m, n), consecutive threads on consecutive envs of one
+// element, or with kBatchMajor batch-major (n, m), consecutive threads on
+// consecutive elements of the block's 32 * m contiguous floats, element j of
+// an env placed at new index iperm[j]. No scratch in device memory.
+template <bool kFactor, bool kBatchMajor = false>
 __device__ __forceinline__ void solve_block(float* smem,
                                             const float* __restrict__ a,
                                             const float* __restrict__ b,
@@ -492,8 +395,14 @@ __device__ __forceinline__ void solve_block(float* smem,
   gather_packed<kArrowEnvs, kArrowThreads, kArrowLoads, kFactor>(a, smem, p,
                                                                   e0, n);
   for (int idx = tid; idx < m * kArrowEnvs; idx += kArrowThreads) {
-    const int el = idx % kArrowEnvs, i = idx / kArrowEnvs, e = e0 + el;
-    if (e < n) vecs[el * vs + i] = b[(size_t)p.perm[i] * sn + e];
+    if (kBatchMajor) {
+      const int el = idx / m, j = idx - el * m;
+      if (e0 + el < n)
+        vecs[el * vs + p.iperm[j]] = b[(size_t)e0 * m + idx];
+    } else {
+      const int el = idx % kArrowEnvs, i = idx / kArrowEnvs, e = e0 + el;
+      if (e < n) vecs[el * vs + i] = b[(size_t)p.perm[i] * sn + e];
+    }
   }
   __syncthreads();
 
@@ -506,8 +415,14 @@ __device__ __forceinline__ void solve_block(float* smem,
   __syncthreads();
 
   for (int idx = tid; idx < m * kArrowEnvs; idx += kArrowThreads) {
-    const int el = idx % kArrowEnvs, i = idx / kArrowEnvs, e = e0 + el;
-    if (e < n) x[(size_t)p.perm[i] * sn + e] = vecs[el * vs + i];
+    if (kBatchMajor) {
+      const int el = idx / m, j = idx - el * m;
+      if (e0 + el < n)
+        x[(size_t)e0 * m + idx] = vecs[el * vs + p.iperm[j]];
+    } else {
+      const int el = idx % kArrowEnvs, i = idx / kArrowEnvs, e = e0 + el;
+      if (e < n) x[(size_t)p.perm[i] * sn + e] = vecs[el * vs + i];
+    }
   }
 }
 

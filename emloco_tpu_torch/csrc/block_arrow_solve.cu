@@ -34,20 +34,26 @@
 //               dense L); then the sweeps' dependent chains, as in the
 //               resolve. How the time splits between the parts is not
 //               measured.
-//   resolve_bm: as the env-last resolve, 26 MB -> 0.0078 ms. Still the first
-//               design, one thread per env (arrow_solves): thread e reads L
-//               in device memory, b and x at e*M + i (a warp's 32 accesses
-//               to one element are 300 bytes apart, one sector each), y in a
-//               scratch vector the wrapper allocates. Its redesign runs
-//               solve_block<false> with batch-major b and x.
+//   resolve_bm: as the env-last resolve, 26 MB -> 0.0078 ms.
+//               Design: solve_block<false, true>, the env-last resolve's
+//               block (block_arrow_cholesky.cu) with batch-major b and x: a
+//               block's 32 envs of b are 32 * 75 contiguous floats, read by
+//               consecutive threads at consecutive addresses and placed in
+//               shared memory at each element's new index (PackedPlan's
+//               inverse permutation); x is written back the same way. The
+//               gather of L and the sweeps (packed_solves_warp) are the
+//               env-last resolve's, so the two agree to the bit. The same
+//               plan and launch: 203,264 bytes of dynamic shared memory a
+//               block, 128 blocks for 4,096 envs, one wave.
+//               What held the first design back (one thread per env): L read
+//               from device memory by every thread, b and x at e*M + i (a
+//               warp's 32 accesses to one element 300 bytes apart, one
+//               sector each), and a scratch vector in device memory.
 
 #include "block_arrow.cuh"
 
 namespace {
 
-using emloco::ArrowPlan;
-using emloco::EnvLastMat;
-using emloco::EnvVec;
 using emloco::PackedPlan;
 
 __global__ void __launch_bounds__(emloco::kArrowThreads)
@@ -57,18 +63,11 @@ solve_kernel(const float* __restrict__ a, const float* __restrict__ b,
   emloco::solve_block<true>(smem, a, b, x, p, n);
 }
 
-__global__ void __launch_bounds__(emloco::kThreads)
+__global__ void __launch_bounds__(emloco::kArrowThreads)
 resolve_bm_kernel(const float* __restrict__ l, const float* __restrict__ b,
-                  float* __restrict__ x, float* __restrict__ y,
-                  const ArrowPlan p, const int n) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= n) return;
-  const size_t sn = (size_t)n;
-  const size_t row = (size_t)e * p.m;
-  emloco::arrow_solves(EnvLastMat<const float>{l, p.m, sn, e},
-                       EnvVec<const float>{b, 1, row},
-                       EnvVec<float>{y, sn, (size_t)e},
-                       EnvVec<float>{x, 1, row}, p);
+                  float* __restrict__ x, const PackedPlan p, const int n) {
+  extern __shared__ float smem[];
+  emloco::solve_block<false, true>(smem, l, b, x, p, n);
 }
 
 }  // namespace
@@ -96,9 +95,9 @@ int emloco_block_arrow_solve(const void* a, const void* b, void* x, int n,
   return (int)cudaGetLastError();
 }
 
-// emloco_block_arrow_solve's launch for this block structure, and
-// emloco_block_arrow_resolve's, which has the same plan (see
-// emloco::report_shape).
+// emloco_block_arrow_solve's launch for this block structure, and that of
+// emloco_block_arrow_resolve and emloco_block_arrow_resolve_bm, which have
+// the same plan (see emloco::report_shape).
 int emloco_block_arrow_solve_shape(int m, const void* perm, int n_limbs,
                                    const void* limbs, int s_lo, void* shape) {
   PackedPlan p;
@@ -108,20 +107,24 @@ int emloco_block_arrow_solve_shape(int m, const void* perm, int n_limbs,
 }
 
 // L (m, m, n) env-last from emloco_block_arrow_factor, b (n, m)
-// batch-major -> x (n, m) batch-major; y (m, n) is scratch.
+// batch-major -> x (n, m) batch-major; the arguments otherwise as
+// emloco_block_arrow_solve's, and its launch (solve_plan).
 int emloco_block_arrow_resolve_bm(const void* l, const void* b, void* x,
-                                  void* y, int n, int m, const void* perm,
+                                  int n, int m, const void* perm,
                                   int n_limbs, const void* limbs, int s_lo,
                                   void* stream) {
-  ArrowPlan p;
-  if (n < 1 ||
-      !emloco::make_plan(m, static_cast<const int*>(perm), n_limbs,
-                         static_cast<const int*>(limbs), s_lo, &p))
-    return (int)cudaErrorInvalidValue;
-  resolve_bm_kernel<<<emloco::blocks_for(n), emloco::kThreads, 0,
+  PackedPlan p;
+  const size_t bytes = emloco::solve_plan(m, perm, n_limbs, limbs, s_lo, &p);
+  if (n < 1 || bytes == 0) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      resolve_bm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  resolve_bm_kernel<<<(n + emloco::kArrowEnvs - 1) / emloco::kArrowEnvs,
+                      emloco::kArrowThreads, bytes,
                       static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(l), static_cast<const float*>(b),
-      static_cast<float*>(x), static_cast<float*>(y), p, n);
+      static_cast<float*>(x), p, n);
   return (int)cudaGetLastError();
 }
 

@@ -42,6 +42,8 @@
 // that completes on an mbarrier, and the copies run on across env
 // boundaries: the next env's first chunks are in flight while this env
 // finishes and writes its output. No __syncthreads() runs after set-up.
+// The copy and mbarrier helpers are async_copy.cuh's, shared with
+// gram_diag.cu.
 // - A (Rt). A tensor-core warp reads only its own 16 rows of A, so it loads
 //   them itself, into a ring of kAStages = 2 slots of its own (`afull`):
 //   chunks of kKa = 160 columns (rows of M), one bulk copy a row (a row
@@ -110,9 +112,20 @@
 #include <cstddef>
 #include <cstdint>
 
+#include "async_copy.cuh"
+
 namespace {
 
 using bf16 = __nv_bfloat16;
+using emloco::aligned16;
+using emloco::bulk_copy;
+using emloco::fence_proxy_async;
+using emloco::mbar_arrive;
+using emloco::mbar_arrive_tx;
+using emloco::mbar_init;
+using emloco::mbar_wait;
+using emloco::round16;
+using emloco::smem_addr;
 
 constexpr int kMaxC = 80;            // 5 m16 row tiles x 10 n8 column tiles
 constexpr int kRowTiles = kMaxC / 16;
@@ -126,17 +139,12 @@ constexpr int kRStages = 2;          // depth of each helper's ring of R
 constexpr int kAStages = 2;          // depth of each warp's ring of A
 constexpr int kRestage = 4;          // restage buffers of a group
 constexpr int kBatchGroups = 2;      // envs in flight in gram_dual_batched
-constexpr unsigned long long kWaitLimitNs = 30000000000ull;  // 30 s
 static_assert(kKa % kKr == 0 && kKr % 16 == 0, "chunks of whole k16 steps");
 // The helper of chunk q waits on buffer q % kRestage's `rbempty` for chunk
 // q - kRestage; a parity wait is only sound once the phase before (chunk
 // q - 2 kRestage) is known complete, which the helper's own previous chunk,
 // q - kHelpers, implies while kHelpers <= kRestage.
 static_assert(kHelpers <= kRestage, "rbempty's parity waits");
-
-__host__ __device__ constexpr size_t round16(size_t b) {
-  return (b + 15) & ~size_t(15);
-}
 
 // Dynamic shared memory of a CTA with `groups` envs in flight, C = c:
 // [mbarriers][per group: its helpers' rings of R (kHelpers x kRStages flat
@@ -156,84 +164,6 @@ struct Layout {
 // a slot also stages its warp's 16 output rows (float32, up to 3 floats
 // into the slot) at the end of an env
 static_assert(16 * kSa * 2 >= (16 * kMaxC + 3) * 4, "slot holds 16 rows");
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               :
-               : "r"(smem_addr(bar)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
-               :
-               : "r"(smem_addr(bar))
-               : "memory");
-}
-
-// arrive and add `bytes` to the transactions the current phase waits for
-__device__ __forceinline__ void mbar_arrive_tx(uint64_t* bar,
-                                               uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :
-               : "r"(smem_addr(bar)), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ uint64_t global_ns() {
-  uint64_t t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-
-// Wait for the phase of parity `parity` to complete. A wait that lasts
-// kWaitLimitNs (some 10^5 times a whole launch at the probe's shapes, far
-// above what a debugging tool slows a sound kernel by) traps instead of
-// hanging. The launch has returned long before: the trap surfaces at a later
-// synchronize as a sticky cudaErrorLaunchFailure, which ends the process's
-// CUDA context.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_addr(bar);
-  uint64_t t0 = 0;
-  for (uint32_t n = 1;; ++n) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-    if (done) return;
-    if ((n & 1023) == 0) {
-      const uint64_t t = global_ns();
-      if (t0 == 0) t0 = t;
-      else if (t - t0 > kWaitLimitNs) __trap();
-    }
-  }
-}
-
-// `bytes` (a multiple of 16, both addresses 16-byte aligned) from global to
-// shared memory, completing on `bar`
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
-                                          uint32_t bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n"
-      :
-      : "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
-}
-
-// order this thread's generic-proxy shared stores before later bulk copies
-// into the same bytes
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
 
 // four 8 x 8 bf16 matrices; lanes 8i..8i+7 give the row addresses of matrix i
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
@@ -385,7 +315,7 @@ gram_kernel(const bf16* __restrict__ rt, const bf16* __restrict__ r,
     }
     for (int i = 0; i < G * kRowTiles * kAStages; ++i)
       mbar_init(&bars[G * kGroupBars + i], 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    emloco::mbar_init_fence();
   }
   // the restage buffers, once: their column units past c stay zero
   for (int g = 0; g < G; ++g) {
@@ -556,10 +486,6 @@ gram_kernel(const bf16* __restrict__ rt, const bf16* __restrict__ r,
       fill_a(qa + kAStages);
     }
   }
-}
-
-bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
 // set the kernel's shared memory for c; returns (threads, bytes) via out

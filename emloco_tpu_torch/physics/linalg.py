@@ -53,8 +53,8 @@ LAUNCHES = {"cholesky_factor_blocked_t": 0, "cholesky_resolve_blocked_t": 0,
             "gram_dual": 0, "gram_dual_batched": 0}
 
 PIVOT_MIN = 1e-12
-GRAM_MAX_C = 80      # gram_diag's kernel: 5 x 5 output tiles, 256 threads;
-                     # gram_dual's: 5 m16 x 10 n8 tensor-core tiles
+GRAM_MAX_C = 80      # gram_diag's kernel: 10 x 10 blocks of 8 x 8 output
+                     # tiles; gram_dual's: 5 m16 x 10 n8 tensor-core tiles
 
 
 def reset_launch_counts():
@@ -159,11 +159,26 @@ def factor_launch_shape(chunks, limbs, s_lo: int) -> dict:
 
 @functools.lru_cache(maxsize=None)
 def solve_launch_shape(chunks, limbs, s_lo: int) -> dict:
-    """The launch of the fused solve (csrc/block_arrow_solve.cu) and of the
-    resolve (csrc/block_arrow_cholesky.cu), which share one plan, as
+    """The launch of the fused solve and the batch-major resolve
+    (csrc/block_arrow_solve.cu) and of the resolve
+    (csrc/block_arrow_cholesky.cu), which share one plan, as
     factor_launch_shape: their block also holds each env's two vectors."""
     return _arrow_launch_shape("solve", "emloco_block_arrow_solve_shape",
                                chunks, limbs, s_lo)
+
+
+@functools.lru_cache(maxsize=None)
+def gram_launch_shape(C: int, rows_bf16: bool) -> dict:
+    """gram_diag's launch for C columns, from its plan in csrc/gram_diag.cu:
+    envs, threads and dynamic shared memory bytes a CTA, and CTAs an SM on
+    the current card (the occupancy query). Builds the kernels' library on
+    first use; needs a card."""
+    shape = (ctypes.c_int * 4)()
+    err = _lib().emloco_gram_diag_shape(C, int(rows_bf16), shape)
+    if err != 0:
+        raise ValueError(f"gram_diag's launch for C = {C}: CUDA error {err}")
+    return dict(envs_per_block=shape[0], threads=shape[1],
+                dynamic_smem_bytes=shape[2], blocks_per_sm=shape[3])
 
 
 @functools.lru_cache(maxsize=None)
@@ -417,7 +432,10 @@ def cholesky_solve_blocked_t(At: torch.Tensor, bt: torch.Tensor, chunks,
 def cholesky_resolve_blocked(L: torch.Tensor, b: torch.Tensor, chunks,
                              limbs, s_lo: int):
     """Batch-major resolve with an env-last factor from
-    cholesky_factor_blocked: L (M, M, N), b (N, M) → x (N, M)."""
+    cholesky_factor_blocked: L (M, M, N), b (N, M) → x (N, M), the env-last
+    resolve's solution transposed, to the bit. On the card it raises
+    ValueError on a block structure the kernel cannot take
+    (solve_launch_shape)."""
     chunks, limbs = tuple(chunks), tuple(limbs)
     perm, lim = _plan(chunks, limbs, s_lo)
     M = len(perm)
@@ -425,13 +443,12 @@ def cholesky_resolve_blocked(L: torch.Tensor, b: torch.Tensor, chunks,
     _check(b, "b", (N, M), device=L.device)
     if L.device.type == "cpu":
         return resolve_blocked_bm_plain(L, b, chunks, limbs, s_lo)
-    lib = _lib()
+    solve_launch_shape(chunks, limbs, s_lo)
     x = torch.empty_like(b)
-    y = torch.empty((M, N), dtype=b.dtype, device=b.device)
     _launch("cholesky_resolve_blocked", L.device,
-            lib.emloco_block_arrow_resolve_bm, L.data_ptr(), b.data_ptr(),
-            x.data_ptr(), y.data_ptr(), N, M, perm.ctypes.data, len(lim),
-            lim.ctypes.data, s_lo)
+            _lib().emloco_block_arrow_resolve_bm, L.data_ptr(), b.data_ptr(),
+            x.data_ptr(), N, M, perm.ctypes.data, len(lim), lim.ctypes.data,
+            s_lo)
     return x
 
 

@@ -10,22 +10,32 @@ kernel to the float32 einsum (XLA sums in another order), and against a
 float64 gold within 1e-4, as tests/test_engine.py:917 does: w∘R is formed in
 float32, where the product of two bf16 values is exact, as the JAX kernel
 forms it in interpret mode and as the JAX step's two-operand einsum does
-under jit. The CUDA kernel cannot run here; the test marked requires_cuda
-holds it against the plain version on a card and skips without one.
+under jit. For bf16 rows that plain output is symmetric to the bit (each
+term is an exact product of three bf16 values), the premise of the
+kernel's mirror; for float32 rows it is not.
+
+The CUDA kernel cannot run here; the tests marked requires_cuda hold it
+against the plain version on a card and skip without one.
+`test_gram_diag_kernel_bit_equal_to_plain_on_card` needs neither jax nor
+the JAX package, so it also runs where jax is not installed (see
+tests/test_torch_linalg.py).
 """
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from emloco_tpu.physics import EngineConfig as JEngineConfig
-from emloco_tpu.physics import pallas_linalg as PL
-from emloco_tpu.physics import reduced as JR
+try:
+    import jax.numpy as jnp
+    from emloco_tpu.physics import EngineConfig as JEngineConfig
+    from emloco_tpu.physics import pallas_linalg as PL
+    from emloco_tpu.physics import reduced as JR
+    from test_torch_physics import world  # noqa: F401
+except ModuleNotFoundError:      # only the card tests can run without jax
+    jnp = None
 from emloco_tpu_torch.kinematics import body_model as tbm
 from emloco_tpu_torch.ops import quat as tq
 from emloco_tpu_torch.physics import EngineConfig, flat_terrain, linalg
 from emloco_tpu_torch.physics import reduced as TR
-from test_torch_physics import world  # noqa: F401
 
 C = TR.NU
 STAGED = C + (-C) % 16                    # to_env_last's staging rows, 80
@@ -130,6 +140,44 @@ def test_staged_gram_then_relayout_is_the_env_last_gram(gram_cases, case):
     torch.testing.assert_close(At, A.permute(1, 2, 0), rtol=0, atol=0)
 
 
+def _random_rows(n, m, c, dtype, scale, seed):
+    """Rows with 70% zero entries at `scale`, signed weights, and a
+    diagonal, from numpy, in the row dtype (diag float32)."""
+    rng = np.random.RandomState(seed)
+    R = scale * rng.randn(n, m, c) * (rng.rand(n, m, c) > 0.7)
+    w = rng.randn(n, m)
+    d = rng.rand(n, c)
+    return (torch.as_tensor(R, dtype=torch.float32).to(dtype),
+            torch.as_tensor(w, dtype=torch.float32).to(dtype),
+            torch.as_tensor(d, dtype=torch.float32))
+
+
+@pytest.mark.parametrize("case", ["real_bf16", "scale_1e-3", "scale_1",
+                                  "scale_1e3"])
+def test_plain_gram_diag_is_bit_symmetric_on_bf16_rows(gram_cases, case):
+    """The premise of the kernel's mirror: with bf16 rows every term
+    R[m, c] w[m] R[m, d] is exact in float32, so (c, d) and (d, c) sum the
+    same terms in the same order and agree to the bit."""
+    if case == "real_bf16":
+        R, w, d = map(_t, gram_cases[case][0])
+    else:
+        R, w, d = _random_rows(8, 256, C, torch.bfloat16,
+                               float(case.split("_")[1]), 41)
+    assert R.dtype == torch.bfloat16
+    A = linalg.gram_diag_plain(R, w, d)
+    assert bool((A != 0).any())
+    assert torch.equal(A, A.transpose(1, 2))
+
+
+def test_plain_gram_diag_is_not_symmetric_on_float32_rows():
+    """Float32 rows round each product rw[m, c]·R[m, d], so the two orders
+    of a pair differ: their kernel sums every entry, not a triangle."""
+    R, w, d = _random_rows(8, 256, C, torch.float32, 1.0, 42)
+    A = linalg.gram_diag_plain(R, w, d)
+    asym = (A != A.transpose(1, 2)).sum().item()
+    assert asym > 0.1 * C * (C - 1) * 8
+
+
 def test_gram_diag_checks_its_inputs():
     R = torch.randn(3, 8, C)
     w, d = torch.rand(3, 8), torch.rand(3, C)
@@ -228,3 +276,40 @@ def test_gram_diag_kernel_matches_plain_on_card(gram_cases, case, cuda):
     plain = linalg.gram_diag_plain(R, w, d)
     torch.testing.assert_close(A, plain, rtol=0, atol=0)
     torch.testing.assert_close(staged[:, :C], plain, rtol=0, atol=0)
+
+
+# the card test's inputs: kind -> (row dtype, M, C, R 2 bytes off a 16-byte
+# boundary); M = 255 and the offset R take the kernel's plain-load path
+CARD_KINDS = {"bf16": (torch.bfloat16, 256, C, False),
+              "float32": (torch.float32, 256, C, False),
+              "bf16_m255": (torch.bfloat16, 255, C, False),
+              "bf16_c73": (torch.bfloat16, 256, 73, False),
+              "bf16_offset": (torch.bfloat16, 256, C, True)}
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("n", [1, 37, 4093])
+@pytest.mark.parametrize("kind", list(CARD_KINDS))
+def test_gram_diag_kernel_bit_equal_to_plain_on_card(n, kind, cuda):
+    """One CTA, a ragged last CTA, and a full card; bf16 rows with signed
+    weights and zeros (the lower triangle summed and mirrored), float32 rows
+    (every entry summed), and shapes the bulk copies cannot take. Batch-major
+    and staged output, each one launch, bit-equal to the plain version."""
+    dtype, m, c, offset = CARD_KINDS[kind]
+    R, w, d = (t.to(cuda) for t in _random_rows(n, m, c, dtype, 1.0, 43))
+    if offset:
+        buf = torch.empty(R.numel() + 1, dtype=dtype, device=cuda)
+        R = buf[1:].view(R.shape).copy_(R)
+        assert R.data_ptr() % 16 == 2
+    plain = linalg.gram_diag_plain(R, w, d)
+    staged_rows = c + (-c) % 16
+    linalg.reset_launch_counts()
+    A = linalg.gram_diag(R, w, d)
+    torch.cuda.synchronize()
+    assert linalg.LAUNCHES["gram_diag"] == 1
+    staged = linalg.gram_diag(R, w, d, out_rows=staged_rows)
+    torch.cuda.synchronize()
+    assert linalg.LAUNCHES["gram_diag"] == 2
+    exact = dict(rtol=0, atol=0, equal_nan=True)
+    torch.testing.assert_close(A, plain, **exact)
+    torch.testing.assert_close(staged[:, :c], plain, **exact)

@@ -28,9 +28,9 @@ except ModuleNotFoundError:      # only the card tests can run without jax
     jnp = None
 from emloco_tpu_torch.physics import linalg
 from emloco_tpu_torch.physics import reduced as TR
-from test_torch_linalg import (ARROW, _jax_lhs_moving, _jax_lhs_rest_pose,
-                               _off_pattern, _random_arrow_spd,
-                               assert_rel_close)
+from test_torch_linalg import (ARROW, PATTERN, _jax_lhs_moving,
+                               _jax_lhs_rest_pose, _off_pattern,
+                               _random_arrow_spd, assert_rel_close)
 
 CASES = ("rest_pose", "moving", "random_spd")
 E = 4                                   # envs per case
@@ -361,3 +361,42 @@ def test_fused_solve_kernel_bit_equal_to_plain_on_card(n, kind, cuda):
     torch.testing.assert_close(
         x, linalg.cholesky_resolve_blocked_t(L, b, *ARROW), **exact)
     assert x[:, n - 1].isnan().any() == (kind == "nan")
+
+
+# --------------------------------------------------------------------------
+# on the card: the batch-major resolve kernel, bit for bit
+# --------------------------------------------------------------------------
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("n", [1, 37, 4093])
+@pytest.mark.parametrize("kind", ["clamped_pivot", "nan",
+                                  "nan_outside_pattern"])
+def test_batch_major_resolve_kernel_bit_equal_to_plain_on_card(n, kind,
+                                                               cuda):
+    """One block or a ragged last block; env 0's first pivot was clamped; a
+    NaN on a diagonal of A passes through the factor and the resolve as in
+    the plain versions; NaN in L outside the pattern is never read. The
+    batch-major resolve is the env-last one transposed, bit for bit."""
+    A = _random_arrow_spd(n, 44)
+    if kind == "nan":
+        A[3, 3, n - 1] = np.nan
+    A = torch.as_tensor(A, device=cuda)
+    b = torch.as_tensor(np.random.RandomState(45).randn(n, M)
+                        .astype(np.float32), device=cuda)
+    L = linalg.cholesky_factor_blocked_t(A, *ARROW)
+    if kind == "nan_outside_pattern":
+        L = L.masked_fill(~torch.as_tensor(PATTERN, device=cuda)[:, :, None],
+                          np.nan)
+    linalg.reset_launch_counts()
+    x = linalg.cholesky_resolve_blocked(L, b, *ARROW)
+    torch.cuda.synchronize()
+    want = dict.fromkeys(linalg.LAUNCHES, 0)
+    want["cholesky_resolve_blocked"] = 1
+    assert linalg.LAUNCHES == want
+    exact = dict(rtol=0, atol=0, equal_nan=True)
+    torch.testing.assert_close(
+        x, linalg.resolve_blocked_bm_plain(L, b, *ARROW), **exact)
+    torch.testing.assert_close(
+        x, linalg.cholesky_resolve_blocked_t(L, b.T.contiguous(), *ARROW).T,
+        **exact)
+    assert x[n - 1].isnan().any() == (kind == "nan")
