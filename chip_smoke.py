@@ -55,7 +55,31 @@ Phases, each printed as one JSON line with its elapsed seconds:
                 solver) and the two-operand Gram (`sqrt_gram=False`); one
                 warm-up and 2 control steps each, launch counts read around
                 the 2 steps
- 11. reference_implicit — one 8-env step on the card against the CPU for
+ 11. train    — the PPO + AMP training epoch at the bench's training
+                configuration (rollout.build_train_bench: 1,600 envs,
+                horizon 32, 20 minibatches × 6 mini-epochs, AMP batch 512,
+                the default network and engine): one warm-up epoch through
+                `train_epoch`, then one timed epoch run part by part
+                (rollout, prepare: GAE + norms + replay + demos, update) with
+                a synchronize after each and the launch counts read around
+                it (factor 32, resolve 64, every other kernel 0); every
+                metric and parameter finite, no nonfinite gradient, the
+                parameters moved, the replay ring filled by both epochs, the
+                discriminator reward below its cap; then one more control
+                step of the trained policy with the LHS and both
+                right-hand sides it passes to the factor and the resolves
+                recorded, and both kernels run again on them bit-equal to
+                their plain versions (outside the counted epoch)
+ 12. train_reference — the timed epoch's first minibatch (2,560 rows, its
+                demo and replay blocks and dropout masks, the parameters and
+                optimizer state before the update) through one update on
+                the card and on the CPU: every loss term within 1e-4 of its
+                magnitude, each gradient leaf within 1e-4 of its largest
+                |g|, the card's step within 1e-3 × lr of the CPU
+                optimizer's step on the card's gradients, and each update
+                within 1e-3 × lr of the CPU's where the gradient stands
+                clear of its tolerance (tests/test_torch_train.py)
+ 13. reference_implicit — one 8-env step on the card against the CPU for
                 `tgs_step=False`, `batch_major_solver=True`,
                 `gram_kernel=True` and `sqrt_gram=False`, each with the
                 contacts whose `active` flag differs between the two
@@ -63,7 +87,7 @@ Phases, each printed as one JSON line with its elapsed seconds:
                 of the implicit step, the first of a TGS step) and their
                 penetrations, and the joints whose PD error exp-map is zero
                 on one device only at each substep (as in `reference`)
- 12. probe_kernels — the Gram-layout probe's two tensor-core kernels,
+ 14. probe_kernels — the Gram-layout probe's two tensor-core kernels,
                 gram_dual and gram_dual_batched (blocks of 8 and 32 envs),
                 against their plain version at 4,096 envs on the probe's
                 seed-0 operands (M = 304) and on the reset state's bf16
@@ -72,7 +96,7 @@ Phases, each printed as one JSON line with its elapsed seconds:
                 outputs bit-equal, finite, each kernel launched; with the
                 SHA-256 of each output's bytes, so that two trees' kernels
                 can be compared by their smokes' probe_kernels lines
- 13. probe_times — their times, their plain version's and a bf16 `bmm`'s
+ 15. probe_times — their times, their plain version's and a bf16 `bmm`'s
                 with float32 output at the probe's shapes, each kernel's
                 bound and its time's share of it; then `probe`:
                 emloco_tpu_torch.scripts.gram_kernel_probe at full size
@@ -87,6 +111,7 @@ import dataclasses
 import hashlib
 import io
 import json
+import math
 import os
 import subprocess
 import sys
@@ -124,6 +149,15 @@ PATHS = (
     ("two_operand", dict(sqrt_gram=False),
      {"cholesky_factor_blocked_t": 1, "cholesky_resolve_blocked_t": 2}),
 )
+# the bench's training configuration (bench.py:133-138)
+TRAIN_ENVS = 1600
+# the discriminator reward's cap, −log(1e-4)·disc_reward_scale: a mean at
+# the cap means saturated logits
+DISC_REWARD_CAP = -math.log(1e-4) * 2.0
+# one update on the card against the CPU: the tolerances of
+# tests/test_torch_train.py (loss terms, gradient leaves, updates per entry
+# in units of lr); sums run in other orders on the two devices
+LOSS_REL, GRAD_REL, UPDATE_LR = 1e-4, 1e-4, 1e-3
 # configurations of the reference_implicit phase (8 envs, card vs CPU)
 REFERENCES = (dict(tgs_step=False), dict(batch_major_solver=True),
               dict(gram_kernel=True), dict(sqrt_gram=False))
@@ -747,6 +781,191 @@ def drive_path(rollout, name, engine, per_step, card):
     return launches
 
 
+def train_solver_check(agent, ts):
+    """One more control step of the trained policy (its mean action) from
+    the timed epoch's last env state, with the inputs that the step passes
+    to the block-arrow factor (the LHS, (75, 75, N)) and to both resolves
+    (the right-hand sides, (75, N)) recorded; the factor and the resolves
+    then run again on those inputs against their plain versions, held
+    bit-equal as on the kernels phase's cases."""
+    import torch
+    from emloco_tpu_torch.physics import linalg
+    from emloco_tpu_torch.physics import reduced as R
+    names = ("cholesky_factor_blocked_t", "cholesky_resolve_blocked_t")
+    inner = {name: getattr(R, name) for name in names}
+    log = []
+
+    def arm(name):
+        def rec(*args):
+            log.append((name, [a.clone() if torch.is_tensor(a) else a
+                               for a in args]))
+            return inner[name](*args)
+        return rec
+
+    env = agent.env
+    with torch.no_grad():
+        o = ts.obs_norm.normalize(env.observe(ts.env_state))
+        mu, _ = agent._apply(ts.params, "actor", o)
+        try:
+            for name in names:
+                setattr(R, name, arm(name))
+            env.step(ts.env_state, mu)
+        finally:
+            for name, fn in inner.items():
+                setattr(R, name, fn)
+        (_, (A, *arrow)), *resolves = log
+        L_k = linalg.cholesky_factor_blocked_t(A, *arrow)
+        L_p = linalg.factor_blocked_plain(A, *arrow)
+        x_k = [linalg.cholesky_resolve_blocked_t(L_k, b, *arrow)
+               for _, (_, b, *_a) in resolves]
+        x_p = [linalg.resolve_blocked_plain(L_p, b, *arrow)
+               for _, (_, b, *_a) in resolves]
+    torch.cuda.synchronize()
+    return dict(
+        num_envs=int(A.shape[-1]), calls=[name for name, _ in log],
+        factor_bit_equal=bool(torch.equal(L_k, L_p)),
+        factor_max_rel_err=rel_err(L_k, L_p)[1],
+        resolve_bit_equal=[bool(torch.equal(k, p))
+                           for k, p in zip(x_k, x_p)],
+        resolve_max_rel_err=[rel_err(k, p)[1] for k, p in zip(x_k, x_p)],
+        finite=bool(torch.isfinite(L_k).all()
+                    and all(torch.isfinite(x).all() for x in x_k)))
+
+
+def train(card):
+    """The training epoch at the bench's training configuration: a warm-up
+    epoch, then a timed one part by part with the launch counts read around
+    it. Returns the agent, the timed epoch's first update's inputs and the
+    launch counts."""
+    import torch
+    from emloco_tpu_torch.physics import linalg
+    from emloco_tpu_torch.rollout import build_train_bench
+    t = time.time()
+    agent, ts = build_train_bench(TRAIN_ENVS, "cuda", seed=0)
+    p_init = {k: v.clone() for k, v in ts.params.items()}
+    torch.cuda.synchronize()
+    setup_s = time.time() - t
+    t = time.time()
+    ts, _ = agent.train_epoch(ts)                       # warm-up
+    torch.cuda.synchronize()
+    warm_s = time.time() - t
+
+    linalg.reset_launch_counts()
+    t0 = time.time()
+    ts, batch, last_obs = agent.rollout(ts)
+    torch.cuda.synchronize()
+    t1 = time.time()
+    ts, pools = agent.prepare(ts, batch, last_obs)
+    torch.cuda.synchronize()
+    t2 = time.time()
+    before = (ts.params, ts.opt_state, ts.rng.get_state())
+    ts, metrics = agent.update(ts, pools)
+    metrics = {k: v.item() for k, v in metrics.items()}
+    t3 = time.time()
+    launches = dict(linalg.LAUNCHES)
+    steps = agent.cfg.horizon * TRAIN_ENVS
+    finite = (all(math.isfinite(v) for v in metrics.values())
+              and all(bool(torch.isfinite(v).all())
+                      for v in ts.params.values()))
+    moved = any(not torch.equal(ts.params[k], p_init[k]) for k in p_init)
+    solver = train_solver_check(agent, ts)
+    emit("train", num_envs=TRAIN_ENVS, config=dataclasses.asdict(agent.cfg),
+         setup_seconds=round(setup_s, 3), warmup_epoch_seconds=warm_s,
+         rollout_seconds=t1 - t0, prepare_seconds=t2 - t1,
+         update_seconds=t3 - t2, epoch_seconds=t3 - t0,
+         env_steps_per_s=steps / (t3 - t0), card=card, launches=launches,
+         metrics=metrics, replay_filled=ts.replay_filled, finite=finite,
+         params_moved=moved, solver_kernels_on_train_inputs=solver,
+         max_memory_gb=torch.cuda.max_memory_allocated() / 2 ** 30)
+    want = dict.fromkeys(launches, 0)
+    want.update({"cholesky_factor_blocked_t": agent.cfg.horizon,
+                 "cholesky_resolve_blocked_t":
+                     agent.cfg.horizon * agent.env.cfg.engine.n_substeps})
+    if launches != want:
+        raise SystemExit(f"train: launch counts {launches}, expected {want}")
+    n_resolve = agent.env.cfg.engine.n_substeps
+    if not (solver["finite"] and solver["factor_bit_equal"]
+            and len(solver["resolve_bit_equal"]) == n_resolve
+            and all(solver["resolve_bit_equal"])):
+        raise SystemExit(f"train: the factor or resolve disagrees with its "
+                         f"plain version on the step's own inputs: {solver}")
+    if not (finite and moved and metrics["nonfinite_grad"] == 0
+            and ts.replay_filled == 2 * steps
+            and metrics["disc_reward"] < 0.99 * DISC_REWARD_CAP):
+        raise SystemExit(
+            f"train epoch failed: finite {finite}, moved {moved}, "
+            f"nonfinite_grad {metrics['nonfinite_grad']}, replay_filled "
+            f"{ts.replay_filled} (expected {2 * steps}), disc_reward "
+            f"{metrics['disc_reward']} (cap {DISC_REWARD_CAP})")
+    params, opt, rng_state = before
+    gen = torch.Generator(device="cuda")
+    gen.set_state(rng_state)
+    mb, demo, replay, masks = next(agent.minibatches(pools, gen))
+    return agent, (params, opt, mb, demo, replay, masks), launches
+
+
+def train_reference(agent, inputs):
+    """One update of the timed epoch on the card against the same update on
+    the CPU (the tolerances of tests/test_torch_train.py)."""
+    import torch
+    params, opt, mb, demo, replay, masks = inputs
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        def to(x):
+            return x.to(dev)
+        p = {k: to(v) for k, v in params.items()}
+        o = opt.to(dev)
+        args = ({k: to(v) for k, v in mb.items()}, to(demo), to(replay),
+                None if masks is None else tuple(to(m) for m in masks))
+        t = time.time()
+        total, terms, grads = agent._loss_and_grads(p, *args)
+        p1, _, finite = agent._apply_grads(p, o, grads)
+        terms["total"] = total
+        finite = bool(finite)
+        runs[dev] = dict(seconds=time.time() - t, finite=finite,
+                         terms={k: v.item() for k, v in terms.items()},
+                         grads={k: v.cpu() for k, v in grads.items()},
+                         params={k: v.cpu() for k, v in p1.items()})
+    card, cpu = runs["cuda"], runs["cpu"]
+    p0 = {k: v.cpu() for k, v in params.items()}
+    # the CPU optimizer's step on the card's gradients
+    step_ref, _, _ = agent._apply_grads(p0, opt.to("cpu"), card["grads"])
+    lr = agent.cfg.lr
+    term_err = {k: abs(card["terms"][k] - v) / max(abs(v), 1e-6)
+                for k, v in cpu["terms"].items()}
+    grad_err, step_err, update_err = {}, {}, {}
+    for k, g in cpu["grads"].items():
+        gtol = GRAD_REL * max(g.abs().max().item(), 1e-12)
+        grad_err[k] = ((card["grads"][k] - g).abs().max().item()
+                       / max(g.abs().max().item(), 1e-12))
+        step_err[k] = ((card["params"][k].double() - step_ref[k].double())
+                       .abs().max().item() / lr)
+        clear = g.abs() >= gtol
+        du = card["params"][k].double() - p0[k].double()
+        rdu = cpu["params"][k].double() - p0[k].double()
+        update_err[k] = ((du - rdu)[clear].abs().max().item() / lr
+                         if bool(clear.any()) else 0.0)
+    worst = dict(loss_rel=max(term_err.values()),
+                 grad_rel=max(grad_err.values()),
+                 step_lr=max(step_err.values()),
+                 update_lr=max(update_err.values()))
+    emit("train_reference", rows=int(mb["adv"].shape[0]),
+         demo_rows=int(demo.shape[0]), replay_rows=int(replay.shape[0]),
+         card_seconds=card["seconds"], cpu_seconds=cpu["seconds"],
+         finite=[card["finite"], cpu["finite"]], terms_card=card["terms"],
+         terms_cpu=cpu["terms"], worst=worst,
+         tolerance=dict(loss_rel=LOSS_REL, grad_rel=GRAD_REL,
+                        step_lr=UPDATE_LR, update_lr=UPDATE_LR),
+         grad_rel_by_leaf=grad_err, update_lr_by_leaf=update_err)
+    if not (card["finite"] and cpu["finite"]
+            and worst["loss_rel"] <= LOSS_REL
+            and worst["grad_rel"] <= GRAD_REL
+            and worst["step_lr"] <= UPDATE_LR
+            and worst["update_lr"] <= UPDATE_LR):
+        raise SystemExit(f"train_reference: the card's update disagrees "
+                         f"with the CPU's: {worst}")
+
+
 def main():
     import numpy as np
     import torch
@@ -968,18 +1187,25 @@ def main():
     for name, kw, per_step in PATHS:
         by_path[name] = drive_path(rollout, name, kw, per_step, card)
 
-    # 11. reference on the other paths --------------------------------------
+    # 11. the training epoch ------------------------------------------------
+    agent, first_update, by_path["train"] = train(card)
+
+    # 12. one update on the card against the CPU -----------------------------
+    train_reference(agent, first_update)
+    del agent, first_update
+
+    # 13. reference on the other paths --------------------------------------
     for kw in REFERENCES:
         card_vs_cpu("reference_implicit",
                     dataclasses.replace(cfg, engine=EngineConfig(**kw)), env,
                     gen, engine=kw)
 
-    # 12. the probe's kernels against their plain version -------------------
+    # 14. the probe's kernels against their plain version -------------------
     pcases = probe_inputs(engine_rows, dev)
     del engine_rows
     errs.update(probe_kernels(pcases))
 
-    # 13. their times, then the probe itself --------------------------------
+    # 15. their times, then the probe itself --------------------------------
     p_times, (p_bytes, p_flops) = probe_times(*pcases["probe_seed0"])
     del pcases
     times.update(p_times)

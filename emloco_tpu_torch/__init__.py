@@ -11,12 +11,17 @@ kinematics   skeleton tree, forward kinematics, body model, motion library
 physics      reduced-coordinate engine (TGS and implicit substeps, env-last
              or batch-major), terrain, the solver kernels' wrappers and
              plain versions
-envs         pedestrian-terrain env: reset, observe, step
-learning     running normalization, the AMPSept actor
+envs         pedestrian-terrain env: reset, observe, step, the mirror of an
+             observation, the AMP demo fetch
+learning     running normalization, the AMPSept network's four heads, the
+             PPO + AMP agent (amp_agent)
 csrc         the CUDA kernels; build.py compiles them with nvcc at first use
 convert      JAX-package objects (as numpy pytrees) → this package's objects
-rollout      the env and actor at the bench configuration; the control step
-profile_step where a control step's time goes on the card
+rollout      the env and actor at the bench configuration; the control step;
+             the agent at the bench's training configuration
+train        the training entry point: python3 -m emloco_tpu_torch.train
+profile_step where a control step's or a training epoch's time goes on the
+             card
 scripts      the Gram-layout probe, port of scripts/gram_kernel_probe.py
 
 Every entry point takes `device=None`, which means CUDA; the CPU runs only

@@ -16,6 +16,7 @@ from . import device as _device
 from .envs.pedestrian_terrain import EnvState
 from .kinematics.body_model import BodyParams
 from .kinematics.motion_lib import MotionLib
+from .learning.amp_agent import AdamState
 from .learning.running_norm import RunningNorm
 from .physics.reduced import Model, PhysicsState
 from .physics.terrain import Heightfield
@@ -75,15 +76,23 @@ def running_norm(rn, device=None) -> RunningNorm:
     return _fields(RunningNorm, rn, device)
 
 
-def actor_state_dict(params) -> dict:
-    """flax AMPSeptValueNet params → the actor's state_dict. Flax Dense
-    kernels are (in, out); nn.Linear weights are (out, in)."""
+_ACTOR = (("task_mlp_", "actor_mlp_"), ("mu",))
+_ALL_HEADS = (("task_mlp_", "actor_mlp_", "critic_mlp_", "disc_mlp_",
+               "task_value_mlp_"),
+              ("mu", "value", "disc_logits", "value_logits"))
+
+
+def _state_dict(params, mlps, dense) -> dict:
+    """flax AMPSeptValueNet params → a state_dict of the layers named by
+    the MLP prefixes `mlps` (`actor_mlp_1` → `actor_mlp.1`) and the single
+    layers `dense`, with log_sigma. Flax Dense kernels are (in, out);
+    nn.Linear weights are (out, in)."""
     p = params.get("params", params)
     sd = {"log_sigma": torch.as_tensor(np.array(p["log_sigma"]))}
     for name, layer in p.items():
-        if name == "mu":
-            key = "mu"
-        elif name.startswith(("task_mlp_", "actor_mlp_")):
+        if name in dense:
+            key = name
+        elif name.startswith(mlps):
             head, idx = name.rsplit("_", 1)
             key = f"{head}.{idx}"
         else:
@@ -91,3 +100,37 @@ def actor_state_dict(params) -> dict:
         sd[f"{key}.weight"] = torch.as_tensor(np.array(layer["kernel"]).T)
         sd[f"{key}.bias"] = torch.as_tensor(np.array(layer["bias"]))
     return sd
+
+
+def actor_state_dict(params) -> dict:
+    """flax AMPSeptValueNet params → the actor's state_dict."""
+    return _state_dict(params, *_ACTOR)
+
+
+def agent_state_dict(params) -> dict:
+    """flax AMPSeptValueNet params → the state_dict of all four heads."""
+    return _state_dict(params, *_ALL_HEADS)
+
+
+def adam_state(opt_state, device=None):
+    """optax chain(clip_by_global_norm, adam) state → the port's AdamState:
+    the step count and the first and second moments per parameter, under
+    agent_state_dict's names."""
+    def find(node):
+        if hasattr(node, "mu") and hasattr(node, "nu"):
+            return node
+        if isinstance(node, (tuple, list)):
+            for child in node:
+                hit = find(child)
+                if hit is not None:
+                    return hit
+        return None
+
+    st = find(opt_state)
+    if st is None:
+        raise ValueError("no adam moments in this optimizer state")
+    dev = _device.resolve(device)
+    return AdamState(
+        count=tensor(st.count, dev),
+        mu={k: v.to(dev) for k, v in agent_state_dict(st.mu).items()},
+        nu={k: v.to(dev) for k, v in agent_state_dict(st.nu).items()})

@@ -1,8 +1,10 @@
 """Observation kernels — batched tensor functions.
 
-Port of the parts of emloco_tpu/envs/observations.py the default env runs:
-the heading-relative self observation, the AMP features, the trajectory
-(location) observation and the height-map sensor.
+Port of the parts of emloco_tpu/envs/observations.py the default env and
+its training run: the heading-relative self observation, the AMP features,
+the trajectory (location) observation, the height-map sensor, the
+left/right mirror of the body state, the self observation and the actions
+(the motion-symmetry loss), and the AMP dropout mask.
 """
 from __future__ import annotations
 
@@ -20,8 +22,29 @@ KEY_BODY_IDS = np.array([bm.BODY_NAMES.index(n) for n in bm.KEY_BODIES])
 CONTACT_BODY_IDS = np.array([bm.BODY_NAMES.index(n)
                              for n in bm.CONTACT_BODIES])
 
+
+def _mirror_index():
+    """Left-right body permutation: L_x ↔ R_x, the rest fixed."""
+    out = []
+    for n in bm.BODY_NAMES:
+        if n.startswith("L_"):
+            out.append(bm.BODY_NAMES.index("R_" + n[2:]))
+        elif n.startswith("R_"):
+            out.append(bm.BODY_NAMES.index("L_" + n[2:]))
+        else:
+            out.append(bm.BODY_NAMES.index(n))
+    return np.array(out)
+
+
+MIRROR_BODY = _mirror_index()
+MIRROR_ACTION = MIRROR_BODY[1:] - 1  # joint-index permutation
+
 SELF_OBS_DIM = bm.NUM_BODIES * 15 - 3
 AMP_OBS_DIM = 6 + 3 + 3 + len(DOF_SUBSET_JOINTS) * 9 + len(KEY_BODY_IDS) * 3
+
+# per-step AMP-obs block offsets (rot 6 + vel 3 + ang_vel 3, no root_h)
+_AMP_DOF_OBS_OFFSET = 12
+_AMP_DOF_VEL_OFFSET = _AMP_DOF_OBS_OFFSET + len(DOF_SUBSET_JOINTS) * 6
 
 
 def dof_to_obs(dof_pos: torch.Tensor) -> torch.Tensor:
@@ -81,6 +104,30 @@ def amp_obs(root_pos, root_rot, root_vel, root_ang_vel, dof_pos, dof_vel,
     return torch.cat(parts, dim=-1)
 
 
+def amp_dropout_draw(gen: torch.Generator, batch: int,
+                     device=None) -> torch.Tensor:
+    """The uniform draw behind one AMP dropout mask: (batch, 19), one value
+    per observed joint."""
+    return torch.rand((batch, len(DOF_SUBSET_JOINTS)), generator=gen,
+                      device=device)
+
+
+def amp_dropout_mask(u: torch.Tensor, steps: int, per_step: int,
+                     rate: float = 0.3) -> torch.Tensor:
+    """Whole-joint dropout mask for the discriminator's inputs from the draw
+    `u` (amp_dropout_draw): joint j is dropped where u[:, j] ≤ rate, zeroing
+    both its 6-d tan-norm dof block and its 3-d dof-vel block, with the same
+    mask at every window step. Returns (batch, steps·per_step) of {0, 1}."""
+    keep = (u > rate).float()
+    step_mask = torch.ones((u.shape[0], per_step), device=u.device)
+    n = keep.shape[1]
+    step_mask[:, _AMP_DOF_OBS_OFFSET:_AMP_DOF_OBS_OFFSET + 6 * n] = \
+        keep.repeat_interleave(6, -1)
+    step_mask[:, _AMP_DOF_VEL_OFFSET:_AMP_DOF_VEL_OFFSET + 3 * n] = \
+        keep.repeat_interleave(3, -1)
+    return step_mask.repeat(1, steps)
+
+
 def location_obs(root_pos, root_rot, traj_samples) -> torch.Tensor:
     """Future trajectory samples in the heading-local frame, xy only:
     traj_samples (N,S,3) → (N,S·2)."""
@@ -119,3 +166,74 @@ def heightmap_obs(terrain: Heightfield, sensor_pos, sensor_rot, center_xy,
     cpx, cpy = _rotate_grid_xy(heading, cg, center_xy)
     ch = height_at_min2_xy(terrain, cpx, cpy).mean(-1, keepdim=True)
     return torch.clamp(ch - h, -3.0, 3.0) * meas_scale
+
+
+def flip_body_state(body_pos, body_rot, body_vel, body_ang_vel):
+    """Mirror the body state across the xz plane for the motion-symmetry
+    loss: positions and velocities negate y, rotations and angular
+    velocities (pseudovectors) negate x and z, bodies swap left and right."""
+    dev = body_pos.device
+    mi = torch.as_tensor(MIRROR_BODY, device=dev)
+    vec = torch.tensor([1.0, -1.0, 1.0], device=dev)
+    pseudo = torch.tensor([-1.0, 1.0, -1.0], device=dev)
+    rot = torch.tensor([-1.0, 1.0, -1.0, 1.0], device=dev)
+    return ((body_pos * vec)[:, mi], (body_rot * rot)[:, mi],
+            (body_vel * vec)[:, mi], (body_ang_vel * pseudo)[:, mi])
+
+
+def build_self_obs_flip(self_dim: int):
+    """Static (index, sign) realizing the left/right mirror of the self
+    observation in feature space: the mirror commutes with the heading-local
+    projection, so the flipped state's observation is a signed permutation
+    of the unflipped one — body L↔R plus per-component signs (positions and
+    velocities negate y, both tan-norm columns (x, −y, z), angular velocity
+    negates x and z, betas unchanged, limb-weight groups swap L/R)."""
+    B = bm.NUM_BODIES
+    mi = MIRROR_BODY
+    idx = np.arange(self_dim)
+    sign = np.ones(self_dim, np.float32)
+    o = 0                        # no root_h slot (rootHeightObs False)
+    for b in range(1, B):        # local body pos, bodies 1..23: −y
+        src = o + (mi[b] - 1) * 3
+        dst = o + (b - 1) * 3
+        idx[dst:dst + 3] = np.arange(src, src + 3)
+        sign[dst + 1] = -1.0
+    o += (B - 1) * 3
+    for b in range(B):           # rot tan-norm: M·v = (x, −y, z) per column
+        src = o + mi[b] * 6
+        dst = o + b * 6
+        idx[dst:dst + 6] = np.arange(src, src + 6)
+        sign[dst:dst + 6] = [1, -1, 1, 1, -1, 1]
+    o += B * 6
+    for b in range(B):           # body vel: −y
+        src = o + mi[b] * 3
+        dst = o + b * 3
+        idx[dst:dst + 3] = np.arange(src, src + 3)
+        sign[dst + 1] = -1.0
+    o += B * 3
+    for b in range(B):           # body ang vel (pseudovector): −x, −z
+        src = o + mi[b] * 3
+        dst = o + b * 3
+        idx[dst:dst + 3] = np.arange(src, src + 3)
+        sign[dst] = -1.0
+        sign[dst + 2] = -1.0
+    o += B * 3
+    if self_dim > o:             # betas (11) unchanged
+        o += 11
+    if self_dim > o:             # limb weights: L↔R
+        gperm = np.array([1, 0, 2, 4, 3])
+        idx[o:o + 5] = o + gperm
+        idx[o + 5:o + 10] = o + 5 + gperm
+        o += 10
+    if o != self_dim:
+        raise ValueError(f"self obs of {self_dim} floats has no mirror "
+                         f"(layout ends at {o})")
+    return idx, sign
+
+
+def flip_actions(actions: torch.Tensor) -> torch.Tensor:
+    """Mirror exp-map actions: joints swap left and right, x and z negate."""
+    a = actions.reshape(actions.shape[0], bm.NUM_JOINTS, 3)
+    a = a[:, torch.as_tensor(MIRROR_ACTION, device=a.device)]
+    a = a * torch.tensor([-1.0, 1.0, -1.0], device=a.device)
+    return a.reshape(actions.shape[0], -1)

@@ -8,6 +8,10 @@ heading, with the auto-reset done inside `step` by per-env selects.
     reset(generator)       → EnvState
     step(state, actions)   → (EnvState, StepOutput)
 
+Training adds the left/right mirror of an observation (`observe_flipped`
+from the state, `observe_flipped_from` in feature space), the AMP demo fetch
+from the motion library and the per-epoch hard-negative hook.
+
 Random draws come from the torch.Generator the caller passes to `reset`; it
 travels in EnvState.rng and advances in place. The options the default
 configuration leaves off and this port does not implement (action and
@@ -205,6 +209,10 @@ class PedestrianTerrainEnv:
         self.sensor_grid = torch.as_tensor(
             obs.make_sensor_grid(cfg.sensor_extent, cfg.sensor_res),
             device=dev)
+        # feature-space self-obs mirror (signed permutation)
+        fidx, fsign = obs.build_self_obs_flip(cfg.self_obs_dim)
+        self._flip_self_idx = torch.as_tensor(fidx, device=dev)
+        self._flip_self_sign = torch.as_tensor(fsign, device=dev)
         # PD action mapping: ±1.2·max|limit| clamped to π, knee y-scale 5
         lim = self.params.joint_limit[0].cpu().numpy()
         scale = np.minimum(1.2 * np.abs(lim).max(-1, keepdims=True), np.pi)
@@ -241,6 +249,14 @@ class PedestrianTerrainEnv:
         self._contact_ids = torch.as_tensor(obs.CONTACT_BODY_IDS, device=dev)
         self._key_ids = torch.as_tensor(obs.KEY_BODY_IDS, device=dev)
         self._head = self.tree.index("Head")
+
+    @property
+    def task_obs_dim(self):
+        return self.cfg.task_obs_dim
+
+    @property
+    def obs_dim(self):
+        return self.cfg.self_obs_dim + self.task_obs_dim
 
     # ------------------------------------------------------------------
     # resets
@@ -415,6 +431,42 @@ class PedestrianTerrainEnv:
         return torch.cat([self._self_obs(state.physics),
                           self._task_obs(state)], -1)
 
+    def observe_flipped(self, state: EnvState):
+        """Left/right mirrored observation computed from the state: the
+        oracle of observe_flipped_from, which training runs."""
+        pos, rot, vel, ang = body_frame_state(self.model, state.physics)
+        self_obs = obs.humanoid_obs_max(*obs.flip_body_state(pos, rot, vel,
+                                                             ang),
+                                        betas=self._obs_betas,
+                                        limb_weights=self._obs_limbw)
+        return torch.cat([self_obs]
+                         + self._flip_task_parts(self._task_obs(state)), -1)
+
+    def observe_flipped_from(self, obs_full):
+        """Mirror a computed observation in feature space: a static signed
+        permutation of the self obs (observations.build_self_obs_flip) and a
+        feature-level mirror of the task obs, with no second sensor pass."""
+        sd = self.cfg.self_obs_dim
+        self_obs = obs_full[:, :sd][:, self._flip_self_idx] \
+            * self._flip_self_sign
+        task = obs_full[:, sd:sd + self.task_obs_dim]
+        return torch.cat([self_obs] + self._flip_task_parts(task), -1)
+
+    def _flip_task_parts(self, task):
+        """The mirrored task obs, part by part: trajectory samples negate y;
+        the square height map reverses its minor (y) axis."""
+        cfg = self.cfg
+        S = cfg.num_traj_samples
+        loc = task[:, :2 * S].reshape(-1, S, 2) \
+            * torch.tensor([1.0, -1.0], device=task.device)
+        parts = [loc.reshape(-1, 2 * S)]
+        off = 2 * S
+        if cfg.terrain_obs:
+            P, res = cfg.num_sensor_points, cfg.sensor_res
+            hm = task[:, off:off + P].reshape(-1, res, res)
+            parts.append(hm.flip(-1).reshape(-1, P))
+        return parts
+
     # ------------------------------------------------------------------
     # step
     # ------------------------------------------------------------------
@@ -535,3 +587,43 @@ class PedestrianTerrainEnv:
             dr_scales=dr_scales,
             dr_last=dr_last,
         )
+
+    def apply_hard_negative_update(self, state: EnvState) -> EnvState:
+        """The per-epoch refresh of the motion-sampling weights: the
+        identity, since `hard_negative` is not ported."""
+        return state
+
+    # ------------------------------------------------------------------
+    # AMP demo fetch
+    # ------------------------------------------------------------------
+
+    def sample_amp_demo(self, gen: torch.Generator, num_samples: int):
+        """The demo fetch's draws: motion ids and each window's newest time
+        t0, late enough that the whole window lies in the clip."""
+        mids = ml.sample_motions(self.motion_lib, gen, num_samples)
+        truncate = self.cfg.dt * (self.cfg.num_amp_obs_steps - 1)
+        t0 = ml.sample_time(self.motion_lib, gen, mids,
+                            truncate_time=truncate)
+        return mids, t0 + truncate
+
+    def amp_obs_demo(self, mids, t0):
+        """(num_samples, S·amp_dim) demo windows at (motion ids, t0), newest
+        step first as in the live window."""
+        cfg = self.cfg
+        S = cfg.num_amp_obs_steps
+        offsets = -torch.arange(S, device=self.device) * cfg.dt
+        ts = (t0[:, None] + offsets[None]).reshape(-1)
+        mids_rep = torch.repeat_interleave(mids, S)
+        ms = ml.get_motion_state(self.motion_lib, mids_rep, ts)
+        limbw = (self.limb_weights[:1].expand(len(mids_rep), -1)
+                 if cfg.has_limb_weight_obs else None)
+        a = obs.amp_obs(ms["root_pos"], ms["root_rot"], ms["root_vel"],
+                        ms["root_ang_vel"], ms["dof_pos"], ms["dof_vel"],
+                        ms["key_pos"],
+                        betas=ms["betas"] if cfg.has_shape_obs else None,
+                        limb_weights=limbw)
+        return a.reshape(mids.shape[0], -1)
+
+    def fetch_amp_obs_demo(self, gen: torch.Generator, num_samples: int):
+        """Demo AMP windows drawn from the motion library."""
+        return self.amp_obs_demo(*self.sample_amp_demo(gen, num_samples))

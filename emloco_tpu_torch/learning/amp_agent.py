@@ -1,0 +1,540 @@
+"""PPO + AMP agent (port of emloco_tpu/learning/amp_agent.py).
+
+One training epoch, `AMPAgent.train_epoch`, runs in three parts that a
+caller timing them may also call in turn:
+  * rollout — `horizon` control steps of the env under the current policy
+    (action noise μ + σ·ε, the critic's value on the normalized obs, the
+    feature-space mirror of each obs for the symmetry loss), into buffers
+    allocated once per epoch;
+  * prepare — the discriminator reward and GAE, the obs / AMP / value norms
+    (updated after the rollout: the pools are normalized with the updated
+    norms while logp was taken under the old one), the normalized
+    advantages (population std), the replay ring's insert and draw, and the
+    demo windows fetched from the motion library;
+  * update — `mini_epochs` × `num_minibatches` PPO + AMP updates, each with
+    its three AMP dropout masks, the R1 gradient penalty on the demo batch,
+    the motion-symmetry loss and a nonfinite guard that drops the whole
+    update (parameters, moments and count) on the device.
+The combined reward is task_w·task + disc_w·(−log(max(1 − σ(D), 1e-4))·2).
+
+Parameters are a dict of tensors under the network's state_dict names; the
+heads run through `torch.func.functional_call`, so an update is a pure
+function of its inputs on whatever device they lie. The optimizer is optax's
+`chain(clip_by_global_norm(grad_norm), adam(lr))` written out on tensors
+(`ClipAdam`).
+
+Random streams: `jax.random` cannot be reproduced in torch. The agent draws
+every number from the one torch.Generator in `TrainState.rng`, in this
+order: in the rollout, per step, one standard normal (N, A) for the action
+noise; in prepare, a permutation of T·N for the replay insert (only when T·N
+exceeds the ring), the replay rows (uniform integers below the fill), then
+the demo windows' motion ids and times; in the update, per mini-epoch one
+permutation of T·N, then per minibatch three uniform dropout draws (the
+rollout, replay and demo rows) when `amp_dropout` is on. The env draws from
+its own generator in EnvState.rng.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch.func import functional_call
+
+from ..envs import observations as obs_mod
+from ..envs.pedestrian_terrain import EnvState, PedestrianTerrainEnv
+from ..struct import TensorStruct
+from .networks import AMPSeptValueNet
+from .running_norm import RunningNorm
+
+
+@dataclasses.dataclass(frozen=True)
+class AMPConfig:
+    horizon: int = 32
+    num_minibatches: int = 20
+    mini_epochs: int = 6
+    gamma: float = 0.99
+    tau: float = 0.95
+    lr: float = 2e-5
+    e_clip: float = 0.2
+    grad_norm: float = 50.0
+    actor_coef: float = 1.0
+    critic_coef: float = 5.0
+    bounds_coef: float = 10.0
+    disc_coef: float = 5.0
+    tv_coef: float = 5.0
+    sym_coef: float = 1.0
+    motion_sym_loss: bool = True
+    disc_logit_reg: float = 0.01
+    disc_grad_penalty: float = 5.0
+    disc_weight_decay: float = 1e-4
+    disc_reward_scale: float = 2.0
+    task_reward_w: float = 0.5
+    disc_reward_w: float = 0.5
+    amp_replay_size: int = 200_000
+    amp_batch_size: int = 1280
+    amp_dropout: bool = True
+    amp_dropout_rate: float = 0.3
+    hidden_bf16: bool = False
+    network: str = "sept"
+    normalize_input: bool = True
+    normalize_value: bool = True
+    normalize_advantage: bool = True
+    max_cum_reward: float = 100.0
+    min_cum_reward: float = -10.0
+
+    def __post_init__(self):
+        if self.hidden_bf16:
+            raise NotImplementedError(
+                "AMPConfig.hidden_bf16=True is not ported to "
+                "emloco_tpu_torch yet")
+        if self.network == "sept_cnn":
+            raise NotImplementedError(
+                "AMPConfig.network='sept_cnn' is not ported to "
+                "emloco_tpu_torch yet")
+        if self.network != "sept":
+            raise ValueError(f"unknown network {self.network!r}")
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamState(TensorStruct):
+    count: torch.Tensor            # () int32, updates applied
+    mu: dict                       # first moments, by parameter name
+    nu: dict                       # second moments
+
+
+# optax adam's defaults, which the JAX agent's `adam(lr)` takes
+_B1, _B2, _EPS = 0.9, 0.999, 1e-8
+
+
+@dataclasses.dataclass(frozen=True)
+class ClipAdam:
+    """optax.chain(clip_by_global_norm(max_norm), adam(lr)) on dicts of
+    tensors. The clip scales by max_norm / norm only when norm ≥ max_norm
+    (no 1e-6, unlike clip_grad_norm_); Adam's bias corrections divide the
+    moments, as optax applies them (b1 0.9, b2 0.999, eps 1e-8, eps_root
+    0)."""
+
+    max_norm: float
+    lr: float
+
+    def init(self, params: dict) -> AdamState:
+        dev = next(iter(params.values())).device
+        return AdamState(
+            count=torch.zeros((), dtype=torch.int32, device=dev),
+            mu={k: torch.zeros_like(v) for k, v in params.items()},
+            nu={k: torch.zeros_like(v) for k, v in params.items()})
+
+    def clip(self, grads: dict) -> dict:
+        norm = torch.sqrt(sum((g * g).sum() for g in grads.values()))
+        keep = norm < self.max_norm
+        return {k: torch.where(keep, g, g / norm * self.max_norm)
+                for k, g in grads.items()}
+
+    def update(self, grads: dict, state: AdamState, params: dict):
+        """(new params, new state) after one step on `grads`."""
+        grads = self.clip(grads)
+        count = state.count + 1
+        bc1 = 1 - _B1 ** count.float()
+        bc2 = 1 - _B2 ** count.float()
+        mu, nu, new = {}, {}, {}
+        for k, g in grads.items():
+            mu[k] = (1 - _B1) * g + _B1 * state.mu[k]
+            nu[k] = (1 - _B2) * (g * g) + _B2 * state.nu[k]
+            u = (mu[k] / bc1) / (torch.sqrt(nu[k] / bc2) + _EPS)
+            new[k] = params[k] + u * -self.lr
+        return new, AdamState(count=count, mu=mu, nu=nu)
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainState(TensorStruct):
+    params: dict                   # network parameters by state_dict name
+    opt_state: AdamState
+    obs_norm: RunningNorm
+    amp_norm: RunningNorm
+    value_norm: RunningNorm
+    env_state: EnvState
+    replay_amp: torch.Tensor       # (R, amp_dim) ring, updated in place
+    replay_ptr: int                # sizes only: host ints, no sync
+    replay_filled: int
+    rng: torch.Generator           # every draw of the agent
+    epoch: int
+    task_reward_w: torch.Tensor    # () f32
+    disc_reward_w: torch.Tensor    # () f32
+
+
+class AMPAgent:
+    """Holds the env, the network's structure and the optimizer; the
+    parameters, optimizer state, norms and env state travel in TrainState."""
+
+    def __init__(self, env: PedestrianTerrainEnv,
+                 cfg: AMPConfig = AMPConfig()):
+        self.env = env
+        self.cfg = cfg
+        ecfg = env.cfg
+        self.amp_dim = ecfg.num_amp_obs_steps * ecfg.amp_obs_per_step
+        # the structure; `init` draws the weights (a fixed generator here
+        # leaves torch's global one alone)
+        self.net = AMPSeptValueNet(
+            ecfg.num_actions, ecfg.self_obs_dim, ecfg.num_traj_samples * 2,
+            env.task_obs_dim, self.amp_dim,
+            generator=torch.Generator(device=env.device).manual_seed(0),
+            device=env.device)
+        self.tx = ClipAdam(cfg.grad_norm, cfg.lr)
+
+    # ------------------------------------------------------------------
+
+    def init(self, seed: int) -> TrainState:
+        """Fresh weights, optimizer state, norms, replay ring and env state;
+        the weights, the env and the agent draw from three generators seeded
+        from `seed`."""
+        dev = self.env.device
+        s_net, s_env, s_agent = (
+            int(s) for s in np.random.SeedSequence(seed).generate_state(
+                3, np.uint64))
+        self.net.init_parameters(
+            torch.Generator(device=dev).manual_seed(s_net))
+        params = {k: v.detach().clone()
+                  for k, v in self.net.named_parameters()}
+        cfg = self.cfg
+        return TrainState(
+            params=params,
+            opt_state=self.tx.init(params),
+            obs_norm=RunningNorm.create(self.env.obs_dim, device=dev),
+            amp_norm=RunningNorm.create(self.amp_dim, device=dev),
+            value_norm=RunningNorm.create(1, device=dev),
+            env_state=self.env.reset(
+                torch.Generator(device=dev).manual_seed(s_env)),
+            replay_amp=torch.zeros((cfg.amp_replay_size, self.amp_dim),
+                                   device=dev),
+            replay_ptr=0,
+            replay_filled=0,
+            rng=torch.Generator(device=dev).manual_seed(s_agent),
+            epoch=0,
+            task_reward_w=torch.tensor(cfg.task_reward_w, device=dev),
+            disc_reward_w=torch.tensor(cfg.disc_reward_w, device=dev),
+        )
+
+    def _apply(self, params, method, *inputs):
+        """The head `method` under `params` (flax's net.apply)."""
+        return functional_call(self.net, params, inputs, {"method": method})
+
+    # ------------------------------------------------------------------
+    # rollout
+    # ------------------------------------------------------------------
+
+    def _policy(self, params, obs_norm, obs, gen):
+        o = obs_norm.normalize(obs) if self.cfg.normalize_input else obs
+        mu, sigma = self._apply(params, "actor", o)
+        a = mu + sigma * torch.randn(mu.shape, generator=gen,
+                                     device=mu.device)
+        return a, mu, sigma, self._logp(mu, sigma, a), o
+
+    @staticmethod
+    def _logp(mu, sigma, a):
+        return (-0.5 * (((a - mu) / sigma) ** 2)
+                - torch.log(sigma)
+                - 0.5 * math.log(2 * math.pi)).sum(-1)
+
+    def _disc_reward(self, params, amp_norm, amp_obs):
+        logit = self._apply(params, "disc", amp_norm.normalize(amp_obs))
+        prob = torch.sigmoid(logit)
+        return (-torch.log(torch.clamp(1 - prob, min=1e-4))
+                * self.cfg.disc_reward_scale)
+
+    @torch.no_grad()
+    def rollout(self, ts: TrainState):
+        """`horizon` control steps → (ts with the new env state, the (T, N,
+        …) batch, the last obs)."""
+        cfg, env = self.cfg, self.env
+        T, N, dev = cfg.horizon, env.cfg.num_envs, env.device
+        A = env.cfg.num_actions
+
+        def buf(*shape, dtype=torch.float32):
+            return torch.empty((T, N) + shape, dtype=dtype, device=dev)
+
+        batch = dict(obs=buf(env.obs_dim), action=buf(A), logp=buf(),
+                     value=buf(), reward=buf(), done=buf(dtype=torch.bool),
+                     terminated=buf(dtype=torch.bool),
+                     amp_obs=buf(self.amp_dim), reward_raw=buf(2))
+        if cfg.motion_sym_loss:
+            batch["flip_obs"] = buf(env.obs_dim)
+        # the first obs is the one learning-facing tensor that does not pass
+        # through StepOutput's sanitizer
+        obs = torch.nan_to_num(env.observe(ts.env_state), nan=0.0,
+                               posinf=0.0, neginf=0.0)
+        env_state = ts.env_state
+        for t in range(T):
+            if cfg.motion_sym_loss:
+                batch["flip_obs"][t] = env.observe_flipped_from(obs)
+            a, _, _, logp, o_n = self._policy(ts.params, ts.obs_norm, obs,
+                                              ts.rng)
+            batch["value"][t] = self._apply(ts.params, "critic", o_n)
+            env_state, out = env.step(env_state, a)
+            batch["obs"][t] = obs
+            batch["action"][t] = a
+            batch["logp"][t] = logp
+            for k in ("reward", "done", "terminated", "amp_obs",
+                      "reward_raw"):
+                batch[k][t] = getattr(out, k)
+            obs = out.obs
+        env_state = env.apply_hard_negative_update(env_state)
+        return ts.replace(env_state=env_state), batch, obs
+
+    def compute_gae(self, ts: TrainState, batch, last_obs):
+        """GAE over the (T, N) batch, in reverse. Every done step bootstraps
+        0: the env auto-resets inside step, so the next state belongs to a
+        fresh episode. Returns (advantages, returns, combined reward, disc
+        reward)."""
+        cfg = self.cfg
+        disc_r = self._disc_reward(ts.params, ts.amp_norm, batch["amp_obs"])
+        reward = (ts.task_reward_w * batch["reward"]
+                  + ts.disc_reward_w * disc_r)
+        o_n = (ts.obs_norm.normalize(last_obs) if cfg.normalize_input
+               else last_obs)
+        last_value = self._apply(ts.params, "critic", o_n)
+        if cfg.normalize_value:
+            values = ts.value_norm.denormalize(batch["value"][..., None])[
+                ..., 0]
+            last_value = ts.value_norm.denormalize(last_value[..., None])[
+                ..., 0]
+        else:
+            values = batch["value"]
+        advs = torch.empty_like(reward)
+        adv_next, v_next = torch.zeros_like(last_value), last_value
+        for t in reversed(range(reward.shape[0])):
+            nondone = 1.0 - batch["done"][t].float()
+            delta = reward[t] + cfg.gamma * v_next * nondone - values[t]
+            adv_next = delta + cfg.gamma * cfg.tau * nondone * adv_next
+            advs[t] = adv_next
+            v_next = values[t]
+        return advs, advs + values, reward, disc_r
+
+    # ------------------------------------------------------------------
+    # losses
+    # ------------------------------------------------------------------
+
+    def _loss_and_grads(self, params, mb, demo_amp, replay_amp, masks):
+        """(total loss, loss terms, gradient by parameter) of one minibatch.
+        `masks` are the (rollout, replay, demo) dropout masks, or None."""
+        cfg = self.cfg
+        half = replay_amp.shape[0]
+        amp_rollout = mb["amp_n"][:half]
+        if masks is not None:
+            # constants w.r.t. the gradient, on the normalized features
+            amp_rollout = amp_rollout * masks[0]
+            replay_amp = replay_amp * masks[1]
+            demo_amp = demo_amp * masks[2]
+        p = {k: v.detach().requires_grad_() for k, v in params.items()}
+        with torch.enable_grad():
+            mu, sigma = self._apply(p, "actor", mb["obs_n"])
+            logp = self._logp(mu, sigma, mb["action"])
+            # exp(±16) keeps a far-moved policy's ratio inside float32
+            ratio = torch.exp(torch.clamp(logp - mb["logp"], -16.0, 16.0))
+            surr1 = ratio * mb["adv"]
+            surr2 = torch.clamp(ratio, 1 - cfg.e_clip,
+                                1 + cfg.e_clip) * mb["adv"]
+            a_loss = -torch.minimum(surr1, surr2).mean()
+
+            v = self._apply(p, "critic", mb["obs_n"])
+            c_loss = 0.5 * torch.mean((v - mb["ret_n"]) ** 2)
+
+            b_loss = torch.mean(torch.sum(
+                torch.clamp(mu - 1.1, min=0) ** 2
+                + torch.clamp(mu + 1.1, max=0) ** 2, -1))
+
+            # discriminator: agent (rollout ∪ replay, half each) vs demo
+            agent_logit = self._apply(p, "disc", torch.cat([amp_rollout,
+                                                            replay_amp]))
+            demo_in = demo_amp.detach().requires_grad_()
+            demo_logit = self._apply(p, "disc", demo_in)
+            d_loss = 0.5 * (F.softplus(agent_logit).mean()
+                            + F.softplus(-demo_logit).mean())
+            logit_reg = torch.sum(p["disc_logits.weight"] ** 2)
+            # R1 penalty: its gradient is itself differentiated
+            grad, = torch.autograd.grad(demo_logit.sum(), demo_in,
+                                        create_graph=True)
+            grad_pen = torch.mean(torch.sum(grad ** 2, -1))
+            w_decay = sum(torch.sum(w ** 2) for k, w in p.items()
+                          if k.startswith("disc_mlp.")
+                          and k.endswith(".weight")) + logit_reg
+            disc_total = (d_loss + cfg.disc_logit_reg * logit_reg
+                          + cfg.disc_grad_penalty * grad_pen
+                          + cfg.disc_weight_decay * w_decay)
+
+            tv = self._apply(p, "task_value", mb["obs_n"])
+            tv_loss = torch.mean((tv - mb["ret_01"]) ** 2)
+
+            total = (cfg.actor_coef * a_loss + cfg.critic_coef * c_loss
+                     + cfg.bounds_coef * b_loss + cfg.disc_coef * disc_total
+                     + cfg.tv_coef * tv_loss)
+            if cfg.motion_sym_loss:
+                mu_f, _ = self._apply(p, "actor", mb["flip_obs_n"])
+                sym = torch.mean(torch.sum(
+                    (mu - obs_mod.flip_actions(mu_f)) ** 2, -1))
+                total = total + cfg.sym_coef * sym
+            grads = torch.autograd.grad(total, list(p.values()))
+        terms = dict(a_loss=a_loss, c_loss=c_loss, b_loss=b_loss,
+                     d_loss=d_loss, grad_pen=grad_pen, tv_loss=tv_loss)
+        return (total.detach(), {k: v.detach() for k, v in terms.items()},
+                dict(zip(p, grads)))
+
+    def _apply_grads(self, params, opt_state: AdamState, grads):
+        """One optimizer step, dropped whole (parameters, moments and count)
+        where any gradient is nonfinite: the select runs on the device, with
+        no host sync. Returns (params, opt_state, finite)."""
+        finite = torch.stack([torch.isfinite(g).all()
+                              for g in grads.values()]).all()
+        new_params, new_opt = self.tx.update(grads, opt_state, params)
+
+        def keep(new, old):
+            return {k: torch.where(finite, new[k], old[k]) for k in old}
+
+        opt_state = AdamState(
+            count=torch.where(finite, new_opt.count, opt_state.count),
+            mu=keep(new_opt.mu, opt_state.mu),
+            nu=keep(new_opt.nu, opt_state.nu))
+        return keep(new_params, params), opt_state, finite
+
+    def _update_minibatch(self, params, opt_state, mb, demo_amp, replay_amp,
+                          masks):
+        total, metrics, grads = self._loss_and_grads(
+            params, mb, demo_amp, replay_amp, masks)
+        params, opt_state, finite = self._apply_grads(params, opt_state,
+                                                      grads)
+        metrics["total"] = total
+        # a skipped minibatch must not NaN the epoch's averaged metrics
+        metrics = {k: torch.where(finite, v, 0.0) for k, v in metrics.items()}
+        metrics["nonfinite_grad"] = 1.0 - finite.float()
+        return params, opt_state, metrics
+
+    # ------------------------------------------------------------------
+    # epoch
+    # ------------------------------------------------------------------
+
+    @torch.no_grad()
+    def prepare(self, ts: TrainState, batch, last_obs):
+        """GAE, the norms, the replay ring and the demo windows → (ts, the
+        update's pools)."""
+        cfg, ecfg = self.cfg, self.env.cfg
+        T, N, dev = cfg.horizon, ecfg.num_envs, self.env.device
+        gen = ts.rng
+        advs, returns, comb_reward, disc_r = self.compute_gae(ts, batch,
+                                                              last_obs)
+
+        def flat(x):
+            return x.reshape((T * N,) + x.shape[2:])
+
+        obs_f, amp_f, ret_f = (flat(batch["obs"]), flat(batch["amp_obs"]),
+                               flat(returns))
+        if cfg.normalize_input:
+            ts = ts.replace(obs_norm=ts.obs_norm.update(obs_f))
+        ts = ts.replace(amp_norm=ts.amp_norm.update(amp_f))
+        if cfg.normalize_value:
+            ts = ts.replace(value_norm=ts.value_norm.update(ret_f[:, None]))
+            ret_n = ts.value_norm.normalize(ret_f[:, None], clip=1e6)[:, 0]
+        else:
+            ret_n = ret_f
+        adv_f = flat(advs)
+        if cfg.normalize_advantage:
+            adv_f = (adv_f - adv_f.mean()) / (adv_f.std(correction=0) + 1e-8)
+        # returns mapped to [0, 1] for the task-value head
+        ret01 = torch.clamp((ret_f - cfg.min_cum_reward)
+                            / (cfg.max_cum_reward - cfg.min_cum_reward),
+                            0, 1)
+
+        # replay ring: when the rollout exceeds the ring, a random subset
+        R = cfg.amp_replay_size
+        n_new = min(T * N, R)
+        rows = (amp_f[torch.randperm(T * N, generator=gen,
+                                     device=dev)[:n_new]]
+                if T * N > R else amp_f)
+        idx = (ts.replay_ptr + torch.arange(n_new, device=dev)) % R
+        ts.replay_amp.index_copy_(0, idx, rows)
+        ts = ts.replace(replay_ptr=(ts.replay_ptr + n_new) % R,
+                        replay_filled=min(ts.replay_filled + n_new, R))
+        # the replay half of the discriminator's agent batch; the ring
+        # holds this rollout already, so it is never empty here
+        half = max(1, cfg.amp_batch_size // 2)
+        ridx = torch.randint(0, ts.replay_filled,
+                             (cfg.num_minibatches * half,), generator=gen,
+                             device=dev)
+        replay_rows = ts.replay_amp[ridx]
+
+        def norm_obs(x):
+            return ts.obs_norm.normalize(x) if cfg.normalize_input else x
+
+        data = dict(obs_n=norm_obs(obs_f), action=flat(batch["action"]),
+                    logp=flat(batch["logp"]), adv=adv_f, ret_n=ret_n,
+                    ret_01=ret01, amp_n=ts.amp_norm.normalize(amp_f))
+        if cfg.motion_sym_loss:
+            data["flip_obs_n"] = norm_obs(flat(batch["flip_obs"]))
+        demo_raw = self.env.fetch_amp_obs_demo(
+            gen, cfg.num_minibatches * cfg.amp_batch_size)
+        pools = dict(
+            data=data,
+            demo=ts.amp_norm.normalize(demo_raw).reshape(
+                cfg.num_minibatches, cfg.amp_batch_size, -1),
+            replay=ts.amp_norm.normalize(replay_rows).reshape(
+                cfg.num_minibatches, half, -1),
+            stats=dict(
+                task_reward=batch["reward"].mean(),
+                disc_reward=disc_r.mean(),
+                combined_reward=comb_reward.mean(),
+                episode_done_frac=batch["done"].float().mean(),
+                loc_reward=batch["reward_raw"][..., 0].mean(),
+                power_reward=batch["reward_raw"][..., 1].mean()))
+        return ts, pools
+
+    def minibatches(self, pools, gen: torch.Generator):
+        """(minibatch, demo block, replay block, dropout masks or None) in
+        the order the update takes them: per mini-epoch a fresh permutation
+        of T·N cut into `num_minibatches` slices; minibatch i takes demo and
+        replay block i."""
+        cfg, ecfg = self.cfg, self.env.cfg
+        data = pools["data"]
+        n = data["adv"].shape[0]
+        dev = data["adv"].device
+        mb_size = n // cfg.num_minibatches
+        for _ in range(cfg.mini_epochs):
+            perm = torch.randperm(n, generator=gen, device=dev)
+            for i in range(cfg.num_minibatches):
+                sel = perm[i * mb_size:(i + 1) * mb_size]
+                mb = {k: v[sel] for k, v in data.items()}
+                demo, replay = pools["demo"][i], pools["replay"][i]
+                masks = None
+                if cfg.amp_dropout:
+                    rows = (min(replay.shape[0], mb_size), replay.shape[0],
+                            demo.shape[0])
+                    masks = tuple(
+                        obs_mod.amp_dropout_mask(
+                            obs_mod.amp_dropout_draw(gen, r, dev),
+                            ecfg.num_amp_obs_steps, ecfg.amp_obs_per_step,
+                            cfg.amp_dropout_rate)
+                        for r in rows)
+                yield mb, demo, replay, masks
+
+    def update(self, ts: TrainState, pools):
+        """The epoch's PPO + AMP updates → (ts, metrics): each loss term's
+        mean over every (mini-epoch, minibatch) pair, with the rollout's
+        reward and done means."""
+        params, opt_state = ts.params, ts.opt_state
+        sums, count = {}, 0
+        for mb, demo, replay, masks in self.minibatches(pools, ts.rng):
+            params, opt_state, m = self._update_minibatch(
+                params, opt_state, mb, demo, replay, masks)
+            sums = {k: sums.get(k, 0.0) + v for k, v in m.items()}
+            count += 1
+        metrics = {k: v / count for k, v in sums.items()}
+        metrics.update(pools["stats"])
+        return ts.replace(params=params, opt_state=opt_state,
+                          epoch=ts.epoch + 1), metrics
+
+    def train_epoch(self, ts: TrainState):
+        """rollout → prepare → update; returns (ts, metrics as 0-d device
+        tensors)."""
+        ts, batch, last_obs = self.rollout(ts)
+        ts, pools = self.prepare(ts, batch, last_obs)
+        return self.update(ts, pools)

@@ -1,13 +1,16 @@
-"""Policy network (port of the actor head of
+"""Policy, critic, discriminator and task-value networks (port of
 emloco_tpu/learning/networks.py AMPSeptValueNet).
 
 A task MLP [512, 256] embeds the task observation [trajectory, height map];
 its embedding, concatenated with the self observation, feeds the actor MLP
-[2048, 1024] → μ, with a fixed state-independent σ = exp(log_sigma). The
-critic, discriminator and value heads come with training.
+[2048, 1024] → μ, with a fixed state-independent σ = exp(log_sigma), and
+the critic MLP [2048, 1024] → V. The discriminator [1024, 512] → logit reads
+the flattened AMP window; the task-value head [15, 6] → 1 reads the
+trajectory part of the task observation (no sigmoid).
 
 Initialization follows flax's defaults (truncated-normal fan-in scaling,
-zero biases; the μ layer at scale 0.01), drawn from a torch.Generator.
+zero biases; the μ layer at scale 0.01; the disc and value logits uniform in
+±1/√fan_in), drawn from a torch.Generator.
 """
 from __future__ import annotations
 
@@ -38,12 +41,16 @@ def _run_mlp(layers, x):
 
 
 class AMPSeptValueNet(nn.Module):
-    """The AMPSept policy's actor: obs = [self obs | task obs] → (μ, σ)."""
+    """obs = [self obs | task obs] → (μ, σ), V, task value; the AMP window →
+    disc logit."""
 
     def __init__(self, num_actions: int, self_obs_dim: int,
                  traj_obs_dim: int, task_obs_dim: int,
+                 amp_obs_dim: int,
                  mlp_units: Sequence[int] = (2048, 1024),
                  task_units: Sequence[int] = (512, 256),
+                 value_units: Sequence[int] = (15, 6),
+                 disc_units: Sequence[int] = (1024, 512),
                  sigma_init: float = -2.9,
                  generator: torch.Generator | None = None, device=None):
         super().__init__()
@@ -56,31 +63,72 @@ class AMPSeptValueNet(nn.Module):
         self.mu = nn.Linear(mlp_units[-1], num_actions)
         self.log_sigma = nn.Parameter(
             torch.full((num_actions,), sigma_init))
+        self.critic_mlp = _mlp(self_obs_dim + task_units[-1], mlp_units)
+        self.value = nn.Linear(mlp_units[-1], 1)
+        self.disc_mlp = _mlp(amp_obs_dim, disc_units)
+        self.disc_logits = nn.Linear(disc_units[-1], 1)
+        self.task_value_mlp = _mlp(traj_obs_dim, value_units)
+        self.value_logits = nn.Linear(value_units[-1], 1)
         self.to(dev)
         self.init_parameters(generator)
 
     @torch.no_grad()
     def init_parameters(self, generator: torch.Generator | None = None):
         """flax defaults: lecun (fan-in) truncated normal, μ at scale 0.01,
-        zero biases."""
-        for layer in [*self.task_mlp, *self.actor_mlp, self.mu]:
+        zero biases; the disc and value logits' kernels symmetric uniform at
+        1/√fan_in. The actor's layers draw first."""
+        for layer in (*self.task_mlp, *self.actor_mlp, self.mu,
+                      *self.critic_mlp, self.value, *self.disc_mlp,
+                      *self.task_value_mlp):
             scale = 0.01 if layer is self.mu else 1.0
             std = math.sqrt(scale / layer.in_features) / _TRUNC_STD
             nn.init.trunc_normal_(layer.weight, 0.0, std, -2 * std, 2 * std,
                                   generator=generator)
             nn.init.zeros_(layer.bias)
+        for layer in (self.disc_logits, self.value_logits):
+            bound = 1.0 / math.sqrt(layer.in_features)
+            nn.init.uniform_(layer.weight, -bound, bound, generator=generator)
+            nn.init.zeros_(layer.bias)
+
+    def _split(self, obs):
+        self_obs = obs[..., :self.self_obs_dim]
+        task_obs = obs[..., self.self_obs_dim:
+                       self.self_obs_dim + self.task_obs_dim]
+        return self_obs, task_obs
 
     def task_embed(self, task_obs):
         return _run_mlp(self.task_mlp, task_obs)
 
     def actor(self, obs):
-        self_obs = obs[..., :self.self_obs_dim]
-        task_obs = obs[..., self.self_obs_dim:
-                       self.self_obs_dim + self.task_obs_dim]
+        self_obs, task_obs = self._split(obs)
         h = _run_mlp(self.actor_mlp,
                      torch.cat([self_obs, self.task_embed(task_obs)], -1))
         mu = self.mu(h)
         return mu, torch.exp(self.log_sigma) * torch.ones_like(mu)
 
-    def forward(self, obs):
-        return self.actor(obs)
+    def critic(self, obs):
+        self_obs, task_obs = self._split(obs)
+        h = _run_mlp(self.critic_mlp,
+                     torch.cat([self_obs, self.task_embed(task_obs)], -1))
+        return self.value(h)[..., 0]
+
+    def disc(self, amp_obs):
+        return self.disc_logits(_run_mlp(self.disc_mlp, amp_obs))[..., 0]
+
+    def task_value(self, obs):
+        """The LocoVal head over the trajectory part of the task obs."""
+        traj_obs = self._split(obs)[1][..., :self.traj_obs_dim]
+        return self.value_logits(
+            _run_mlp(self.task_value_mlp, traj_obs))[..., 0]
+
+    def forward(self, *inputs, method: str | None = None):
+        """All heads on (obs, amp_obs) → (μ, σ, V, disc logit, task value),
+        or the one head `method` names on its own input: the entry through
+        which torch.func.functional_call runs a head under given
+        parameters, as flax's `apply(..., method=)`."""
+        if method is not None:
+            return getattr(self, method)(*inputs)
+        obs, amp_obs = inputs
+        mu, sigma = self.actor(obs)
+        return (mu, sigma, self.critic(obs), self.disc(amp_obs),
+                self.task_value(obs))

@@ -39,3 +39,6 @@ class RunningNorm(TensorStruct):
     def normalize(self, x: torch.Tensor, clip: float = 5.0) -> torch.Tensor:
         y = (x - self.mean) / torch.sqrt(self.var + 1e-5)
         return torch.clamp(y, -clip, clip)
+
+    def denormalize(self, y: torch.Tensor) -> torch.Tensor:
+        return y * torch.sqrt(self.var + 1e-5) + self.mean

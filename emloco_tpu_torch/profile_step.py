@@ -1,6 +1,7 @@
-"""Where the rollout step's time goes on the card.
+"""Where the rollout step's or the training epoch's time goes on the card.
 
     python3 -m emloco_tpu_torch.profile_step [--envs 4096] [--steps 3]
+    python3 -m emloco_tpu_torch.profile_step --train [--envs 1600]
 
 Builds the env and actor at the bench configuration (`rollout.build_bench`)
 and times on the host, with a synchronize around each part: observe,
@@ -10,6 +11,12 @@ prints the CUDA kernels and the aten ops (with input shapes) by device time,
 the kernel launches per step and the device's busy share: kernel time per
 step over the control step's host time measured without the profiler, whose
 own overhead inflates the traced wall time. One JSON object per line.
+
+With `--train` the unit is one epoch of the bench's training configuration
+(`rollout.build_train_bench`): after a warm-up epoch, the host times of its
+three parts (rollout, prepare: GAE + norms + replay + demos, update), then
+the next epoch traced part by part, with the same tables for each part and
+the epoch's device time, launches and busy share.
 """
 from __future__ import annotations
 
@@ -22,7 +29,7 @@ import torch
 
 from . import device as _device
 from .physics import step as physics_step
-from .rollout import build_bench
+from .rollout import build_bench, build_train_bench
 
 
 def _host_ms(fn, reps):
@@ -34,49 +41,11 @@ def _host_ms(fn, reps):
     return (time.perf_counter() - t) / reps * 1e3, out
 
 
-def main(argv=None):
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--envs", type=int, default=4096)
-    ap.add_argument("--steps", type=int, default=3)
-    ap.add_argument("--top", type=int, default=25)
-    args = ap.parse_args(argv)
-    dev = _device.resolve(None)
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip().splitlines()[0]
-
-    r = build_bench(args.envs, dev)
-    cfg, env = r.cfg, r.env
-    state = env.reset(torch.Generator(device=dev).manual_seed(0))
-    for _ in range(2):                                   # warm-up
-        state, *_ = r.control_step(state)
-
-    obs_ms, o = _host_ms(lambda: env.observe(state), args.steps)
-    act_ms, mu = _host_ms(lambda: r.act(o), args.steps)
-    target = (mu.reshape(-1, 23, 3) * env.pd_action_scale[None]
-              * env.action_mask[None])
-    phys_ms, _ = _host_ms(lambda: physics_step(
-        env.model, env.terrain, state.physics, target, cfg.engine, env.tree),
-        args.steps)
-    step_ms, _ = _host_ms(lambda: env.step(state, mu), args.steps)
-    print(json.dumps({
-        "host_ms_per_call": {"observe": obs_ms, "normalize_actor": act_ms,
-                             "physics_step": phys_ms, "env_step": step_ms,
-                             "env_step_minus_physics": step_ms - phys_ms},
-        "control_step_ms": obs_ms + act_ms + step_ms,
-        "env_steps_per_s": args.envs / (obs_ms + act_ms + step_ms) * 1e3,
-        "num_envs": args.envs, "card": card}), flush=True)
-
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    with torch.profiler.profile(activities=acts, record_shapes=True) as prof:
-        for _ in range(args.steps):
-            state, *_ = r.control_step(state)
-        torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t) * 1e3
+def _report(traced, units, unit, host_ms, card, top):
+    """The traced kernels and aten ops by device time, per `unit`, with the
+    launches and the device's busy share over `host_ms` per unit; returns
+    (device ms, launches) per unit."""
+    prof, wall_ms = traced
 
     def device_us(e):
         us = getattr(e, "self_device_time_total", None)
@@ -90,24 +59,142 @@ def main(argv=None):
                   for e in prof.key_averages(group_by_input_shape=True)
                   if e.device_type != cuda and e.key.startswith("aten::")
                   and device_us(e) > 0), key=lambda row: row[0], reverse=True)
-    per_step_ms = sum(k[0] for k in kernels) / 1e3 / args.steps
+    per_ms = sum(k[0] for k in kernels) / 1e3 / units
+    launches = sum(k[1] for k in kernels) / units
+    print(json.dumps({
+        f"profiled_{unit}s": units, "profiled_wall_ms": wall_ms,
+        f"device_kernel_ms_per_{unit}": per_ms,
+        "device_busy_share": per_ms / host_ms,
+        f"kernel_launches_per_{unit}": launches, "card": card}), flush=True)
+    for us, count, name in kernels[:top]:
+        print(json.dumps({"kernel": name[:120],
+                          f"device_ms_per_{unit}": us / 1e3 / units,
+                          f"launches_per_{unit}": count / units,
+                          "share": us / 1e3 / units / per_ms}), flush=True)
+    for us, count, name, shapes in ops[:top]:
+        print(json.dumps({"op": name, "input_shapes": str(shapes)[:160],
+                          f"device_ms_per_{unit}": us / 1e3 / units,
+                          f"calls_per_{unit}": count / units}), flush=True)
+    return per_ms, launches
+
+
+def _profile(fn, units):
+    """`units` calls of `fn` under torch.profiler → ((profile, wall ms),
+    fn's last result)."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with torch.profiler.profile(activities=acts, record_shapes=True) as prof:
+        for _ in range(units):
+            out = fn()
+        torch.cuda.synchronize()
+    return (prof, (time.perf_counter() - t) * 1e3), out
+
+
+def _train(args, dev, card):
+    """One epoch of the bench's training configuration after a warm-up
+    epoch: the host time of each part, synchronized; then the next epoch
+    traced part by part (each part's device time, launches and busy share
+    over its untraced host time, with its top kernels and ops) and the
+    epoch's totals."""
+    envs = args.envs or 1600
+    agent, ts = build_train_bench(envs, dev)
+    ts, _ = agent.train_epoch(ts)                        # warm-up
+    host = {}
+    _, t = _host_split(0.0)
+    ts, batch, last_obs = agent.rollout(ts)
+    host["rollout"], t = _host_split(t)
+    ts, pools = agent.prepare(ts, batch, last_obs)
+    host["prepare"], t = _host_split(t)
+    ts, _ = agent.update(ts, pools)
+    host["update"], t = _host_split(t)
+    del batch, pools
+    epoch_ms = sum(host.values())
+    steps = agent.cfg.horizon * envs
+    print(json.dumps({
+        "host_ms_per_epoch": host, "epoch_ms": epoch_ms,
+        "env_steps_per_s": steps / epoch_ms * 1e3,
+        "updates_per_epoch": agent.cfg.mini_epochs
+        * agent.cfg.num_minibatches,
+        "num_envs": envs, "card": card}), flush=True)
+
+    traced, (ts, batch, last_obs) = _profile(lambda: agent.rollout(ts), 1)
+    device = {"rollout": _report(traced, 1, "rollout", host["rollout"], card,
+                                 args.top)}
+    traced, (ts, pools) = _profile(
+        lambda: agent.prepare(ts, batch, last_obs), 1)
+    device["prepare"] = _report(traced, 1, "prepare", host["prepare"], card,
+                                args.top)
+    del batch
+    traced, _ = _profile(lambda: agent.update(ts, pools), 1)
+    device["update"] = _report(traced, 1, "update", host["update"], card,
+                               args.top)
+    dev_ms = sum(d[0] for d in device.values())
+    print(json.dumps({
+        "device_kernel_ms_per_epoch": dev_ms,
+        "kernel_launches_per_epoch": sum(d[1] for d in device.values()),
+        "device_busy_share": dev_ms / epoch_ms, "card": card}), flush=True)
+
+
+def _host_split(t):
+    """(ms since `t` after a synchronize, now)."""
+    torch.cuda.synchronize()
+    now = time.perf_counter()
+    return (now - t) * 1e3, now
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--envs", type=int, default=None,
+                    help="envs (default 4096; 1600 with --train)")
+    ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--top", type=int, default=25)
+    ap.add_argument("--train", action="store_true",
+                    help="break down one training epoch instead")
+    args = ap.parse_args(argv)
+    dev = _device.resolve(None)
+    # the networks' float32 GEMMs in full float32, not TF32 (the physics
+    # step sets this for itself)
+    torch.backends.cuda.matmul.fp32_precision = "ieee"
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    if args.train:
+        return _train(args, dev, card)
+
+    envs = args.envs or 4096
+    r = build_bench(envs, dev)
+    cfg, env = r.cfg, r.env
+    state = env.reset(torch.Generator(device=dev).manual_seed(0))
+    for _ in range(2):                                   # warm-up
+        state, *_ = r.control_step(state)
+
+    obs_ms, o = _host_ms(lambda: env.observe(state), args.steps)
+    act_ms, mu = _host_ms(lambda: r.act(o), args.steps)
+    target = (mu.reshape(-1, 23, 3) * env.pd_action_scale[None]
+              * env.action_mask[None])
+    phys_ms, _ = _host_ms(lambda: physics_step(
+        env.model, env.terrain, state.physics, target, cfg.engine, env.tree),
+        args.steps)
+    step_ms, _ = _host_ms(lambda: env.step(state, mu), args.steps)
     control_ms = obs_ms + act_ms + step_ms
     print(json.dumps({
-        "profiled_steps": args.steps, "profiled_wall_ms": wall_ms,
-        "device_kernel_ms_per_step": per_step_ms,
-        "device_busy_share": per_step_ms / control_ms,
-        "kernel_launches_per_step": sum(k[1] for k in kernels) / args.steps,
-        "card": card}), flush=True)
-    for us, count, name in kernels[:args.top]:
-        print(json.dumps({"kernel": name[:120],
-                          "device_ms_per_step": us / 1e3 / args.steps,
-                          "launches_per_step": count / args.steps,
-                          "share": us / 1e3 / args.steps / per_step_ms}),
-              flush=True)
-    for us, count, name, shapes in ops[:args.top]:
-        print(json.dumps({"op": name, "input_shapes": str(shapes)[:160],
-                          "device_ms_per_step": us / 1e3 / args.steps,
-                          "calls_per_step": count / args.steps}), flush=True)
+        "host_ms_per_call": {"observe": obs_ms, "normalize_actor": act_ms,
+                             "physics_step": phys_ms, "env_step": step_ms,
+                             "env_step_minus_physics": step_ms - phys_ms},
+        "control_step_ms": control_ms,
+        "env_steps_per_s": envs / control_ms * 1e3,
+        "num_envs": envs, "card": card}), flush=True)
+
+    steps = [state]
+
+    def control_step():
+        steps[0], *_ = r.control_step(steps[0])
+
+    _report(_profile(control_step, args.steps)[0], args.steps, "step",
+            control_ms, card, args.top)
 
 
 if __name__ == "__main__":

@@ -1,4 +1,5 @@
-"""The rollout control step at the bench configuration.
+"""The rollout control step and the training epoch at the bench's
+configurations.
 
 The configuration `bench.py:main` runs for the JAX package: 4,096 envs,
 sensor_res 32, 15 AMP steps, episode length 168, the default engine, mixed
@@ -8,6 +9,12 @@ and 1.5 m/s; the actor at its default widths with seeded random weights.
 lives in one place. `Rollout.with_engine` gives the same rollout under
 another engine configuration (solver branch) on the same terrain, motion
 library and actor.
+
+`build_train_bench` builds the bench's training configuration
+(`bench.py:133-138`): 1,600 envs on the same env settings, terrain and
+motions, and the PPO + AMP agent with `horizon=32, num_minibatches=20,
+mini_epochs=6, amp_batch_size=512`, every other AMPConfig field at its
+default.
 """
 from __future__ import annotations
 
@@ -19,6 +26,7 @@ from . import device as _device
 from .envs import EnvConfig, PedestrianTerrainEnv
 from .kinematics import motion_lib as ml
 from .learning import AMPSeptValueNet, RunningNorm
+from .learning.amp_agent import AMPAgent, AMPConfig, TrainState
 from .physics import EngineConfig, generate_mixed_terrain
 
 
@@ -53,22 +61,47 @@ class Rollout:
         return Rollout(cfg, env, self.actor, self.norm)
 
 
+TRAIN_AMP = AMPConfig(horizon=32, num_minibatches=20, mini_epochs=6,
+                      amp_batch_size=512)
+
+
+def _bench_env(cfg: EnvConfig, dev) -> PedestrianTerrainEnv:
+    return PedestrianTerrainEnv(
+        cfg, generate_mixed_terrain(map_length=8.0, num_tiles=2,
+                                    difficulty=0.5, device=dev),
+        ml.synthetic_walk_motions(speeds=(1.0, 1.5), duration=2.0,
+                                  device=dev), device=dev)
+
+
+def _bench_cfg(num_envs: int, **fields) -> EnvConfig:
+    return dataclasses.replace(
+        EnvConfig(num_envs=num_envs, sensor_res=32, episode_length=168,
+                  num_amp_obs_steps=15), **fields)
+
+
 def build_bench(num_envs: int = 4096, device=None, seed: int = 1,
                 engine: EngineConfig = EngineConfig()) -> Rollout:
     """The env, actor and observation norm at the bench configuration, with
     `engine` as the engine configuration; the actor's weights are drawn from
     a torch.Generator seeded with `seed`."""
     dev = _device.resolve(device)
-    cfg = EnvConfig(num_envs=num_envs, sensor_res=32, episode_length=168,
-                    num_amp_obs_steps=15, engine=engine)
-    env = PedestrianTerrainEnv(
-        cfg, generate_mixed_terrain(map_length=8.0, num_tiles=2,
-                                    difficulty=0.5, device=dev),
-        ml.synthetic_walk_motions(speeds=(1.0, 1.5), duration=2.0,
-                                  device=dev), device=dev)
+    cfg = _bench_cfg(num_envs, engine=engine)
+    env = _bench_env(cfg, dev)
     actor = AMPSeptValueNet(
         cfg.num_actions, cfg.self_obs_dim, cfg.num_traj_samples * 2,
-        cfg.task_obs_dim,
+        cfg.task_obs_dim, cfg.num_amp_obs_steps * cfg.amp_obs_per_step,
         generator=torch.Generator(device=dev).manual_seed(seed), device=dev)
     return Rollout(cfg, env, actor, RunningNorm.create(cfg.obs_dim,
                                                       device=dev))
+
+
+def build_train_bench(num_envs: int = 1600, device=None, seed: int = 0,
+                      amp: AMPConfig = TRAIN_AMP,
+                      **env_fields) -> tuple[AMPAgent, TrainState]:
+    """The agent at the bench's training configuration and its initial
+    TrainState from `seed`; `amp` and `env_fields` (EnvConfig fields)
+    replace parts of the configuration."""
+    dev = _device.resolve(device)
+    agent = AMPAgent(_bench_env(_bench_cfg(num_envs, **env_fields), dev),
+                     amp)
+    return agent, agent.init(seed)

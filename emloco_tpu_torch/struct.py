@@ -13,8 +13,9 @@ class TensorStruct:
         return dataclasses.replace(self, **changes)
 
     def map_tensors(self, fn):
-        """New instance with `fn` applied to every tensor field (recursing
-        into nested TensorStructs; other fields are kept as they are)."""
+        """New instance with `fn` applied to every tensor field and to the
+        tensors of dict fields (recursing into nested TensorStructs; other
+        fields are kept as they are)."""
         out = {}
         for f in dataclasses.fields(self):
             v = getattr(self, f.name)
@@ -22,6 +23,8 @@ class TensorStruct:
                 v = fn(v)
             elif isinstance(v, TensorStruct):
                 v = v.map_tensors(fn)
+            elif isinstance(v, dict):
+                v = {k: fn(t) for k, t in v.items()}
             out[f.name] = v
         return dataclasses.replace(self, **out)
 

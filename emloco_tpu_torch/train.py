@@ -1,0 +1,81 @@
+"""Train the locomotion policy with PPO + AMP at the bench's training
+configuration.
+
+    python3 -m emloco_tpu_torch.train [--epochs 10] [--num-envs 1600]
+        [--seed 0] [--device cuda] [amp.<field>=<value> ...]
+        [env.<field>=<value> ...]
+
+The counterpart of the JAX package's `train-policy` loop (cli/run.py:94-175)
+without checkpoints, resume, mesh, getup or profiling. It builds
+`rollout.build_train_bench` (fields of AMPConfig and EnvConfig may be
+replaced with `amp.<field>=<value>` and `env.<field>=<value>`) and prints
+one JSON line an epoch: the epoch's metrics, its seconds and env-steps/s
+including the update. Runs on the CUDA card unless `--device cpu` is given.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import time
+
+import torch
+
+from . import device as _device
+from .envs import EnvConfig
+from .rollout import TRAIN_AMP, build_train_bench
+
+
+def _parse_overrides(items):
+    """["amp.horizon=4", "env.sensor_res=8"] → ({"horizon": 4},
+    {"sensor_res": 8}), each value typed as its field's default."""
+    out = {"amp": {}, "env": {}}
+    defaults = {"amp": TRAIN_AMP, "env": EnvConfig()}
+    for item in items:
+        key, sep, value = item.partition("=")
+        part, _, name = key.partition(".")
+        if not sep or part not in out or not hasattr(defaults[part], name):
+            raise SystemExit(f"bad override {item!r}: expected "
+                             "amp.<field>=<value> or env.<field>=<value>")
+        kind = type(getattr(defaults[part], name))
+        if kind is bool:
+            out[part][name] = value.lower() in ("1", "true", "yes")
+        else:
+            out[part][name] = kind(value)
+    return out["amp"], out["env"]
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--epochs", type=int, default=10)
+    ap.add_argument("--num-envs", type=int, default=1600)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default=None,
+                    help="torch device; default the CUDA card")
+    ap.add_argument("overrides", nargs="*")
+    args = ap.parse_args(argv)
+    amp_fields, env_fields = _parse_overrides(args.overrides)
+    dev = _device.resolve(args.device)
+    if dev.type == "cuda":
+        # the networks' float32 GEMMs in full float32, not TF32 (the physics
+        # step sets this for itself)
+        torch.backends.cuda.matmul.fp32_precision = "ieee"
+    agent, ts = build_train_bench(
+        args.num_envs, dev, args.seed,
+        dataclasses.replace(TRAIN_AMP, **amp_fields), **env_fields)
+    steps = agent.cfg.horizon * args.num_envs
+    name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    for _ in range(args.epochs):
+        t = time.perf_counter()
+        ts, metrics = agent.train_epoch(ts)
+        metrics = {k: v.item() for k, v in metrics.items()}
+        dt = time.perf_counter() - t
+        print(json.dumps({"epoch": ts.epoch, **metrics, "seconds": dt,
+                          "env_steps_per_s": steps / dt,
+                          "replay_filled": ts.replay_filled,
+                          "device": name}), flush=True)
+    return ts
+
+
+if __name__ == "__main__":
+    main()

@@ -74,8 +74,14 @@ def run():
                            "cpu")
     actor = AMPSeptValueNet(cfg.num_actions, cfg.self_obs_dim,
                             cfg.num_traj_samples * 2, cfg.task_obs_dim,
-                            device="cpu")
-    actor.load_state_dict(convert.actor_state_dict(np_tree(params)))
+                            cfg.amp_obs_per_step * 5, device="cpu")
+    # the actor's layers only; the other heads keep their own weights
+    missing, unexpected = actor.load_state_dict(
+        convert.actor_state_dict(np_tree(params)), strict=False)
+    assert not unexpected
+    assert missing and not any(k.startswith(("task_mlp.", "actor_mlp.",
+                                             "mu.", "log_sigma"))
+                               for k in missing)
     return dict(jenv=jenv, js=js, jo=jo, on=on, mu=mu, sigma=sigma, js2=js2,
                 jout=jout, env=env, ts=ts, actor=actor,
                 norm=convert.running_norm(np_tree(norm), "cpu"))
@@ -168,6 +174,7 @@ def test_port_reset_and_rollout():
                                atol=0)
     actor = AMPSeptValueNet(cfg.num_actions, cfg.self_obs_dim,
                             cfg.num_traj_samples * 2, cfg.task_obs_dim,
+                            cfg.num_amp_obs_steps * cfg.amp_obs_per_step,
                             generator=torch.Generator().manual_seed(1),
                             device="cpu")
     norm = RunningNorm.create(cfg.obs_dim, device="cpu")
@@ -193,7 +200,7 @@ def test_entry_points_need_cuda_unless_cpu_requested(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         RunningNorm.create(3)
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        AMPSeptValueNet(69, 10, 4, 8, mlp_units=(4,), task_units=(4,))
+        AMPSeptValueNet(69, 10, 4, 8, 6, mlp_units=(4,), task_units=(4,))
     terrain = generate_mixed_terrain(map_length=4.0, num_tiles=1,
                                      device="cpu")
     lib = tml.synthetic_walk_motions(speeds=(1.0,), device="cpu")

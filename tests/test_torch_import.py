@@ -29,7 +29,8 @@ def test_import_pulls_in_no_jax():
         "emloco_tpu_torch.build\n"
         "import emloco_tpu_torch.envs, emloco_tpu_torch.learning, "
         "emloco_tpu_torch.physics.linalg, "
-        "emloco_tpu_torch.scripts.gram_kernel_probe\n"
+        "emloco_tpu_torch.scripts.gram_kernel_probe, "
+        "emloco_tpu_torch.learning.amp_agent, emloco_tpu_torch.train\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "print(','.join(bad))\n")
