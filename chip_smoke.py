@@ -79,7 +79,41 @@ Phases, each printed as one JSON line with its elapsed seconds:
                 optimizer's step on the card's gradients, and each update
                 within 1e-3 × lr of the CPU's where the gradient stands
                 clear of its tolerance (tests/test_torch_train.py)
- 13. reference_implicit — one 8-env step on the card against the CPU for
+ 13. value    — the LocoVal epoch at the bench's training configuration
+                (rollout.build_value_bench: 1,600 envs, the synthetic
+                real-path bank with half the real paths heading-inverted,
+                the frozen PPO + AMP agent, ValuePoseNet with pose and
+                velocity at 13 waypoints, ValueTrainConfig's defaults:
+                horizon 32, step_to_pred 144): one warm-up `train_epoch`,
+                then 5 timed epochs part by part (collect, update) with the
+                launch counts read around them (factor 32, resolve 64 an
+                epoch, every other kernel 0); every metric and valuenet
+                parameter finite, the parameters moved, at least 1,600
+                latched samples and every env latched at least once over
+                the 5 epochs (steps 32-191), both inverted and plain
+                episodes among the latched; then `evaluate` over 2 games:
+                a finite mse in [0, 1] and its correlation; each epoch's
+                collect and update seconds, env-steps/s, peak memory
+ 14. value_reference — the last timed epoch's samples (51,200 rows) and
+                the valuenet state before its update through one update on
+                the card and on the CPU: the loss within 1e-5 of its
+                magnitude, each gradient leaf within 1e-5 of its largest
+                |g|, the updated parameters within 1e-3 × lr_t per entry
+                where the gradient stands clear of its tolerance, and the
+                card's step within that of the CPU optimizer's step on the
+                card's gradients on every entry (as train_reference; the
+                largest difference over every entry is reported with its
+                gradient); the EmLoco loss and its gradient
+                with respect to 4,096 of the epoch's trajectories, card
+                against CPU, within 1e-5
+ 15. plausibility — the entry points on the card: `train_value --epochs 1`
+                writes a valuenet checkpoint to a temporary directory,
+                `optimize_traj --batch-size 4096 --steps 200` reads it; the
+                values finite, their mean after the steps not below the mean
+                before, waypoint 0 bit-equal to the start; the seconds of
+                the 200 steps; then optimize_trajectory on 64 trajectories
+                for 20 steps on the card within 1e-4 of the CPU
+ 16. reference_implicit — one 8-env step on the card against the CPU for
                 `tgs_step=False`, `batch_major_solver=True`,
                 `gram_kernel=True` and `sqrt_gram=False`, each with the
                 contacts whose `active` flag differs between the two
@@ -87,7 +121,7 @@ Phases, each printed as one JSON line with its elapsed seconds:
                 of the implicit step, the first of a TGS step) and their
                 penetrations, and the joints whose PD error exp-map is zero
                 on one device only at each substep (as in `reference`)
- 14. probe_kernels — the Gram-layout probe's two tensor-core kernels,
+ 17. probe_kernels — the Gram-layout probe's two tensor-core kernels,
                 gram_dual and gram_dual_batched (blocks of 8 and 32 envs),
                 against their plain version at 4,096 envs on the probe's
                 seed-0 operands (M = 304) and on the reset state's bf16
@@ -96,7 +130,7 @@ Phases, each printed as one JSON line with its elapsed seconds:
                 outputs bit-equal, finite, each kernel launched; with the
                 SHA-256 of each output's bytes, so that two trees' kernels
                 can be compared by their smokes' probe_kernels lines
- 15. probe_times — their times, their plain version's and a bf16 `bmm`'s
+ 18. probe_times — their times, their plain version's and a bf16 `bmm`'s
                 with float32 output at the probe's shapes, each kernel's
                 bound and its time's share of it; then `probe`:
                 emloco_tpu_torch.scripts.gram_kernel_probe at full size
@@ -158,6 +192,20 @@ DISC_REWARD_CAP = -math.log(1e-4) * 2.0
 # tests/test_torch_train.py (loss terms, gradient leaves, updates per entry
 # in units of lr); sums run in other orders on the two devices
 LOSS_REL, GRAD_REL, UPDATE_LR = 1e-4, 1e-4, 1e-3
+# the LocoVal epoch at the training configuration: a warm-up epoch, then
+# timed epochs (steps 32-191: every env latches in them), then evaluation
+VALUE_EPOCHS = 5
+VALUE_GAMES = 2
+# one valuenet update on the card against the CPU: the loss and each
+# gradient leaf relative to their magnitude, the updated parameters per
+# entry in units of lr_t; the EmLoco loss and its gradient on this many
+# trajectories
+VALUE_LOSS_REL, VALUE_GRAD_REL, VALUE_UPDATE_LR = 1e-5, 1e-5, 1e-3
+EML_ROWS, EML_REL = 4096, 1e-5
+# the entry points' trajectory optimization, and the card-vs-CPU check of
+# optimize_trajectory (float32 work over 20 Adam steps)
+OPT_BATCH, OPT_STEPS = 4096, 200
+OPT_REF_BATCH, OPT_REF_STEPS, OPT_REF_TOL = 64, 20, 1e-4
 # configurations of the reference_implicit phase (8 envs, card vs CPU)
 REFERENCES = (dict(tgs_step=False), dict(batch_major_solver=True),
               dict(gram_kernel=True), dict(sqrt_gram=False))
@@ -966,6 +1014,239 @@ def train_reference(agent, inputs):
                          f"with the CPU's: {worst}")
 
 
+def value(card):
+    """The LocoVal epoch at the bench's training configuration: a warm-up
+    epoch, then VALUE_EPOCHS timed epochs part by part (collect, update)
+    with the launch counts read around them, then `evaluate`. Returns the
+    trainer, the last timed epoch's update inputs and the launch counts."""
+    import torch
+    from emloco_tpu_torch.physics import linalg
+    from emloco_tpu_torch.rollout import build_value_bench
+    t = time.time()
+    trainer, vts = build_value_bench(TRAIN_ENVS, "cuda", seed=0)
+    p_init = {k: v.clone() for k, v in vts.vnet_params.items()}
+    torch.cuda.synchronize()
+    setup_s = time.time() - t
+    t = time.time()
+    vts, _ = trainer.train_epoch(vts)                   # warm-up
+    torch.cuda.synchronize()
+    warm_s = time.time() - t
+
+    torch.cuda.reset_peak_memory_stats()
+    linalg.reset_launch_counts()
+    T, N = trainer.cfg.horizon, TRAIN_ENVS
+    latched = torch.zeros((N,), device="cuda")
+    parts, metrics = [], []
+    for _ in range(VALUE_EPOCHS):
+        t0 = time.time()
+        vts, s = trainer._collect(vts)
+        torch.cuda.synchronize()
+        t1 = time.time()
+        last = (vts.vnet_params, vts.vnet_opt, s)
+        vts, m = trainer.update(vts, s)
+        torch.cuda.synchronize()
+        t2 = time.time()
+        latched += s["valid"].reshape(T, N).sum(0)
+        parts.append(dict(collect_seconds=t1 - t0, update_seconds=t2 - t1,
+                          env_steps_per_s=T * N / (t2 - t0)))
+        metrics.append(m)
+    launches = dict(linalg.LAUNCHES)
+    metrics = [{k: v.item() for k, v in m.items()} for m in metrics]
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    n_latched = sum(m["num_latched"] for m in metrics)
+    inv_frac = (sum(m["inverted_frac"] * m["num_latched"] for m in metrics)
+                / max(n_latched, 1.0))
+    min_latched = int(latched.min().item())
+    finite = (all(math.isfinite(v) for m in metrics for v in m.values())
+              and all(bool(torch.isfinite(v).all())
+                      for v in vts.vnet_params.values()))
+    moved = any(not torch.equal(vts.vnet_params[k], p_init[k])
+                for k in p_init)
+    t = time.time()
+    vts, mse, corr = trainer.evaluate(vts, VALUE_GAMES)
+    eval_s = time.time() - t
+    epoch_s = sum(p["collect_seconds"] + p["update_seconds"] for p in parts)
+    emit("value", num_envs=N, config=dataclasses.asdict(trainer.cfg),
+         setup_seconds=round(setup_s, 3), warmup_epoch_seconds=warm_s,
+         epochs=parts, metrics=metrics,
+         env_steps_per_s=VALUE_EPOCHS * T * N / epoch_s, card=card,
+         launches=launches, num_latched=n_latched,
+         min_latched_per_env=min_latched, inverted_frac=inv_frac,
+         finite=finite, params_moved=moved, max_memory_gb=peak_gb,
+         evaluate=dict(games=VALUE_GAMES, mse=mse, corr=corr,
+                       seconds=eval_s))
+    n_sub = trainer.env.cfg.engine.n_substeps
+    want = dict.fromkeys(launches, 0)
+    want.update({"cholesky_factor_blocked_t": VALUE_EPOCHS * T,
+                 "cholesky_resolve_blocked_t": VALUE_EPOCHS * T * n_sub})
+    if launches != want:
+        raise SystemExit(f"value: launch counts {launches}, expected {want}")
+    if not (finite and moved and n_latched >= N and min_latched >= 1
+            and 0 < inv_frac < 1 and math.isfinite(mse)
+            and 0 <= mse <= 1):
+        raise SystemExit(
+            f"value epochs failed: finite {finite}, moved {moved}, latched "
+            f"{n_latched} (at least {N}, every env: min {min_latched}), "
+            f"inverted_frac {inv_frac}, evaluate mse {mse}")
+    return trainer, last, launches
+
+
+def value_reference(trainer, inputs):
+    """One valuenet update of the last timed epoch (its samples, the
+    parameters and optimizer state before it) on the card against the
+    CPU; then the EmLoco loss and its gradient with respect to EML_ROWS of
+    the epoch's trajectories under the updated parameters."""
+    import torch
+    from emloco_tpu_torch.learning.networks import embodied_motion_loss
+    params, opt, s = inputs
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        p = {k: v.to(dev) for k, v in params.items()}
+        t = time.time()
+        loss, grads = trainer._loss_and_grads(
+            p, {k: v.to(dev) for k, v in s.items()})
+        p1, _ = trainer.tx.update(grads, opt.to(dev), p)
+        p1 = {k: v.cpu() for k, v in p1.items()}
+        runs[dev] = dict(seconds=time.time() - t, loss=loss.item(),
+                         grads={k: v.cpu() for k, v in grads.items()},
+                         params=p1)
+    card, cpu = runs["cuda"], runs["cpu"]
+    lr_t = trainer.tx.learning_rate(opt.count).item()
+    # the CPU optimizer's step on the card's gradients
+    step_ref, _ = trainer.tx.update(card["grads"], opt.to("cpu"),
+                                    {k: v.cpu() for k, v in params.items()})
+    grad_err = {k: (card["grads"][k] - g).abs().max().item()
+                / max(g.abs().max().item(), 1e-30)
+                for k, g in cpu["grads"].items()}
+    # each update entry where the gradient stands clear of its tolerance
+    # (below it Adam's direction follows the last bits of a cancellation);
+    # the largest over every entry, with its gradient, is reported
+    update_err, update_all, grad_at = {}, {}, {}
+    for k, g in cpu["grads"].items():
+        gmax = max(g.abs().max().item(), 1e-30)
+        d = (card["params"][k].double() - cpu["params"][k].double()).abs()
+        clear = g.abs() >= VALUE_GRAD_REL * gmax
+        update_err[k] = (d[clear].max().item() / lr_t
+                         if bool(clear.any()) else 0.0)
+        i = int(d.argmax())
+        update_all[k] = d.flatten()[i].item() / lr_t
+        grad_at[k] = g.flatten()[i].abs().item() / gmax
+    step_err = {k: (card["params"][k].double() - v.double()).abs().max()
+                .item() / lr_t for k, v in step_ref.items()}
+    loss_err = abs(card["loss"] - cpu["loss"]) / max(abs(cpu["loss"]),
+                                                     1e-30)
+
+    rows = {k: s[k][:EML_ROWS] for k in ("wp", "pose", "vel")}
+    eml = {}
+    for dev in ("cuda", "cpu"):
+        p = {k: v.to(dev) for k, v in card["params"].items()}
+        traj = rows["wp"].to(dev).requires_grad_()
+        loss = embodied_motion_loss(
+            lambda tr, po, ve: trainer._apply(p, tr, po, ve), traj,
+            rows["pose"].to(dev), rows["vel"].to(dev))
+        g, = torch.autograd.grad(loss, traj)
+        eml[dev] = (loss.item(), g.cpu())
+    eml_loss_err = (abs(eml["cuda"][0] - eml["cpu"][0])
+                    / max(abs(eml["cpu"][0]), 1e-30))
+    eml_grad_err = ((eml["cuda"][1] - eml["cpu"][1]).abs().max().item()
+                    / max(eml["cpu"][1].abs().max().item(), 1e-30))
+    worst = dict(loss_rel=loss_err, grad_rel=max(grad_err.values()),
+                 update_lr=max(update_err.values()),
+                 step_lr=max(step_err.values()),
+                 eml_loss_rel=eml_loss_err, eml_grad_rel=eml_grad_err)
+    emit("value_reference", rows=int(s["valid"].shape[0]),
+         latched=int(s["valid"].sum().item()), count=int(opt.count.item()),
+         lr_t=lr_t, card_seconds=card["seconds"], cpu_seconds=cpu["seconds"],
+         loss_card=card["loss"], loss_cpu=cpu["loss"],
+         eml_rows=EML_ROWS, eml_card=eml["cuda"][0], eml_cpu=eml["cpu"][0],
+         worst=worst,
+         tolerance=dict(loss_rel=VALUE_LOSS_REL, grad_rel=VALUE_GRAD_REL,
+                        update_lr=VALUE_UPDATE_LR, step_lr=VALUE_UPDATE_LR,
+                        eml_loss_rel=EML_REL, eml_grad_rel=EML_REL),
+         grad_rel_by_leaf=grad_err, update_lr_by_leaf=update_err,
+         update_lr_every_entry=update_all,
+         its_grad_over_leaf_max=grad_at)
+    finite = all(math.isfinite(x) for x in (card["loss"], cpu["loss"],
+                                            eml["cuda"][0], eml["cpu"][0]))
+    if not (finite and loss_err <= VALUE_LOSS_REL
+            and worst["grad_rel"] <= VALUE_GRAD_REL
+            and worst["update_lr"] <= VALUE_UPDATE_LR
+            and worst["step_lr"] <= VALUE_UPDATE_LR
+            and eml_loss_err <= EML_REL and eml_grad_err <= EML_REL):
+        raise SystemExit(f"value_reference: the card disagrees with the "
+                         f"CPU: {worst}")
+
+
+def plausibility(card):
+    """The entry points on the card: `train_value` for one epoch writes a
+    valuenet checkpoint, `optimize_traj` reads it and optimizes OPT_BATCH
+    trajectories for OPT_STEPS steps; then optimize_trajectory on the card
+    against the CPU."""
+    import tempfile
+
+    import torch
+    from emloco_tpu_torch import convert, optimize_traj, train_value
+    from emloco_tpu_torch.analysis import optimize_trajectory
+    from emloco_tpu_torch.learning import ValuePoseNet
+    from emloco_tpu_torch.utils.checkpoint import (latest_checkpoint,
+                                                   load_pytree)
+    with tempfile.TemporaryDirectory() as out:
+        buf = io.StringIO()
+        t = time.time()
+        with contextlib.redirect_stdout(buf):
+            train_value.main(["--epochs", "1", "--out", out])
+        train_s = time.time() - t
+        for ln in buf.getvalue().splitlines():
+            emit("plausibility", train_value=json.loads(ln))
+        path = latest_checkpoint(out)
+        if path is None:
+            raise SystemExit("plausibility: train_value wrote no checkpoint")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            res = optimize_traj.main(
+                ["--valuenet", path, "--batch-size", str(OPT_BATCH),
+                 "--steps", str(OPT_STEPS)])
+        line = json.loads(buf.getvalue().splitlines()[-1])
+        tree, meta = load_pytree(path)
+    values = res["values"]
+    finite = bool(torch.isfinite(values).all()
+                  and torch.isfinite(res["traj"]).all())
+    origin_kept = bool(torch.equal(res["traj"][:, 0], res["traj0"][:, 0]))
+    before, after = values[0].mean().item(), values[-1].mean().item()
+
+    use = meta["config"]
+    vnet = ValuePoseNet(**use, device="cuda")
+    params = convert.valuenet_state_dict(tree)
+    traj0 = res["traj0"][:OPT_REF_BATCH].cpu()
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        tr = traj0.to(dev)
+        pose = (torch.zeros((OPT_REF_BATCH, 24, 3), device=dev)
+                if use["use_pose"] else None)
+        vel = (tr[:, 1] - tr[:, 0]) / 0.4 if use["use_vel"] else None
+        traj, vals = optimize_trajectory(
+            vnet, {k: v.to(dev) for k, v in params.items()}, tr, pose, vel,
+            steps=OPT_REF_STEPS)
+        runs[dev] = (traj.cpu(), vals.cpu())
+    traj_err = (runs["cuda"][0] - runs["cpu"][0]).abs().max().item()
+    value_err = (runs["cuda"][1] - runs["cpu"][1]).abs().max().item()
+    emit("plausibility", card=card, train_value_seconds=train_s,
+         checkpoint=os.path.basename(path), metadata=meta,
+         optimize_traj=line, steps=OPT_STEPS, batch=OPT_BATCH,
+         optimize_seconds=res["seconds"], value_before=before,
+         value_after=after, finite=finite, origin_bit_equal=origin_kept,
+         card_vs_cpu=dict(batch=OPT_REF_BATCH, steps=OPT_REF_STEPS,
+                          traj_max_abs_err=traj_err,
+                          value_max_abs_err=value_err,
+                          tolerance=OPT_REF_TOL))
+    if not (finite and origin_kept and after >= before
+            and traj_err <= OPT_REF_TOL and value_err <= OPT_REF_TOL):
+        raise SystemExit(
+            f"plausibility failed: finite {finite}, origin kept "
+            f"{origin_kept}, value {before} -> {after}, card vs CPU "
+            f"{traj_err} / {value_err} (tolerance {OPT_REF_TOL})")
+
+
 def main():
     import numpy as np
     import torch
@@ -1194,18 +1475,28 @@ def main():
     train_reference(agent, first_update)
     del agent, first_update
 
-    # 13. reference on the other paths --------------------------------------
+    # 13. the LocoVal epoch -------------------------------------------------
+    trainer, last_update, by_path["value"] = value(card)
+
+    # 14. one valuenet update and the EmLoco loss, card against CPU ---------
+    value_reference(trainer, last_update)
+    del trainer, last_update
+
+    # 15. the LocoVal entry points ------------------------------------------
+    plausibility(card)
+
+    # 16. reference on the other paths --------------------------------------
     for kw in REFERENCES:
         card_vs_cpu("reference_implicit",
                     dataclasses.replace(cfg, engine=EngineConfig(**kw)), env,
                     gen, engine=kw)
 
-    # 14. the probe's kernels against their plain version -------------------
+    # 17. the probe's kernels against their plain version -------------------
     pcases = probe_inputs(engine_rows, dev)
     del engine_rows
     errs.update(probe_kernels(pcases))
 
-    # 15. their times, then the probe itself --------------------------------
+    # 18. their times, then the probe itself --------------------------------
     p_times, (p_bytes, p_flops) = probe_times(*pcases["probe_seed0"])
     del pcases
     times.update(p_times)

@@ -14,14 +14,20 @@ physics      reduced-coordinate engine (TGS and implicit substeps, env-last
 envs         pedestrian-terrain env: reset, observe, step, the mirror of an
              observation, the AMP demo fetch
 learning     running normalization, the AMPSept network's four heads, the
-             PPO + AMP agent (amp_agent)
+             PPO + AMP agent (amp_agent), the LocoVal function
+             (ValuePoseNet) and its trainer (value_train)
+analysis     LocoVal probes: score, rank, sample and optimize trajectories
+utils        checkpoints in the JAX package's pickle format
 csrc         the CUDA kernels; build.py compiles them with nvcc at first use
 convert      JAX-package objects (as numpy pytrees) → this package's objects
 rollout      the env and actor at the bench configuration; the control step;
-             the agent at the bench's training configuration
+             the agent and the LocoVal trainer at the bench's training
+             configuration
 train        the training entry point: python3 -m emloco_tpu_torch.train
-profile_step where a control step's or a training epoch's time goes on the
-             card
+train_value  the LocoVal training entry point
+optimize_traj  trajectory optimization against a valuenet checkpoint
+profile_step where a control step's, a training epoch's or a LocoVal
+             epoch's time goes on the card
 scripts      the Gram-layout probe, port of scripts/gram_kernel_probe.py
 
 Every entry point takes `device=None`, which means CUDA; the CPU runs only

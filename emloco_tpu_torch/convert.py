@@ -83,12 +83,13 @@ _ALL_HEADS = (("task_mlp_", "actor_mlp_", "critic_mlp_", "disc_mlp_",
 
 
 def _state_dict(params, mlps, dense) -> dict:
-    """flax AMPSeptValueNet params → a state_dict of the layers named by
-    the MLP prefixes `mlps` (`actor_mlp_1` → `actor_mlp.1`) and the single
-    layers `dense`, with log_sigma. Flax Dense kernels are (in, out);
+    """flax params → a state_dict of the layers named by the MLP prefixes
+    `mlps` (`actor_mlp_1` → `actor_mlp.1`) and the single layers `dense`,
+    with log_sigma where the tree has one. Flax Dense kernels are (in, out);
     nn.Linear weights are (out, in)."""
     p = params.get("params", params)
-    sd = {"log_sigma": torch.as_tensor(np.array(p["log_sigma"]))}
+    sd = ({"log_sigma": torch.as_tensor(np.array(p["log_sigma"]))}
+          if "log_sigma" in p else {})
     for name, layer in p.items():
         if name in dense:
             key = name
@@ -112,10 +113,32 @@ def agent_state_dict(params) -> dict:
     return _state_dict(params, *_ALL_HEADS)
 
 
-def adam_state(opt_state, device=None):
-    """optax chain(clip_by_global_norm, adam) state → the port's AdamState:
-    the step count and the first and second moments per parameter, under
-    agent_state_dict's names."""
+_VALUENET = ((), ("fc1", "fc2", "fc3"))
+
+
+def valuenet_state_dict(params) -> dict:
+    """flax ValuePoseNet params ({"params": {"fc1": {"kernel", "bias"},
+    …}}) → ValuePoseNet's state_dict."""
+    return _state_dict(params, *_VALUENET)
+
+
+def valuenet_params(state_dict) -> dict:
+    """ValuePoseNet's state_dict → the flax params tree as numpy arrays
+    (kernels (in, out)), the layout the JAX package applies and pickles."""
+    return {"params": {
+        name: {"kernel": state_dict[f"{name}.weight"].detach().cpu()
+               .numpy().T.copy(),
+               "bias": state_dict[f"{name}.bias"].detach().cpu().numpy()
+               .copy()}
+        for name in _VALUENET[1]}}
+
+
+def adam_state(opt_state, device=None, state_dict=agent_state_dict):
+    """optax state holding one scale_by_adam state (the agent's
+    chain(clip_by_global_norm, adam), the valuenet's adamw) → the port's
+    AdamState: the step count and the first and second moments per
+    parameter, under the names `state_dict` gives the moment trees
+    (agent_state_dict, or valuenet_state_dict for the valuenet's)."""
     def find(node):
         if hasattr(node, "mu") and hasattr(node, "nu"):
             return node
@@ -132,5 +155,5 @@ def adam_state(opt_state, device=None):
     dev = _device.resolve(device)
     return AdamState(
         count=tensor(st.count, dev),
-        mu={k: v.to(dev) for k, v in agent_state_dict(st.mu).items()},
-        nu={k: v.to(dev) for k, v in agent_state_dict(st.nu).items()})
+        mu={k: v.to(dev) for k, v in state_dict(st.mu).items()},
+        nu={k: v.to(dev) for k, v in state_dict(st.nu).items()})

@@ -1,2 +1,2 @@
-from .networks import AMPSeptValueNet  # noqa: F401
+from .networks import AMPSeptValueNet, ValuePoseNet  # noqa: F401
 from .running_norm import RunningNorm  # noqa: F401

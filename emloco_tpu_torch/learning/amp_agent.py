@@ -104,28 +104,46 @@ class AdamState(TensorStruct):
     mu: dict                       # first moments, by parameter name
     nu: dict                       # second moments
 
+    @classmethod
+    def zeros_like(cls, params: dict) -> "AdamState":
+        """The state before the first step: count 0, zero moments."""
+        dev = next(iter(params.values())).device
+        return cls(count=torch.zeros((), dtype=torch.int32, device=dev),
+                   mu={k: torch.zeros_like(v) for k, v in params.items()},
+                   nu={k: torch.zeros_like(v) for k, v in params.items()})
+
 
 # optax adam's defaults, which the JAX agent's `adam(lr)` takes
 _B1, _B2, _EPS = 0.9, 0.999, 1e-8
+
+
+def adam_directions(grads: dict, state: AdamState):
+    """optax scale_by_adam (b1 0.9, b2 0.999, eps 1e-8, eps_root 0) on
+    dicts of tensors: (the new state, the bias-corrected directions, which
+    the caller scales by −lr). The bias corrections divide the moments, as
+    optax applies them."""
+    count = state.count + 1
+    bc1 = 1 - _B1 ** count.float()
+    bc2 = 1 - _B2 ** count.float()
+    mu, nu, u = {}, {}, {}
+    for k, g in grads.items():
+        mu[k] = (1 - _B1) * g + _B1 * state.mu[k]
+        nu[k] = (1 - _B2) * (g * g) + _B2 * state.nu[k]
+        u[k] = (mu[k] / bc1) / (torch.sqrt(nu[k] / bc2) + _EPS)
+    return AdamState(count=count, mu=mu, nu=nu), u
 
 
 @dataclasses.dataclass(frozen=True)
 class ClipAdam:
     """optax.chain(clip_by_global_norm(max_norm), adam(lr)) on dicts of
     tensors. The clip scales by max_norm / norm only when norm ≥ max_norm
-    (no 1e-6, unlike clip_grad_norm_); Adam's bias corrections divide the
-    moments, as optax applies them (b1 0.9, b2 0.999, eps 1e-8, eps_root
-    0)."""
+    (no 1e-6, unlike clip_grad_norm_); then `adam_directions`."""
 
     max_norm: float
     lr: float
 
     def init(self, params: dict) -> AdamState:
-        dev = next(iter(params.values())).device
-        return AdamState(
-            count=torch.zeros((), dtype=torch.int32, device=dev),
-            mu={k: torch.zeros_like(v) for k, v in params.items()},
-            nu={k: torch.zeros_like(v) for k, v in params.items()})
+        return AdamState.zeros_like(params)
 
     def clip(self, grads: dict) -> dict:
         norm = torch.sqrt(sum((g * g).sum() for g in grads.values()))
@@ -135,17 +153,8 @@ class ClipAdam:
 
     def update(self, grads: dict, state: AdamState, params: dict):
         """(new params, new state) after one step on `grads`."""
-        grads = self.clip(grads)
-        count = state.count + 1
-        bc1 = 1 - _B1 ** count.float()
-        bc2 = 1 - _B2 ** count.float()
-        mu, nu, new = {}, {}, {}
-        for k, g in grads.items():
-            mu[k] = (1 - _B1) * g + _B1 * state.mu[k]
-            nu[k] = (1 - _B2) * (g * g) + _B2 * state.nu[k]
-            u = (mu[k] / bc1) / (torch.sqrt(nu[k] / bc2) + _EPS)
-            new[k] = params[k] + u * -self.lr
-        return new, AdamState(count=count, mu=mu, nu=nu)
+        state, u = adam_directions(self.clip(grads), state)
+        return {k: params[k] + u[k] * -self.lr for k in u}, state
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,5 +1,6 @@
-"""Policy, critic, discriminator and task-value networks (port of
-emloco_tpu/learning/networks.py AMPSeptValueNet).
+"""Policy, critic, discriminator and task-value networks, and the LocoVal
+function (port of emloco_tpu/learning/networks.py AMPSeptValueNet and
+ValuePoseNet).
 
 A task MLP [512, 256] embeds the task observation [trajectory, height map];
 its embedding, concatenated with the self observation, feeds the actor MLP
@@ -11,6 +12,12 @@ trajectory part of the task observation (no sigmoid).
 Initialization follows flax's defaults (truncated-normal fan-in scaling,
 zero biases; the μ layer at scale 0.01; the disc and value logits uniform in
 ±1/√fan_in), drawn from a torch.Generator.
+
+ValuePoseNet maps an episode's waypoints, initial pose and initial root
+velocity, rotated so that the first segment points along +x, through an MLP
+in → in/2 − 1 → (in/2 − 1)/2 → 1 to a sigmoid plausibility value; its
+kernels are xavier-uniform and its biases zero, as flax's Dense with
+`kernel_init=xavier_uniform()`.
 """
 from __future__ import annotations
 
@@ -132,3 +139,93 @@ class AMPSeptValueNet(nn.Module):
         mu, sigma = self.actor(obs)
         return (mu, sigma, self.critic(obs), self.disc(amp_obs),
                 self.task_value(obs))
+
+
+class ValuePoseNet(nn.Module):
+    """The LocoVal function (reference value_pose_net.py:10-159)."""
+
+    def __init__(self, use_pose: bool = True, use_vel: bool = True,
+                 hide_toe: bool = True, hide_spine: bool = True,
+                 normalize: bool = True, num_waypoints: int = 13,
+                 generator: torch.Generator | None = None, device=None):
+        super().__init__()
+        self.use_pose = use_pose
+        self.use_vel = use_vel
+        self.hide_toe = hide_toe
+        self.hide_spine = hide_spine
+        self.normalize = normalize
+        self.num_waypoints = num_waypoints
+        in_dim = num_waypoints * 2 + 72 * use_pose + 2 * use_vel
+        fc1 = in_dim // 2 - 1
+        fc2 = fc1 // 2
+        self.fc1 = nn.Linear(in_dim, fc1)
+        self.fc2 = nn.Linear(fc1, fc2)
+        self.fc3 = nn.Linear(fc2, 1)
+        self.to(_device.resolve(device))
+        self.init_parameters(generator)
+
+    @torch.no_grad()
+    def init_parameters(self, generator: torch.Generator | None = None):
+        """flax's xavier_uniform kernels, U(±√(6 / (fan_in + fan_out))), and
+        zero biases; fc1, fc2, fc3 draw in turn."""
+        for layer in (self.fc1, self.fc2, self.fc3):
+            bound = math.sqrt(6.0 / (layer.in_features + layer.out_features))
+            nn.init.uniform_(layer.weight, -bound, bound, generator=generator)
+            nn.init.zeros_(layer.bias)
+
+    def forward(self, waypoint_traj, init_pose=None, init_vel=None):
+        """waypoint_traj (B, W, 2); init_pose (B, 24, 3); init_vel (B, 2).
+        Returns (B,) plausibility values in [0, 1]."""
+        if self.normalize:
+            waypoint_traj, init_pose, init_vel = rotate_normalization(
+                waypoint_traj, init_pose, init_vel)
+        parts = [waypoint_traj.reshape(waypoint_traj.shape[0], -1)]
+        if self.use_pose:
+            if init_pose is None:
+                raise ValueError("this ValuePoseNet needs init_pose")
+            # hide the toe joints 4 / 8 and the spine chain 9 / 10 / 11
+            # (reference forward_pose / forward_full, :120-150)
+            hidden = [4, 8] * self.hide_toe + [9, 10, 11] * self.hide_spine
+            if hidden:
+                init_pose = init_pose.clone()
+                init_pose[:, hidden] = 0.0
+            parts.append(init_pose.reshape(init_pose.shape[0], -1))
+        if self.use_vel:
+            if init_vel is None:
+                raise ValueError("this ValuePoseNet needs init_vel")
+            parts.append(init_vel)
+        x = torch.cat(parts, -1)
+        x = torch.relu(self.fc1(x))
+        x = torch.relu(self.fc2(x))
+        return torch.sigmoid(self.fc3(x))[..., 0]
+
+
+def rotate_normalization(waypoint_traj, init_pose=None, init_vel=None):
+    """Rotate so that the first trajectory segment points along +x
+    (reference _rotate_normalization, value_pose_net.py:73-103: row vectors
+    times R(angle) on the right, a rotation by −angle)."""
+    eps = 1e-10
+    x1 = waypoint_traj[:, 1, 0]
+    y1 = waypoint_traj[:, 1, 1]
+    x1 = torch.where(x1.abs() < eps, eps, x1)
+    ang = torch.atan2(y1, x1)
+    c, s = torch.cos(ang), torch.sin(ang)
+    # row vector × [[c, −s], [s, c]]
+    rot = torch.stack([torch.stack([c, -s], -1), torch.stack([s, c], -1)],
+                      -2)
+    traj = torch.einsum("bwj,bji->bwi", waypoint_traj[..., :2], rot)
+    if init_pose is not None:
+        xy = torch.einsum("bkj,bji->bki", init_pose[..., :2], rot)
+        init_pose = torch.cat([xy, init_pose[..., 2:]], -1)
+    if init_vel is not None:
+        init_vel = torch.einsum("bj,bji->bi", init_vel[..., :2], rot)
+    return traj, init_pose, init_vel
+
+
+def embodied_motion_loss(value_fn, pred_traj, init_pose=None, init_vel=None):
+    """The EmLoco loss: mean (v − 1)² of the plausibility values `value_fn`
+    gives the predicted trajectories, pushing them toward 1 (reference
+    calc_embodied_motion_loss, value_pose_net.py:151-159). `value_fn` is a
+    ValuePoseNet or any callable (traj, init_pose, init_vel) → (B,)."""
+    v = value_fn(pred_traj, init_pose, init_vel)
+    return torch.mean((v - 1.0) ** 2)

@@ -2,6 +2,7 @@
 
     python3 -m emloco_tpu_torch.profile_step [--envs 4096] [--steps 3]
     python3 -m emloco_tpu_torch.profile_step --train [--envs 1600]
+    python3 -m emloco_tpu_torch.profile_step --value [--envs 1600]
 
 Builds the env and actor at the bench configuration (`rollout.build_bench`)
 and times on the host, with a synchronize around each part: observe,
@@ -17,6 +18,11 @@ With `--train` the unit is one epoch of the bench's training configuration
 three parts (rollout, prepare: GAE + norms + replay + demos, update), then
 the next epoch traced part by part, with the same tables for each part and
 the epoch's device time, launches and busy share.
+
+With `--value` the unit is one LocoVal epoch (`rollout.build_value_bench`),
+broken down the same way into its two parts: collect (the frozen policy's
+32 control steps with the return latching) and update (one AdamW step of
+the valuenet on the epoch's samples).
 """
 from __future__ import annotations
 
@@ -29,7 +35,7 @@ import torch
 
 from . import device as _device
 from .physics import step as physics_step
-from .rollout import build_bench, build_train_bench
+from .rollout import build_bench, build_train_bench, build_value_bench
 
 
 def _host_ms(fn, reps):
@@ -92,49 +98,55 @@ def _profile(fn, units):
     return (prof, (time.perf_counter() - t) * 1e3), out
 
 
-def _train(args, dev, card):
-    """One epoch of the bench's training configuration after a warm-up
-    epoch: the host time of each part, synchronized; then the next epoch
-    traced part by part (each part's device time, launches and busy share
-    over its untraced host time, with its top kernels and ops) and the
-    epoch's totals."""
-    envs = args.envs or 1600
-    agent, ts = build_train_bench(envs, dev)
-    ts, _ = agent.train_epoch(ts)                        # warm-up
-    host = {}
+def _epoch(ts, parts, steps, card, top, **info):
+    """One epoch run part by part: `parts` is [(name, fn)], each fn taking
+    the previous part's outputs (the first part: ts) and returning a tuple
+    that starts with the new ts. The host time of each part, synchronized;
+    then the next epoch traced part by part (each part's device time,
+    launches and busy share over its untraced host time, with its top
+    kernels and ops) and the epoch's totals."""
+    host, out = {}, (ts,)
     _, t = _host_split(0.0)
-    ts, batch, last_obs = agent.rollout(ts)
-    host["rollout"], t = _host_split(t)
-    ts, pools = agent.prepare(ts, batch, last_obs)
-    host["prepare"], t = _host_split(t)
-    ts, _ = agent.update(ts, pools)
-    host["update"], t = _host_split(t)
-    del batch, pools
+    for name, fn in parts:
+        out = fn(*out)
+        host[name], t = _host_split(t)
     epoch_ms = sum(host.values())
-    steps = agent.cfg.horizon * envs
     print(json.dumps({
         "host_ms_per_epoch": host, "epoch_ms": epoch_ms,
-        "env_steps_per_s": steps / epoch_ms * 1e3,
-        "updates_per_epoch": agent.cfg.mini_epochs
-        * agent.cfg.num_minibatches,
-        "num_envs": envs, "card": card}), flush=True)
-
-    traced, (ts, batch, last_obs) = _profile(lambda: agent.rollout(ts), 1)
-    device = {"rollout": _report(traced, 1, "rollout", host["rollout"], card,
-                                 args.top)}
-    traced, (ts, pools) = _profile(
-        lambda: agent.prepare(ts, batch, last_obs), 1)
-    device["prepare"] = _report(traced, 1, "prepare", host["prepare"], card,
-                                args.top)
-    del batch
-    traced, _ = _profile(lambda: agent.update(ts, pools), 1)
-    device["update"] = _report(traced, 1, "update", host["update"], card,
-                               args.top)
+        "env_steps_per_s": steps / epoch_ms * 1e3, **info, "card": card}),
+        flush=True)
+    out, device = out[:1], {}
+    for name, fn in parts:
+        traced, out = _profile(lambda: fn(*out), 1)
+        device[name] = _report(traced, 1, name, host[name], card, top)
     dev_ms = sum(d[0] for d in device.values())
     print(json.dumps({
         "device_kernel_ms_per_epoch": dev_ms,
         "kernel_launches_per_epoch": sum(d[1] for d in device.values()),
         "device_busy_share": dev_ms / epoch_ms, "card": card}), flush=True)
+
+
+def _train(args, dev, card):
+    """The bench's training epoch (rollout, prepare: GAE + norms + replay +
+    demos, update) after a warm-up epoch."""
+    envs = args.envs or 1600
+    agent, ts = build_train_bench(envs, dev)
+    ts, _ = agent.train_epoch(ts)                        # warm-up
+    _epoch(ts, [("rollout", agent.rollout), ("prepare", agent.prepare),
+                ("update", agent.update)], agent.cfg.horizon * envs, card,
+           args.top, updates_per_epoch=agent.cfg.mini_epochs
+           * agent.cfg.num_minibatches, num_envs=envs)
+
+
+def _value(args, dev, card):
+    """The LocoVal epoch at the training configuration (collect: the frozen
+    policy's rollout with the return latching, update: one AdamW step of
+    the valuenet) after a warm-up epoch."""
+    envs = args.envs or 1600
+    trainer, vts = build_value_bench(envs, dev)
+    vts, _ = trainer.train_epoch(vts)                    # warm-up
+    _epoch(vts, [("collect", trainer._collect), ("update", trainer.update)],
+           trainer.cfg.horizon * envs, card, args.top, num_envs=envs)
 
 
 def _host_split(t):
@@ -147,11 +159,13 @@ def _host_split(t):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--envs", type=int, default=None,
-                    help="envs (default 4096; 1600 with --train)")
+                    help="envs (default 4096; 1600 with --train or --value)")
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--top", type=int, default=25)
     ap.add_argument("--train", action="store_true",
                     help="break down one training epoch instead")
+    ap.add_argument("--value", action="store_true",
+                    help="break down one LocoVal training epoch instead")
     args = ap.parse_args(argv)
     dev = _device.resolve(None)
     # the networks' float32 GEMMs in full float32, not TF32 (the physics
@@ -163,6 +177,8 @@ def main(argv=None):
         timeout=60, check=True).stdout.strip().splitlines()[0]
     if args.train:
         return _train(args, dev, card)
+    if args.value:
+        return _value(args, dev, card)
 
     envs = args.envs or 4096
     r = build_bench(envs, dev)

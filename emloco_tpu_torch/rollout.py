@@ -15,6 +15,12 @@ library and actor.
 motions, and the PPO + AMP agent with `horizon=32, num_minibatches=20,
 mini_epochs=6, amp_batch_size=512`, every other AMPConfig field at its
 default.
+
+`build_value_bench` builds the LocoVal training configuration on that
+world: `cmd_train_valuenet` (`emloco_tpu/cli/run.py:176-223`) with the
+training configuration's env, the synthetic real-trajectory bank, half of
+the real paths heading-inverted, the frozen PPO + AMP agent, ValuePoseNet
+with pose and velocity at 13 waypoints and ValueTrainConfig's defaults.
 """
 from __future__ import annotations
 
@@ -23,10 +29,12 @@ import dataclasses
 import torch
 
 from . import device as _device
-from .envs import EnvConfig, PedestrianTerrainEnv
+from .envs import EnvConfig, PedestrianTerrainEnv, traj_gen
 from .kinematics import motion_lib as ml
-from .learning import AMPSeptValueNet, RunningNorm
+from .learning import AMPSeptValueNet, RunningNorm, ValuePoseNet
 from .learning.amp_agent import AMPAgent, AMPConfig, TrainState
+from .learning.value_train import (LocoValTrainer, ValueTrainConfig,
+                                   ValueTrainState)
 from .physics import EngineConfig, generate_mixed_terrain
 
 
@@ -65,12 +73,14 @@ TRAIN_AMP = AMPConfig(horizon=32, num_minibatches=20, mini_epochs=6,
                       amp_batch_size=512)
 
 
-def _bench_env(cfg: EnvConfig, dev) -> PedestrianTerrainEnv:
+def _bench_env(cfg: EnvConfig, dev,
+               real_traj_bank=None) -> PedestrianTerrainEnv:
     return PedestrianTerrainEnv(
         cfg, generate_mixed_terrain(map_length=8.0, num_tiles=2,
                                     difficulty=0.5, device=dev),
         ml.synthetic_walk_motions(speeds=(1.0, 1.5), duration=2.0,
-                                  device=dev), device=dev)
+                                  device=dev),
+        real_traj_bank=real_traj_bank, device=dev)
 
 
 def _bench_cfg(num_envs: int, **fields) -> EnvConfig:
@@ -105,3 +115,28 @@ def build_train_bench(num_envs: int = 1600, device=None, seed: int = 0,
     agent = AMPAgent(_bench_env(_bench_cfg(num_envs, **env_fields), dev),
                      amp)
     return agent, agent.init(seed)
+
+
+def build_value_bench(num_envs: int = 1600, device=None, seed: int = 0,
+                      amp: AMPConfig = TRAIN_AMP,
+                      env_fields: dict | None = None, **vnet_fields
+                      ) -> tuple[LocoValTrainer, ValueTrainState]:
+    """The LocoVal trainer at the bench's training configuration and its
+    initial ValueTrainState: the agent from `seed` (frozen), the valuenet
+    and the fresh episodes from `seed + 1`, as `cmd_train_valuenet` seeds
+    them; the valuenet at ValuePoseNet's defaults (pose and velocity, 13
+    waypoints). `amp`, `env_fields` (EnvConfig fields) and `vnet_fields`
+    (ValuePoseNet arguments) replace parts of the configuration."""
+    dev = _device.resolve(device)
+    vcfg = ValueTrainConfig()
+    env_cfg = _bench_cfg(num_envs, **(env_fields or {}))
+    traj = dataclasses.replace(
+        env_cfg.traj, heading_inversion_prob=vcfg.heading_inversion_prob)
+    env_cfg = dataclasses.replace(env_cfg, traj=traj)
+    agent = AMPAgent(_bench_env(env_cfg, dev,
+                                traj_gen.synthetic_real_bank(device=dev)),
+                     amp)
+    ts = agent.init(seed)
+    vnet = ValuePoseNet(**vnet_fields, device=dev)
+    trainer = LocoValTrainer(agent, vnet, vcfg)
+    return trainer, trainer.init(ts, seed + 1)

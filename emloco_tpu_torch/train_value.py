@@ -1,0 +1,89 @@
+"""Train the LocoVal function from rollouts of the frozen policy at the
+bench's training configuration.
+
+    python3 -m emloco_tpu_torch.train_value [--epochs 10] [--num-envs 1600]
+        [--seed 0] [--device cuda] [--nopose] [--novel] [--vru]
+        [--games N] [--out output/valuenet] [--save-every 200]
+        [amp.<field>=<value> ...] [env.<field>=<value> ...]
+
+The counterpart of the JAX package's `train-valuenet` (cli/run.py:176-223)
+without a policy checkpoint or resume: the policy is the bench agent's,
+drawn from `--seed`. It builds `rollout.build_value_bench` (the valuenet
+without the initial pose with `--nopose`, without the initial velocity
+with `--novel`, on 5 waypoints with `--vru`; fields of AMPConfig and
+EnvConfig may be replaced as in `python3 -m emloco_tpu_torch.train`),
+prints one JSON line an epoch (the metrics, seconds, env-steps/s with the
+update, the device) and writes `valuenet_<epoch:08d>.ckpt` to `--out` every
+`--save-every` epochs and after the last, in the JAX package's format. With
+`--games N` it then evaluates the valuenet over N read-only rollout epochs
+(the value half of `eval-policy`) and prints the latched episodes' `mse`
+and `corr`. Runs on the CUDA card unless `--device cpu` is given.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import time
+
+import torch
+
+from . import device as _device
+from .rollout import TRAIN_AMP, build_value_bench
+from .train import _parse_overrides
+from .utils.checkpoint import save_valuenet
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--epochs", type=int, default=10)
+    ap.add_argument("--num-envs", type=int, default=1600)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default=None,
+                    help="torch device; default the CUDA card")
+    ap.add_argument("--nopose", action="store_true")
+    ap.add_argument("--novel", action="store_true")
+    ap.add_argument("--vru", action="store_true")
+    ap.add_argument("--games", type=int, default=0,
+                    help="evaluation rollout epochs after training")
+    ap.add_argument("--out", default="output/valuenet")
+    ap.add_argument("--save-every", type=int, default=200)
+    ap.add_argument("overrides", nargs="*")
+    args = ap.parse_args(argv)
+    amp_fields, env_fields = _parse_overrides(args.overrides)
+    dev = _device.resolve(args.device)
+    if dev.type == "cuda":
+        # the networks' float32 GEMMs in full float32, not TF32 (the physics
+        # step sets this for itself)
+        torch.backends.cuda.matmul.fp32_precision = "ieee"
+    use = dict(use_pose=not args.nopose, use_vel=not args.novel)
+    trainer, vts = build_value_bench(
+        args.num_envs, dev, args.seed,
+        dataclasses.replace(TRAIN_AMP, **amp_fields), env_fields,
+        num_waypoints=5 if args.vru else 13, **use)
+    steps = trainer.cfg.horizon * args.num_envs
+    name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    last = args.epochs - 1
+    for ep in range(args.epochs):
+        t = time.perf_counter()
+        vts, metrics = trainer.train_epoch(vts)
+        metrics = {k: v.item() for k, v in metrics.items()}
+        dt = time.perf_counter() - t
+        print(json.dumps({"epoch": vts.epoch, **metrics, "seconds": dt,
+                          "env_steps_per_s": steps / dt, "device": name}),
+              flush=True)
+        if ep and ep % args.save_every == 0 or ep == last:
+            save_valuenet(os.path.join(args.out, f"valuenet_{ep:08d}.ckpt"),
+                          vts.vnet_params, use)
+    if args.games:
+        vts, preds, targets = trainer.collect_predictions(vts, args.games)
+        mse, corr = trainer.prediction_stats(preds, targets)
+        print(json.dumps({"games": args.games, "latched": len(preds),
+                          "mse": mse, "corr": corr, "device": name}),
+              flush=True)
+    return vts
+
+
+if __name__ == "__main__":
+    main()

@@ -31,6 +31,9 @@ def test_import_pulls_in_no_jax():
         "emloco_tpu_torch.physics.linalg, "
         "emloco_tpu_torch.scripts.gram_kernel_probe, "
         "emloco_tpu_torch.learning.amp_agent, emloco_tpu_torch.train\n"
+        "import emloco_tpu_torch.learning.value_train, "
+        "emloco_tpu_torch.analysis, emloco_tpu_torch.utils.checkpoint, "
+        "emloco_tpu_torch.train_value, emloco_tpu_torch.optimize_traj\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "print(','.join(bad))\n")
