@@ -136,6 +136,49 @@ Phases, each printed as one JSON line with its elapsed seconds:
                 emloco_tpu_torch.scripts.gram_kernel_probe at full size
                 (4,096 envs), its variant lines echoed under the phase
                 name, with the kernels' launch counts read around it
+ 19. sensor_paths — the control step at 4,096 envs for each sensor variant
+                of rollout.SENSOR_VARIANTS (the velocity map; groups of 128
+                with the people stamped into it; the 450-point fan), one
+                warm-up and 2 steps each with the launch counts read around
+                them (factor 1, resolve 2 a step); then on a reset and
+                stepped state of 8 envs the card's observe against the
+                CPU's within one bf16 ulp of each block's magnitude, save
+                the sensor points within 1e-4 m of a terrain cell edge or a
+                footprint box edge (and an env's whole height channel when
+                a point of its center patch is), which are printed and
+                counted
+ 20. crowd_train — rollout.build_crowd_bench at 1,600 envs (groups of 100,
+                the velocity map with the people stamped in, the crowd
+                observation through the pointnet, the conv encoder over
+                the 32×32×3 image): a warm-up epoch, then 2 timed epochs
+                part by part with the launch counts read around each
+                (factor 32, resolve 64); metrics and parameters finite,
+                the discriminator reward below its cap and its loss above
+                1e-3; peak memory
+ 21. crowd_reference — the first timed epoch's first minibatch of the crowd
+                agent through one update on the card and on the CPU: in
+                float64 with train_reference's tolerances (the conv and
+                pointnet gradients held too), in float32 with its loss
+                terms within 1e-4 and its gradients and updates printed
+                beside the ReLU and max-pool decisions the devices take
+                the other way (float32 gradients part at such kinks);
+                then query_value_gradient on 64 envs of the crowd
+                configuration, card against CPU (the CPU run takes the
+                card's observation of the state), within 1e-5
+ 22. bf16_train — the training epoch with `hidden_bf16` at the bench's
+                training configuration: warm-up, 2 timed epochs as in
+                crowd_train; then every head on 2,560 of the epoch's rows
+                on the card against the CPU within 2^-6 of its largest
+                output
+ 23. perturbations — 32 control steps at 1,600 envs with obs and action
+                noise, pushes and projectile hits every 8 steps,
+                hard-negative sampling and episodes of 24 steps (launches
+                32 / 64): each push's and
+                hit's change of the root velocity equals the kick computed
+                here from its draws, untouched envs unchanged; Σ
+                motion_sampled equals the dones; after the refresh the
+                weights sum to 1 within 1e-6 and the demo fetch draws its
+                motions in their proportions; everything finite
 Then the kernels' summary line and, last, the device line. Any failed check
 raises and the script exits non-zero. Without a CUDA device it exits 2 and
 runs nothing.
@@ -206,6 +249,27 @@ EML_ROWS, EML_REL = 4096, 1e-5
 # optimize_trajectory (float32 work over 20 Adam steps)
 OPT_BATCH, OPT_STEPS = 4096, 200
 OPT_REF_BATCH, OPT_REF_STEPS, OPT_REF_TOL = 64, 20, 1e-4
+# the sensor variants' card-vs-CPU observe: envs compared, and how near (m)
+# a sensor point may lie to a terrain cell edge or a footprint box edge and
+# be excused (it may read the other side on the other device)
+SENSOR_REF_ENVS, EDGE_M = 8, 1e-4
+# timed epochs of the crowd and bf16 training configurations after a warm-up
+CROWD_EPOCHS = 2
+# bfloat16 heads on the card against the CPU, relative to each head's
+# largest |output|: each bf16 layer rounds to 8 bits, its sums in other
+# orders on the two devices
+BF16_HEAD_REL = 2.0 ** -6
+# query_value_gradient, card against CPU
+QVG_ENVS, QVG_REL = 64, 1e-5
+# the perturbations phase: control steps at the training configuration's
+# envs with both noises, pushes and projectiles every 8 steps, hard-negative
+# sampling, episodes of 24 steps (so that some end by truncation and the
+# motions' success rates differ); a discriminator loss below this is a
+# discriminator that separates every sample
+PERTURB_STEPS = 32
+PERTURB = dict(obs_noise_std=0.05, action_noise_std=0.05, push_interval=8,
+               projectile_interval=8, hard_negative=True, episode_length=24)
+D_LOSS_FLOOR = 1e-3
 # configurations of the reference_implicit phase (8 envs, card vs CPU)
 REFERENCES = (dict(tgs_step=False), dict(batch_major_solver=True),
               dict(gram_kernel=True), dict(sqrt_gram=False))
@@ -789,14 +853,14 @@ def run_probe():
     return launches, res
 
 
-def drive_path(rollout, name, engine, per_step, card):
-    """The bench rollout under another engine configuration: one warm-up,
-    then PATH_STEPS control steps with the launch counts read around them.
-    Fails unless the counts are `per_step` × PATH_STEPS (every other kernel
-    0) and everything is finite."""
+def drive_path(r, name, per_step, card, phase="paths", **extra):
+    """A bench rollout `r` (another engine configuration or sensor): one
+    warm-up, then PATH_STEPS control steps with the launch counts read
+    around them. Fails unless the counts are `per_step` × PATH_STEPS (every
+    other kernel 0) and everything is finite. Returns the launch counts and
+    the last state."""
     import torch
-    from emloco_tpu_torch.physics import EngineConfig, linalg
-    r = rollout.with_engine(EngineConfig(**engine))
+    from emloco_tpu_torch.physics import linalg
     dev = r.env.device
     state = r.env.reset(torch.Generator(device=dev).manual_seed(0))
     state, _, _, _ = r.control_step(state)             # warm-up
@@ -816,7 +880,7 @@ def drive_path(rollout, name, engine, per_step, card):
         out.obs, out.reward))
     want = dict.fromkeys(launches, 0)
     want.update({k: n * PATH_STEPS for k, n in per_step.items()})
-    emit("paths", path=name, engine=engine, steps=PATH_STEPS,
+    emit(phase, path=name, **extra, steps=PATH_STEPS,
          num_envs=NUM_ENVS, seconds=round(dt, 4),
          env_steps_per_s=NUM_ENVS * PATH_STEPS / dt, card=card,
          launches=launches, finite=finite,
@@ -826,7 +890,7 @@ def drive_path(rollout, name, engine, per_step, card):
                          f"expected {want}")
     if not finite:
         raise SystemExit(f"path {name} produced non-finite values")
-    return launches
+    return launches, state
 
 
 def train_solver_check(agent, ts):
@@ -878,6 +942,18 @@ def train_solver_check(agent, ts):
         resolve_max_rel_err=[rel_err(k, p)[1] for k, p in zip(x_k, x_p)],
         finite=bool(torch.isfinite(L_k).all()
                     and all(torch.isfinite(x).all() for x in x_k)))
+
+
+def first_update(agent, pools, before):
+    """The epoch's first update's inputs: the parameters and optimizer
+    state before it, its minibatch, demo and replay blocks and dropout
+    masks (drawn again from the generator state `before` held)."""
+    import torch
+    params, opt, rng_state = before
+    gen = torch.Generator(device="cuda")
+    gen.set_state(rng_state)
+    mb, demo, replay, masks = next(agent.minibatches(pools, gen))
+    return params, opt, mb, demo, replay, masks
 
 
 def train(card):
@@ -945,24 +1021,26 @@ def train(card):
             f"nonfinite_grad {metrics['nonfinite_grad']}, replay_filled "
             f"{ts.replay_filled} (expected {2 * steps}), disc_reward "
             f"{metrics['disc_reward']} (cap {DISC_REWARD_CAP})")
-    params, opt, rng_state = before
-    gen = torch.Generator(device="cuda")
-    gen.set_state(rng_state)
-    mb, demo, replay, masks = next(agent.minibatches(pools, gen))
-    return agent, (params, opt, mb, demo, replay, masks), launches
+    return agent, first_update(agent, pools, before), launches
 
 
-def train_reference(agent, inputs):
+GATES = ("loss_rel", "grad_rel", "step_lr", "update_lr")
+
+
+def train_reference(agent, inputs, phase="train_reference", dtype=None,
+                    gated=GATES):
     """One update of the timed epoch on the card against the same update on
-    the CPU (the tolerances of tests/test_torch_train.py)."""
+    the CPU (the tolerances of tests/test_torch_train.py), in `dtype`
+    (float64, or the inputs' float32 where None); fails where a measure in
+    `gated` exceeds its tolerance."""
     import torch
     params, opt, mb, demo, replay, masks = inputs
     runs = {}
     for dev in ("cuda", "cpu"):
         def to(x):
-            return x.to(dev)
+            return x.to(dev, dtype) if x.is_floating_point() else x.to(dev)
         p = {k: to(v) for k, v in params.items()}
-        o = opt.to(dev)
+        o = opt.map_tensors(to)
         args = ({k: to(v) for k, v in mb.items()}, to(demo), to(replay),
                 None if masks is None else tuple(to(m) for m in masks))
         t = time.time()
@@ -975,9 +1053,12 @@ def train_reference(agent, inputs):
                          grads={k: v.cpu() for k, v in grads.items()},
                          params={k: v.cpu() for k, v in p1.items()})
     card, cpu = runs["cuda"], runs["cpu"]
-    p0 = {k: v.cpu() for k, v in params.items()}
+    p0 = {k: v.to("cpu", dtype) for k, v in params.items()}
     # the CPU optimizer's step on the card's gradients
-    step_ref, _, _ = agent._apply_grads(p0, opt.to("cpu"), card["grads"])
+    step_ref, _, _ = agent._apply_grads(
+        p0, opt.map_tensors(lambda x: x.to("cpu", dtype)
+                            if x.is_floating_point() else x.cpu()),
+        card["grads"])
     lr = agent.cfg.lr
     term_err = {k: abs(card["terms"][k] - v) / max(abs(v), 1e-6)
                 for k, v in cpu["terms"].items()}
@@ -997,7 +1078,8 @@ def train_reference(agent, inputs):
                  grad_rel=max(grad_err.values()),
                  step_lr=max(step_err.values()),
                  update_lr=max(update_err.values()))
-    emit("train_reference", rows=int(mb["adv"].shape[0]),
+    emit(phase, precision=str(dtype or mb["adv"].dtype).split(".")[-1],
+         gated=list(gated), rows=int(mb["adv"].shape[0]),
          demo_rows=int(demo.shape[0]), replay_rows=int(replay.shape[0]),
          card_seconds=card["seconds"], cpu_seconds=cpu["seconds"],
          finite=[card["finite"], cpu["finite"]], terms_card=card["terms"],
@@ -1005,12 +1087,11 @@ def train_reference(agent, inputs):
          tolerance=dict(loss_rel=LOSS_REL, grad_rel=GRAD_REL,
                         step_lr=UPDATE_LR, update_lr=UPDATE_LR),
          grad_rel_by_leaf=grad_err, update_lr_by_leaf=update_err)
+    tol = dict(loss_rel=LOSS_REL, grad_rel=GRAD_REL, step_lr=UPDATE_LR,
+               update_lr=UPDATE_LR)
     if not (card["finite"] and cpu["finite"]
-            and worst["loss_rel"] <= LOSS_REL
-            and worst["grad_rel"] <= GRAD_REL
-            and worst["step_lr"] <= UPDATE_LR
-            and worst["update_lr"] <= UPDATE_LR):
-        raise SystemExit(f"train_reference: the card's update disagrees "
+            and all(worst[k] <= tol[k] for k in gated)):
+        raise SystemExit(f"{phase}: the card's update disagrees "
                          f"with the CPU's: {worst}")
 
 
@@ -1247,6 +1328,458 @@ def plausibility(card):
             f"{traj_err} / {value_err} (tolerance {OPT_REF_TOL})")
 
 
+def near_edges(env, state):
+    """(N, P) bool on the CPU: the sensor points that lie within EDGE_M of a
+    terrain cell edge or (with group_obs under the velocity map) of a
+    neighbour's footprint box edge; and every point of an env one of whose
+    center-patch points lies within EDGE_M of a cell edge."""
+    import torch
+    from emloco_tpu_torch.envs import observations as obs
+    from emloco_tpu_torch.ops import quat
+    from emloco_tpu_torch.physics import body_frame_state
+    cfg, hf = env.cfg, env.terrain
+    pos, rot, _, _ = body_frame_state(env.model, state.physics)
+    root, head = pos[:, 0], pos[:, env._head]
+    heading = quat.calc_heading(rot[:, 0])
+    grid = env.sensor_grid
+
+    def near_cell(px, py):
+        out = torch.zeros_like(px, dtype=torch.bool)
+        for v, o in ((px, hf.origin[0]), (py, hf.origin[1])):
+            g = (v - o) / hf.cell
+            frac = g - torch.floor(g)
+            out |= torch.minimum(frac, 1 - frac) * hf.cell < EDGE_M
+        return out
+
+    px, py = obs._rotate_grid_xy(heading, grid, head[:, :2])
+    near = near_cell(px, py)
+    cg = torch.as_tensor(obs.make_sensor_grid(0.15, 3))
+    cpx, cpy = obs._rotate_grid_xy(heading, cg, root[:, :2])
+    near |= near_cell(cpx, cpy).any(-1, keepdim=True)
+    if cfg.group_obs and cfg.velocity_map:
+        k = min(5, cfg.obs_group_size - 1)
+        _, flat = obs._nearest_in_group(root[:, :2], cfg.obs_group_size, k)
+        nbr = root[flat.reshape(-1), :2].reshape(-1, k, 2)
+        dx = (px[:, :, None] - nbr[:, None, :, 0]).abs()
+        dy = (py[:, :, None] - nbr[:, None, :, 1]).abs()
+        near |= (((dx - 0.25).abs() < EDGE_M)
+                 | ((dy - 0.5).abs() < EDGE_M)).any(-1)
+    return near
+
+
+def sensor_reference(r, name, card):
+    """A reset and stepped state of SENSOR_REF_ENVS envs of the variant `r`:
+    the card's observe against the CPU's, block by block (self, trajectory,
+    sensor, crowd), save the sensor points near an edge."""
+    import torch
+    from emloco_tpu_torch.envs import PedestrianTerrainEnv
+    small = dataclasses.replace(r.cfg, num_envs=SENSOR_REF_ENVS)
+    dev, cpu = r.env.device, torch.device("cpu")
+    env_g = PedestrianTerrainEnv(small, r.env.terrain, r.env.motion_lib,
+                                 device=dev)
+    env_c = PedestrianTerrainEnv(small, r.env.terrain.to(cpu),
+                                 r.env.motion_lib.to(cpu), device=cpu)
+    st = env_g.reset(torch.Generator(device=dev).manual_seed(5))
+    with torch.no_grad():
+        st, _ = env_g.step(st, r.act(env_g.observe(st)))
+    o_g = env_g.observe(st).cpu()
+    st_c = st.to(cpu).replace(rng=torch.Generator().manual_seed(5))
+    o_c = env_c.observe(st_c)
+    near = near_edges(env_c, st_c)                       # (N, P)
+    cfg = small
+    sd, S = cfg.self_obs_dim, 2 * cfg.num_traj_samples
+    P, C = cfg.num_sensor_points, 3 if cfg.velocity_map else 1
+    blocks = {"self": (0, sd), "traj": (sd, sd + S),
+              "sensor": (sd + S, sd + S + P * C)}
+    if cfg.group_obs:
+        blocks["crowd"] = (sd + S + P * C, cfg.obs_dim)
+    excused = torch.zeros_like(o_c, dtype=torch.bool)
+    excused[:, sd + S:sd + S + P * C] = near.repeat_interleave(C, -1)
+    errs, listed = {}, []
+    for blk, (a, b) in blocks.items():
+        g, c, ex = o_g[:, a:b], o_c[:, a:b], excused[:, a:b]
+        scale = max(c.abs().max().item(), 1e-6)
+        diff = (g - c).abs()
+        errs[blk] = (diff * ~ex).max().item() / scale
+        for e, j in ((diff > STEP_RTOL * scale) & ex).nonzero().tolist():
+            listed.append(dict(env=e, entry=a + j, card=o_g[e, a + j].item(),
+                               cpu=o_c[e, a + j].item()))
+    emit("sensor_paths", path=name, reference_envs=SENSOR_REF_ENVS,
+         max_rel_err=errs, tolerance_rel=STEP_RTOL, edge_m=EDGE_M,
+         points_near_edges=int(near.sum()), differing_near_edges=listed,
+         card=card)
+    if not max(errs.values()) <= STEP_RTOL:
+        raise SystemExit(f"sensor path {name}: card and CPU observe "
+                         f"disagree away from every edge: {errs}")
+
+
+def sensor_paths(card):
+    """The control step at NUM_ENVS for each sensor variant, then each
+    variant's card-vs-CPU observe. Returns the launch counts by variant."""
+    from emloco_tpu_torch.rollout import SENSOR_VARIANTS, build_bench
+    by_path = {}
+    per_step = {"cholesky_factor_blocked_t": 1,
+                "cholesky_resolve_blocked_t": 2}
+    for name, kw in SENSOR_VARIANTS:
+        r = build_bench(NUM_ENVS, "cuda", **kw)
+        by_path[name], _ = drive_path(r, name, per_step, card,
+                                      phase="sensor_paths", env_fields=kw,
+                                      obs_dim=r.cfg.obs_dim)
+        sensor_reference(r, name, card)
+        del r
+    return by_path
+
+
+def timed_epochs(phase, agent, ts, card, setup_s):
+    """A warm-up epoch, then CROWD_EPOCHS timed epochs part by part with the
+    launch counts read around each. Returns (ts, the first timed epoch's
+    first update's inputs, its pools' obs rows, launch counts)."""
+    import torch
+    from emloco_tpu_torch.physics import linalg
+    t = time.time()
+    ts, _ = agent.train_epoch(ts)                       # warm-up
+    torch.cuda.synchronize()
+    warm_s = time.time() - t
+    torch.cuda.reset_peak_memory_stats()
+    T, N = agent.cfg.horizon, agent.env.cfg.num_envs
+    n_sub = agent.env.cfg.engine.n_substeps
+    epochs, total, first = [], {}, None
+    for _ in range(CROWD_EPOCHS):
+        linalg.reset_launch_counts()
+        t0 = time.time()
+        ts, batch, last_obs = agent.rollout(ts)
+        torch.cuda.synchronize()
+        t1 = time.time()
+        ts, pools = agent.prepare(ts, batch, last_obs)
+        torch.cuda.synchronize()
+        t2 = time.time()
+        before = (ts.params, ts.opt_state, ts.rng.get_state())
+        ts, metrics = agent.update(ts, pools)
+        metrics = {k: v.item() for k, v in metrics.items()}
+        t3 = time.time()
+        launches = dict(linalg.LAUNCHES)
+        if first is None:
+            rows = agent.cfg.amp_batch_size * 5
+            first = (first_update(agent, pools, before),
+                     pools["data"]["obs_n"][:rows].clone(),
+                     pools["data"]["amp_n"][:rows].clone())
+        del batch, pools
+        epochs.append(dict(rollout_seconds=t1 - t0, prepare_seconds=t2 - t1,
+                           update_seconds=t3 - t2, epoch_seconds=t3 - t0,
+                           env_steps_per_s=T * N / (t3 - t0),
+                           launches=launches, metrics=metrics))
+        want = dict.fromkeys(launches, 0)
+        want.update({"cholesky_factor_blocked_t": T,
+                     "cholesky_resolve_blocked_t": T * n_sub})
+        if launches != want:
+            raise SystemExit(f"{phase}: launch counts {launches}, "
+                             f"expected {want}")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+    finite = (all(math.isfinite(v) for e in epochs
+                  for v in e["metrics"].values())
+              and all(bool(torch.isfinite(v).all())
+                      for v in ts.params.values()))
+    ok = all(e["metrics"]["nonfinite_grad"] == 0
+             and e["metrics"]["disc_reward"] < 0.99 * DISC_REWARD_CAP
+             and e["metrics"]["d_loss"] > D_LOSS_FLOOR for e in epochs)
+    emit(phase, num_envs=N, amp=dataclasses.asdict(agent.cfg),
+         env={k: getattr(agent.env.cfg, k) for k in (
+             "group_obs", "group_size", "velocity_map", "sensor_shape",
+             "sensor_res")},
+         obs_dim=agent.env.obs_dim, setup_seconds=round(setup_s, 3),
+         warmup_epoch_seconds=warm_s, epochs=epochs,
+         env_steps_per_s=CROWD_EPOCHS * T * N
+         / sum(e["epoch_seconds"] for e in epochs),
+         card=card, finite=finite,
+         max_memory_gb=torch.cuda.max_memory_allocated() / 2 ** 30)
+    if not (finite and ok):
+        raise SystemExit(f"{phase} failed: finite {finite}, metrics "
+                         f"{[e['metrics'] for e in epochs]} (disc_reward cap "
+                         f"{DISC_REWARD_CAP}, d_loss floor {D_LOSS_FLOOR})")
+    return ts, first, total
+
+
+def crowd_train(card):
+    """The crowd training epoch (rollout.build_crowd_bench)."""
+    import torch
+    from emloco_tpu_torch.rollout import build_crowd_bench
+    t = time.time()
+    agent, ts = build_crowd_bench(TRAIN_ENVS, "cuda", seed=0)
+    torch.cuda.synchronize()
+    ts, first, launches = timed_epochs("crowd_train", agent, ts, card,
+                                       time.time() - t)
+    return agent, ts, first[0], launches
+
+
+def kink_flips(agent, params, mb):
+    """Card against CPU, float32, on the update's rows, for each ReLU layer
+    and max-pool the loss runs (the actor's and the pointnet's on the obs
+    and the mirrored obs, the critic's on the obs): the decisions the two
+    devices take the other way (a pre-activation's sign; the person a
+    max-pool picks where the two people's features differ), and the
+    decisions within 1e-6 of the largest magnitude of a kink on the CPU
+    (a pre-activation that near 0, a max-pool's top two that near but not
+    equal: equal ones are people zeroed alike)."""
+    import torch
+    import torch.nn.functional as F
+    net = agent.net
+    pd, k = net.people_obs_dim, net.pointnet_topk
+    heads = {"obs_n": ("actor_mlp", "critic_mlp"),
+             "flip_obs_n": ("actor_mlp",)}
+
+    def trace(dev):
+        p = {n: v.to(dev) for n, v in params.items()}
+        rec = {}
+        with torch.no_grad():
+            for rows, used in heads.items():
+                self_obs, task = net._split(mb[rows].to(dev))
+                x = torch.cat([self_obs,
+                               agent._apply(p, "task_embed", task)], -1)
+                for head in used:
+                    h = x
+                    for i in range(len(getattr(net, head))):
+                        z = F.linear(h, p[f"{head}.{i}.weight"],
+                                     p[f"{head}.{i}.bias"])
+                        rec[f"{rows}.{head}.{i}"] = z.cpu()
+                        h = torch.relu(z)
+                people = task[..., -pd:]
+                n = people.shape[0]
+                q = torch.cat([people[:, :pd - 3 * k].reshape(n, k, -1),
+                               people[:, pd - 3 * k:].reshape(n, k, 3)], -1)
+                for i in range(3):
+                    q = F.linear(q, p[f"point_net.{i}.weight"],
+                                 p[f"point_net.{i}.bias"])
+                    q = torch.relu(q) if i < 2 else q
+                rec[f"{rows}.point_net"] = q.cpu()
+        return rec
+
+    card, cpu = trace("cuda"), trace("cpu")
+    out = {}
+    for name, z in cpu.items():
+        eps = 1e-6 * z.abs().max().item()
+        if name.endswith("point_net"):
+            a, b = card[name].argmax(-2), z.argmax(-2)
+            differ = (z.gather(-2, a[:, None]) != z.gather(-2, b[:, None]))
+            gap = z.topk(2, dim=-2).values.diff(dim=-2).abs()
+            near = (gap > 0) & (gap < eps)          # ties: the same person
+            flips = int(((a != b) & differ[:, 0]).sum())
+        else:
+            near = z.abs() < eps
+            flips = int(((card[name] > 0) != (z > 0)).sum())
+        out[name] = dict(flips=flips, within_1e6=int(near.sum()))
+    return out
+
+
+def crowd_reference(agent, first):
+    """The crowd update on the card against the CPU: in float64 with every
+    tolerance of train_reference, then in float32 with its loss terms held
+    and its gradients and updates printed beside the count of ReLU and
+    max-pool decisions that the two devices take the other way. Those
+    kinks, met on a few of the 2,560 rows, are where the float32 gradients
+    part: either side is right, and one row's whole contribution moves the
+    gradient of its unit's leaf; float64 rounding meets none."""
+    import torch
+    params, _, mb, *_ = first
+    train_reference(agent, first, phase="crowd_reference",
+                    dtype=torch.float64)
+    train_reference(agent, first, phase="crowd_reference",
+                    gated=("loss_rel",))
+    emit("crowd_reference", float32_kinks_card_vs_cpu=kink_flips(
+        agent, params, mb))
+
+
+def crowd_query_value_gradient(agent, ts):
+    """query_value_gradient on QVG_ENVS envs of the crowd configuration on
+    the card and on the CPU with the trained parameters and norm; the CPU
+    env observes as the card did (a sensor point at a cell edge may read
+    the other side on the other device; sensor_paths holds observe)."""
+    import torch
+    from emloco_tpu_torch.envs import PedestrianTerrainEnv
+    from emloco_tpu_torch.learning.amp_agent import AMPAgent
+    cpu = torch.device("cpu")
+    small = dataclasses.replace(agent.env.cfg, num_envs=QVG_ENVS)
+    env_g = PedestrianTerrainEnv(small, agent.env.terrain,
+                                 agent.env.motion_lib, device="cuda")
+    env_c = PedestrianTerrainEnv(small, agent.env.terrain.to(cpu),
+                                 agent.env.motion_lib.to(cpu), device=cpu)
+    st = env_g.reset(torch.Generator(device="cuda").manual_seed(6))
+    o_card = env_g.observe(st).cpu()
+    env_c.observe = lambda state: o_card
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    S = small.num_traj_samples
+    traj = (st.physics.root_pos[:, None]
+            + 1.5 * torch.randn((QVG_ENVS, S, 3), generator=gen,
+                                device="cuda"))
+    out = {}
+    for dev, env, state in (("cuda", env_g, st),
+                            ("cpu", env_c, st.to(cpu).replace(
+                                rng=torch.Generator()))):
+        a = AMPAgent(env, agent.cfg)
+        a.net = agent.net
+        t = ts.replace(params={k: v.to(dev) for k, v in ts.params.items()},
+                       obs_norm=ts.obs_norm.to(dev))
+        v, g = a.query_value_gradient(t, state, traj.to(dev))
+        out[dev] = (v.cpu(), g.cpu())
+    v_err = rel_err(out["cuda"][0], out["cpu"][0])[1]
+    g_err = rel_err(out["cuda"][1], out["cpu"][1])[1]
+    finite = all(bool(torch.isfinite(x).all()) for x in out["cuda"])
+    return dict(envs=QVG_ENVS, value_max_rel_err=v_err,
+                grad_max_rel_err=g_err, tolerance_rel=QVG_REL,
+                finite=finite,
+                grad_nonzero=bool(out["cuda"][1].abs().max() > 0))
+
+
+def bf16_heads(agent, params, obs_n, amp_n):
+    """Every head on the card and on the CPU from the same parameters and
+    rows; the largest difference relative to each head's largest |out|."""
+    import torch
+    errs = {}
+    cpu_params = {k: v.cpu() for k, v in params.items()}
+    with torch.no_grad():
+        for head, x in (("actor", obs_n), ("critic", obs_n), ("disc", amp_n),
+                        ("task_value", obs_n)):
+            g = agent._apply(params, head, x)
+            c = agent._apply(cpu_params, head, x.cpu())
+            g = g[0] if head == "actor" else g
+            c = c[0] if head == "actor" else c
+            errs[head] = rel_err(g.cpu(), c)[1]
+    return errs
+
+
+def bf16_train(card):
+    """The hidden_bf16 training epoch at the bench's training
+    configuration, then its heads on the card against the CPU."""
+    import torch
+    from emloco_tpu_torch.rollout import TRAIN_AMP, build_train_bench
+    t = time.time()
+    agent, ts = build_train_bench(
+        TRAIN_ENVS, "cuda", 0, dataclasses.replace(TRAIN_AMP,
+                                                   hidden_bf16=True))
+    torch.cuda.synchronize()
+    ts, (_, obs_n, amp_n), launches = timed_epochs(
+        "bf16_train", agent, ts, card, time.time() - t)
+    errs = bf16_heads(agent, ts.params, obs_n, amp_n)
+    emit("bf16_train", heads_card_vs_cpu=errs, rows=int(obs_n.shape[0]),
+         tolerance_rel=BF16_HEAD_REL)
+    if not max(errs.values()) <= BF16_HEAD_REL:
+        raise SystemExit(f"bf16_train: heads disagree between the card and "
+                         f"the CPU: {errs}")
+    return launches
+
+
+def perturbations(card):
+    """PERTURB_STEPS control steps at TRAIN_ENVS envs with every
+    perturbation and hard-negative sampling, the kicks recorded; then the
+    refresh and the demo fetch."""
+    import torch
+    from emloco_tpu_torch.envs import pedestrian_terrain as pt
+    from emloco_tpu_torch.physics import linalg
+    from emloco_tpu_torch.rollout import build_bench
+    r = build_bench(TRAIN_ENVS, "cuda", **PERTURB)
+    env, cfg = r.env, r.cfg
+    log = {"push": [], "projectile": [], "perturb": []}
+    inner = {n: getattr(pt, n) for n in ("push_draw", "projectile_draw")}
+    perturb = env._perturb
+
+    def rec(name):
+        def f(*args):
+            out = inner[name](*args)
+            log[name.split("_")[0]].append(out)
+            return out
+        return f
+
+    def rec_perturb(physics, progress, gen):
+        out = perturb(physics, progress, gen)
+        log["perturb"].append((physics.u.clone(), out.u.clone(),
+                               physics.body_x.clone(), progress.clone()))
+        return out
+
+    state = env.reset(torch.Generator(device="cuda").manual_seed(8))
+    dones = 0
+    finite = True
+    torch.cuda.synchronize()
+    linalg.reset_launch_counts()
+    t = time.time()
+    try:
+        for name in inner:
+            setattr(pt, name, rec(name))
+        env._perturb = rec_perturb
+        for _ in range(PERTURB_STEPS):
+            state, out, o, mu = r.control_step(state)
+            dones += int(out.done.sum())
+            finite &= bool(torch.isfinite(out.obs).all()
+                           and torch.isfinite(state.physics.u).all())
+    finally:
+        for name, fn in inner.items():
+            setattr(pt, name, fn)
+        del env._perturb
+    torch.cuda.synchronize()
+    dt = time.time() - t
+    launches = dict(linalg.LAUNCHES)
+    # each step's kick, computed here from its draws
+    mass = env.params.mass.sum(-1, keepdim=True)
+    kick_err, untouched_ok, n_push, n_hit = 0.0, True, 0, 0
+    lift = torch.tensor([1.0, 1.0, 0.2], device="cuda")
+    flat = torch.tensor([1.0, 1.0, 0.3], device="cuda")
+    for (u0, u1, bx, prog), raw, (body, d) in zip(
+            log["perturb"], log["push"], log["projectile"]):
+        push = prog % cfg.push_interval == cfg.push_interval - 1
+        hit = prog % cfg.projectile_interval == cfg.projectile_interval - 1
+        want = torch.zeros_like(u0)
+        want[:, 0:3] += push[:, None] * cfg.push_vel * raw * lift
+        dd = d * flat
+        imp = cfg.projectile_impulse * dd / (dd.norm(dim=-1, keepdim=True)
+                                             + 1e-8)
+        lever = bx[torch.arange(bx.shape[0], device="cuda"), body] - bx[:, 0]
+        want[:, 0:3] += hit[:, None] * imp / mass
+        want[:, 3:6] += hit[:, None] * torch.linalg.cross(lever, imp) / (
+            mass * 0.15)
+        touched = push | hit
+        if bool(touched.any()):
+            got = (u1 - u0)[touched]
+            scale = max(u1.abs().max().item(), 1.0)
+            kick_err = max(kick_err, (got - want[touched]).abs().max().item()
+                           / scale)
+        untouched_ok &= bool(torch.equal(u1[~touched], u0[~touched]))
+        n_push += int(push.sum())
+        n_hit += int(hit.sum())
+    sampled = state.motion_sampled.sum().item()
+    state = env.apply_hard_negative_update(state)
+    w = state.motion_weights
+    n_demo = 200_000
+    mids, _ = env.sample_amp_demo(torch.Generator(device="cuda").manual_seed(9),
+                                  n_demo, motion_weights=w)
+    freq = torch.bincount(mids, minlength=w.shape[0]).double() / n_demo
+    sigma = (w.double() * (1 - w.double()) / n_demo).sqrt()
+    demo_ok = bool(((freq - w.double()).abs() <= 5 * sigma + 1e-4).all())
+    w_sum = w.sum().item()
+    finite &= bool(torch.isfinite(w).all())
+    emit("perturbations", num_envs=TRAIN_ENVS, steps=PERTURB_STEPS,
+         env=PERTURB, seconds=dt, env_steps_per_s=TRAIN_ENVS
+         * PERTURB_STEPS / dt, card=card, launches=launches,
+         pushed=n_push, hit=n_hit, kick_max_rel_err=kick_err,
+         untouched_unchanged=untouched_ok, dones=dones,
+         motion_sampled=sampled, weights=w.tolist(), weights_sum=w_sum,
+         demo_freq=freq.tolist(), demo_ok=demo_ok, finite=finite)
+    want = dict.fromkeys(launches, 0)
+    want.update({"cholesky_factor_blocked_t": PERTURB_STEPS,
+                 "cholesky_resolve_blocked_t":
+                     PERTURB_STEPS * cfg.engine.n_substeps})
+    if launches != want:
+        raise SystemExit(f"perturbations: launch counts {launches}, "
+                         f"expected {want}")
+    if not (finite and n_push and n_hit and kick_err <= 2.0 ** -20
+            and untouched_ok and sampled == dones and dones > 0
+            and abs(w_sum - 1.0) <= 1e-6 and demo_ok):
+        raise SystemExit(
+            f"perturbations failed: finite {finite}, pushed {n_push}, hit "
+            f"{n_hit}, kick error {kick_err}, untouched {untouched_ok}, "
+            f"sampled {sampled} vs dones {dones}, weights sum {w_sum}, "
+            f"demo {freq.tolist()} vs {w.tolist()}")
+    return launches
+
+
 def main():
     import numpy as np
     import torch
@@ -1260,9 +1793,10 @@ def main():
     from emloco_tpu_torch.rollout import build_bench
 
     dev = torch.device("cuda")
-    # the actor's float32 GEMMs in full float32, not TF32 (the physics step
-    # sets this for itself)
+    # the networks' float32 GEMMs and convs in full float32, not TF32 (the
+    # physics step sets this for itself)
     torch.backends.cuda.matmul.fp32_precision = "ieee"
+    torch.backends.cudnn.conv.fp32_precision = "ieee"
 
     # 1. build --------------------------------------------------------------
     t = time.time()
@@ -1466,7 +2000,9 @@ def main():
     # 10. the engine's other solver and assembly paths ----------------------
     by_path = {"main": launches}
     for name, kw, per_step in PATHS:
-        by_path[name] = drive_path(rollout, name, kw, per_step, card)
+        by_path[name], _ = drive_path(
+            rollout.with_engine(EngineConfig(**kw)), name, per_step, card,
+            engine=kw)
 
     # 11. the training epoch ------------------------------------------------
     agent, first_update, by_path["train"] = train(card)
@@ -1511,6 +2047,30 @@ def main():
     emit("probe_times", card=card, **p_times, bytes=p_bytes, flops=p_flops,
          flop_peak=BF16_TC_FLOP_S)
     by_path["probe"], _ = run_probe()
+
+    # 19. the sensor variants of the control step ---------------------------
+    by_path.update({f"sensor_{k}": v
+                    for k, v in sensor_paths(card).items()})
+
+    # 20. the crowd training epoch -------------------------------------------
+    agent, ts, first, by_path["crowd_train"] = crowd_train(card)
+
+    # 21. one crowd update and query_value_gradient, card against CPU --------
+    crowd_reference(agent, first)
+    qvg = crowd_query_value_gradient(agent, ts)
+    emit("crowd_reference", query_value_gradient=qvg)
+    if not (qvg["finite"] and qvg["grad_nonzero"]
+            and qvg["value_max_rel_err"] <= QVG_REL
+            and qvg["grad_max_rel_err"] <= QVG_REL):
+        raise SystemExit(f"crowd_reference: query_value_gradient disagrees "
+                         f"with the CPU's: {qvg}")
+    del agent, ts, first
+
+    # 22. the hidden_bf16 training epoch -------------------------------------
+    by_path["bf16_train"] = bf16_train(card)
+
+    # 23. the perturbations and hard-negative sampling -----------------------
+    by_path["perturbations"] = perturbations(card)
 
     # summary ---------------------------------------------------------------
     kernels = []

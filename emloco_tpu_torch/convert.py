@@ -67,7 +67,9 @@ def physics_state(st, device=None) -> PhysicsState:
 
 def env_state(st, generator: torch.Generator, device=None) -> EnvState:
     """Every EnvState field but the JAX rng key, which has no torch
-    counterpart: the converted state draws from `generator` instead."""
+    counterpart: the converted state draws from `generator` instead. The
+    hard-negative fields come across where the state has them (None
+    otherwise)."""
     return _fields(EnvState, st, device,
                    physics=physics_state(st.physics, device), rng=generator)
 
@@ -76,17 +78,19 @@ def running_norm(rn, device=None) -> RunningNorm:
     return _fields(RunningNorm, rn, device)
 
 
-_ACTOR = (("task_mlp_", "actor_mlp_"), ("mu",))
+_ACTOR = (("task_mlp_", "actor_mlp_", "point_net_", "cnn_"),
+          ("mu", "cnn_proj"))
 _ALL_HEADS = (("task_mlp_", "actor_mlp_", "critic_mlp_", "disc_mlp_",
-               "task_value_mlp_"),
-              ("mu", "value", "disc_logits", "value_logits"))
+               "task_value_mlp_", "point_net_", "cnn_"),
+              ("mu", "value", "disc_logits", "value_logits", "cnn_proj"))
 
 
 def _state_dict(params, mlps, dense) -> dict:
-    """flax params → a state_dict of the layers named by the MLP prefixes
-    `mlps` (`actor_mlp_1` → `actor_mlp.1`) and the single layers `dense`,
-    with log_sigma where the tree has one. Flax Dense kernels are (in, out);
-    nn.Linear weights are (out, in)."""
+    """flax params → a state_dict of the layers named by the prefixes `mlps`
+    (`actor_mlp_1` → `actor_mlp.1`, `cnn_0` → `cnn.0`) and the single layers
+    `dense`, with log_sigma where the tree has one. Flax Dense kernels are
+    (in, out), nn.Linear weights (out, in); flax Conv kernels are HWIO,
+    nn.Conv2d weights OIHW."""
     p = params.get("params", params)
     sd = ({"log_sigma": torch.as_tensor(np.array(p["log_sigma"]))}
           if "log_sigma" in p else {})
@@ -98,18 +102,22 @@ def _state_dict(params, mlps, dense) -> dict:
             key = f"{head}.{idx}"
         else:
             continue
-        sd[f"{key}.weight"] = torch.as_tensor(np.array(layer["kernel"]).T)
+        kernel = np.array(layer["kernel"])
+        kernel = kernel.T if kernel.ndim == 2 else kernel.transpose(3, 2, 0, 1)
+        sd[f"{key}.weight"] = torch.as_tensor(np.ascontiguousarray(kernel))
         sd[f"{key}.bias"] = torch.as_tensor(np.array(layer["bias"]))
     return sd
 
 
 def actor_state_dict(params) -> dict:
-    """flax AMPSeptValueNet params → the actor's state_dict."""
+    """flax AMPSeptValueNet or AMPSeptCNNNet params → the actor's
+    state_dict (its task embedding's layers included)."""
     return _state_dict(params, *_ACTOR)
 
 
 def agent_state_dict(params) -> dict:
-    """flax AMPSeptValueNet params → the state_dict of all four heads."""
+    """flax AMPSeptValueNet or AMPSeptCNNNet params → the state_dict of all
+    four heads, the pointnet and the conv encoder included."""
     return _state_dict(params, *_ALL_HEADS)
 
 

@@ -1,10 +1,13 @@
 """Observation kernels — batched tensor functions.
 
-Port of the parts of emloco_tpu/envs/observations.py the default env and
-its training run: the heading-relative self observation, the AMP features,
-the trajectory (location) observation, the height-map sensor, the
-left/right mirror of the body state, the self observation and the actions
-(the motion-symmetry loss), and the AMP dropout mask.
+Port of emloco_tpu/envs/observations.py: the heading-relative self
+observation, the AMP features, the trajectory (location) observation, the
+height-map sensor on its three footprints (square, forward fan, forward
+square) and its 3-channel velocity-map variant, the crowd observation of
+the nearest people in an env's group and the velocity map with those people
+stamped in, the left/right mirror of the body state, the self observation,
+the sensor grid and the actions (the motion-symmetry loss), and the AMP
+dropout mask.
 """
 from __future__ import annotations
 
@@ -143,6 +146,50 @@ def make_sensor_grid(extent: float = 2.0, res: int = 32) -> np.ndarray:
     return np.stack([gx.ravel(), gy.ravel()], -1).astype(np.float32)
 
 
+def make_sensor_grid_fov(max_range: float = 2.0,
+                         max_angle_deg: float = 110.0) -> np.ndarray:
+    """(450, 2) forward fan: 18 exponentially spaced ranges × 25
+    exponentially spaced bearings mirrored around +x."""
+    rs = np.exp(np.arange(0.2, 2, 0.1)) - 0.9
+    rs = rs / rs.max() * max_range
+    phi = np.exp(np.linspace(0.1, 1.5, 12)) - 1
+    phi = phi / phi.max() * max_angle_deg
+    phi = np.concatenate([-phi[::-1], [0], phi]) * np.pi / 180
+    r, p = np.meshgrid(rs, phi, indexing="ij")
+    return np.stack([(r * np.cos(p)).ravel(),
+                     (r * np.sin(p)).ravel()], -1).astype(np.float32)
+
+
+def make_sensor_grid_square_fov(res: int = 20) -> np.ndarray:
+    """(res², 2) forward square: x ∈ [−0.02, 1.98], y ∈ [−1, 1]."""
+    x = np.linspace(-0.02, 1.98, res)
+    y = np.linspace(-1, 1, res)
+    gx, gy = np.meshgrid(x, y, indexing="ij")
+    return np.stack([gx.ravel(), gy.ravel()], -1).astype(np.float32)
+
+
+# sensor_shape → grid from (extent, res); the fan and the forward square
+# ignore the resolution, the forward square the extent too
+SENSOR_GRIDS = {
+    "square": lambda extent, res: make_sensor_grid(extent, res),
+    "fov": lambda extent, res: make_sensor_grid_fov(extent),
+    "square_fov": lambda extent, res: make_sensor_grid_square_fov(),
+}
+
+
+def grid_flip_perm(grid: np.ndarray) -> np.ndarray:
+    """Index permutation realizing the y-mirror of a sensor grid: point i
+    maps to the grid point nearest (x_i, −y_i). Every sensor shape is
+    y-symmetric, so the permutation is an involution; a grid that is not
+    raises ValueError."""
+    flipped = grid * np.array([1.0, -1.0], np.float32)
+    d = np.linalg.norm(flipped[:, None] - grid[None], axis=-1)
+    perm = d.argmin(-1)
+    if not (perm[perm] == np.arange(len(grid))).all():
+        raise ValueError("sensor grid is not y-symmetric")
+    return perm
+
+
 def _rotate_grid_xy(heading, grid, origin_xy):
     """Rotate a static (P,2) grid by per-env heading and translate."""
     c = torch.cos(heading)[:, None]
@@ -166,6 +213,117 @@ def heightmap_obs(terrain: Heightfield, sensor_pos, sensor_rot, center_xy,
     cpx, cpy = _rotate_grid_xy(heading, cg, center_xy)
     ch = height_at_min2_xy(terrain, cpx, cpy).mean(-1, keepdim=True)
     return torch.clamp(ch - h, -3.0, 3.0) * meas_scale
+
+
+GROUP_JOINTS = np.array([0, 1, 5, 9, 3, 7, 16, 21, 18, 23])
+
+
+def _nearest_in_group(xy, group_size: int, k: int):
+    """Each env's k nearest others in its group of `group_size` consecutive
+    envs, nearest first: (distances (N, k), flat env indices (N, k)). The
+    distance is the norm of the differences with 1e9 added on the diagonal,
+    as the JAX package computes it, so that near-ties order alike."""
+    N, D = xy.shape
+    G = N // group_size
+    gp = xy.reshape(G, group_size, D)
+    dist = torch.linalg.norm(gp[:, :, None] - gp[:, None], dim=-1)
+    dist = dist + torch.eye(group_size, device=xy.device)[None] * 1e9
+    nd, idx = torch.topk(dist, k, dim=-1, largest=False, sorted=True)
+    base = torch.arange(G, device=xy.device)[:, None, None] * group_size
+    return nd.reshape(N, k), (idx + base).reshape(N, k)
+
+
+def group_obs(body_pos, body_vel, root_rot, group_size: int, top_k: int = 5,
+              max_dist: float = 10.0) -> torch.Tensor:
+    """Crowd observation: heading-local positions of the 10 GROUP_JOINTS of
+    the top-k nearest people in the env's group, then their root
+    velocities; neighbours beyond max_dist are zeroed, and a group too
+    small for k neighbours pads with zeros. Layout: the whole k-neighbour
+    position block (k·10·3), then the k root velocities (k·3)."""
+    N = body_pos.shape[0]
+    J = len(GROUP_JOINTS)
+    root_pos = body_pos[:, 0]
+    heading_inv = quat.heading_quat_inv(root_rot)
+    k = min(top_k, group_size - 1)
+    nd, flat = _nearest_in_group(root_pos, group_size, k)
+    flat = flat.reshape(-1)
+    sel = torch.as_tensor(GROUP_JOINTS, device=body_pos.device)
+    sel_pos = body_pos[flat][:, sel]                       # (N·k, 10, 3)
+    sel_vel = body_vel[flat][:, 0:1]                       # (N·k, 1, 3)
+    h_rep = heading_inv.repeat_interleave(k, 0)[:, None]
+    local_pos = quat.rotate(h_rep, sel_pos
+                            - root_pos.repeat_interleave(k, 0)[:, None])
+    local_vel = quat.rotate(h_rep, sel_vel)
+    near = (nd.reshape(-1) <= max_dist)[:, None, None]
+    pos_blk = (local_pos * near).reshape(N, k * J * 3)
+    vel_blk = (local_vel * near).reshape(N, k * 3)
+    pad = top_k - k
+    return torch.cat([pos_blk, body_pos.new_zeros((N, pad * J * 3)),
+                      vel_blk, body_pos.new_zeros((N, pad * 3))], -1)
+
+
+def velocity_map_obs(terrain, sensor_pos, sensor_rot, center_xy, grid_local,
+                     root_vel, meas_scale: float = 5.0) -> torch.Tensor:
+    """3-channel sensor [relative height, velocity field in the agent's
+    frame] with no other people stamped: the field is zero, so every point
+    reads −ego velocity in the heading frame. → (N, P·3), channel
+    innermost."""
+    h = heightmap_obs(terrain, sensor_pos, sensor_rot, center_xy, grid_local,
+                      meas_scale)
+    v_local = quat.rotate(quat.heading_quat_inv(sensor_rot), root_vel)
+    P = h.shape[-1]
+    vx = (-v_local[:, 0:1]).expand(-1, P)
+    vy = (-v_local[:, 1:2]).expand(-1, P)
+    return torch.stack([h, vx, vy], -1).reshape(h.shape[0], -1)
+
+
+def group_velocity_map_obs(terrain, sensor_pos, sensor_rot, center_xy,
+                           grid_local, root_pos, root_vel, group_size: int,
+                           meas_scale: float = 5.0, top_k: int = 5,
+                           person_height: float = 1.7,
+                           footprint=(0.25, 0.5),
+                           max_dist: float = 10.0) -> torch.Tensor:
+    """Velocity-map sensor with the other people of the env's group stamped
+    in: each sensor point tests the world-axis footprint boxes around its
+    top-k nearest neighbours' roots (an (N, P, k) test); a covered point
+    reads the terrain +person_height and the nearest covering neighbour's
+    world velocity. Points then read [ch − h, v − v_ego] in the heading
+    frame; the observer is not stamped. → (N, P·3)."""
+    N = root_pos.shape[0]
+    dev = root_pos.device
+    heading = quat.calc_heading(sensor_rot)
+    px, py = _rotate_grid_xy(heading, torch.as_tensor(grid_local, device=dev),
+                             sensor_pos[:, :2])
+    h = height_at_min2_xy(terrain, px, py)                 # (N, P)
+
+    k = min(top_k, group_size - 1)
+    nd, flat = _nearest_in_group(root_pos[:, :2], group_size, k)
+    nbr_xy = root_pos[flat.reshape(-1), :2].reshape(N, k, 2)
+    nbr_v = root_vel[flat.reshape(-1)].reshape(N, k, 3)
+    near = nd <= max_dist                                  # (N, k)
+
+    dx = px[:, :, None] - nbr_xy[:, None, :, 0]
+    dy = py[:, :, None] - nbr_xy[:, None, :, 1]
+    inside = ((torch.abs(dx) <= footprint[0])
+              & (torch.abs(dy) <= footprint[1]) & near[:, None])
+    covered = inside.any(-1)
+    d2 = torch.where(inside, dx ** 2 + dy ** 2, torch.inf)
+    j = d2.argmin(-1)                                      # (N, P)
+    v_cell = nbr_v[torch.arange(N, device=dev)[:, None], j, :2]
+    v_cell = torch.where(covered[..., None], v_cell, 0.0)
+    h = h + person_height * covered
+
+    cg = torch.as_tensor(make_sensor_grid(0.15, 3), device=dev)
+    cpx, cpy = _rotate_grid_xy(heading, cg, center_xy)
+    ch = height_at_min2_xy(terrain, cpx, cpy).mean(-1, keepdim=True)
+    h_obs = torch.clamp(ch - h, -3.0, 3.0) * meas_scale
+
+    v_rel = v_cell - root_vel[:, None, :2]
+    c = torch.cos(-heading)[:, None]
+    s = torch.sin(-heading)[:, None]
+    vx = c * v_rel[..., 0] - s * v_rel[..., 1]
+    vy = s * v_rel[..., 0] + c * v_rel[..., 1]
+    return torch.stack([h_obs, vx, vy], -1).reshape(N, -1)
 
 
 def flip_body_state(body_pos, body_rot, body_vel, body_ang_vel):

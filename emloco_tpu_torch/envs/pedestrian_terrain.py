@@ -8,16 +8,25 @@ heading, with the auto-reset done inside `step` by per-env selects.
     reset(generator)       → EnvState
     step(state, actions)   → (EnvState, StepOutput)
 
+The sensor is a square grid, a forward fan ("fov") or a forward square
+("square_fov"), of heights or (velocity_map) of [height, vx, vy]; with
+group_obs the envs form groups of consecutive envs that spawn clustered,
+each env observes its 5 nearest group members, and the velocity map stamps
+them in. Fault injection adds action noise before the physics step, root
+pushes and projectile hits after it, and observation noise after the
+auto-reset. Hard-negative motion sampling keeps per-motion episode counts
+in the state and refreshes the motions' sampling weights once an epoch
+(`apply_hard_negative_update`).
+
 Training adds the left/right mirror of an observation (`observe_flipped`
-from the state, `observe_flipped_from` in feature space), the AMP demo fetch
-from the motion library and the per-epoch hard-negative hook.
+from the state, `observe_flipped_from` in feature space), the observation
+under hypothetical trajectory samples (`observe_with_traj`) and the AMP
+demo fetch from the motion library.
 
 Random draws come from the torch.Generator the caller passes to `reset`; it
-travels in EnvState.rng and advances in place. The options the default
-configuration leaves off and this port does not implement (action and
-observation noise, pushes, projectiles, hard-negative sampling, crowd
-observations, the velocity map, non-square sensors) are refused at
-construction.
+travels in EnvState.rng and advances in place. Each perturbation's draw is a
+function of its own (`action_noise_draw`, `push_draw`, `projectile_draw`,
+`obs_noise_draw`), apart from the pure function that applies it.
 """
 from __future__ import annotations
 
@@ -66,13 +75,8 @@ class DRConfig:
 
 
 NUM_DR_PROPS = 5  # [mass, kp, kd, friction, rest_offset]
-
-# options of the JAX EnvConfig whose non-default branches are not ported
-_UNPORTED = {
-    "obs_noise_std": 0.0, "action_noise_std": 0.0, "push_interval": 0,
-    "projectile_interval": 0, "hard_negative": False, "group_obs": False,
-    "velocity_map": False, "sensor_shape": "square",
-}
+# the crowd observation's width: 5 neighbours × (10 joints + root vel) × 3
+GROUP_OBS_DIM = 5 * 11 * 3
 
 
 @dataclasses.dataclass(frozen=True)
@@ -100,25 +104,36 @@ class EnvConfig:
     freeze_hand: bool = True
     ref_state_init_prob: float = 0.9
     hard_negative: bool = False
+    hard_negative_temp: float = 0.2
     has_shape_obs: bool = True
     has_limb_weight_obs: bool = False
     group_obs: bool = False
+    group_size: int = 128
+    group_spawn_spread: float = 8.0   # half-width of the spawn jitter, m
     velocity_map: bool = False
     obs_noise_std: float = 0.0
     action_noise_std: float = 0.0
-    push_interval: int = 0
-    projectile_interval: int = 0
+    push_interval: int = 0            # 0 = off
+    push_vel: float = 1.0
+    projectile_interval: int = 0      # 0 = off
+    projectile_impulse: float = 3.0   # N·s
     dr: DRConfig = DRConfig()
     traj: traj_gen.TrajConfig = traj_gen.TrajConfig(
         episode_dur=2 * 168 / 30.0)
     engine: EngineConfig = EngineConfig()
 
     def __post_init__(self):
-        for name, value in _UNPORTED.items():
-            if getattr(self, name) != value:
-                raise NotImplementedError(
-                    f"EnvConfig.{name}={getattr(self, name)!r} is not ported "
-                    "to emloco_tpu_torch yet")
+        if self.sensor_shape not in obs.SENSOR_GRIDS:
+            raise ValueError(f"unknown sensor_shape {self.sensor_shape!r}")
+        if self.group_obs and self.num_envs % self.obs_group_size:
+            # the groups are consecutive envs of equal size
+            raise ValueError(
+                f"group_obs needs num_envs a multiple of the group size: "
+                f"num_envs={self.num_envs}, group_size={self.group_size}")
+
+    @property
+    def obs_group_size(self):
+        return min(self.group_size, self.num_envs)
 
     @property
     def dt(self):
@@ -131,13 +146,16 @@ class EnvConfig:
 
     @property
     def num_sensor_points(self):
-        return self.sensor_res ** 2
+        return len(obs.SENSOR_GRIDS[self.sensor_shape](self.sensor_extent,
+                                                       self.sensor_res))
 
     @property
     def task_obs_dim(self):
         d = self.num_traj_samples * 2
         if self.terrain_obs:
-            d += self.num_sensor_points
+            d += self.num_sensor_points * (3 if self.velocity_map else 1)
+        if self.group_obs:
+            d += GROUP_OBS_DIM
         return d
 
     @property
@@ -170,6 +188,12 @@ class EnvState(TensorStruct):
     dr_scales: torch.Tensor        # (N, NUM_DR_PROPS)
     dr_clock: torch.Tensor         # () int32
     dr_last: torch.Tensor          # (N,) int32
+    # hard-negative motion sampling, None unless cfg.hard_negative
+    motion_weights: Optional[torch.Tensor] = None   # (M,) live probabilities
+    cur_mid: Optional[torch.Tensor] = None          # (N,) int32 episode motion
+    motion_sampled: Optional[torch.Tensor] = None   # (M,) episodes finished
+    motion_term: Optional[torch.Tensor] = None      # (M,) early terminations
+    motion_succ: Optional[torch.Tensor] = None      # (M,) success-rate estimate
 
 
 @dataclasses.dataclass(frozen=True)
@@ -185,6 +209,55 @@ class StepOutput(TensorStruct):
 def _select(done, a, b):
     """Per-env select along the leading axis."""
     return torch.where(done.reshape((-1,) + (1,) * (a.dim() - 1)), a, b)
+
+
+def action_noise_draw(gen: torch.Generator, shape, device) -> torch.Tensor:
+    """The standard normal behind the action noise."""
+    return torch.randn(shape, generator=gen, device=device)
+
+
+def push_draw(gen: torch.Generator, n: int, device) -> torch.Tensor:
+    """The standard normal (n, 3) behind the root pushes."""
+    return torch.randn((n, 3), generator=gen, device=device)
+
+
+def projectile_draw(gen: torch.Generator, n: int, device):
+    """The draws behind the projectile hits: the body hit (n,) and the
+    standard normal (n, 3) behind the impulse direction."""
+    body = torch.randint(0, bm.NUM_BODIES, (n,), generator=gen, device=device)
+    return body, torch.randn((n, 3), generator=gen, device=device)
+
+
+def obs_noise_draw(gen: torch.Generator, shape, device) -> torch.Tensor:
+    """The standard normal behind the observation noise."""
+    return torch.randn(shape, generator=gen, device=device)
+
+
+def push_kick(u, hit, raw, push_vel: float):
+    """u with the root's linear velocity kicked by push_vel·raw (vertical
+    component at a fifth) where `hit`."""
+    dv = push_vel * raw * torch.tensor([1.0, 1.0, 0.2], device=raw.device)
+    u = u.clone()
+    u[:, 0:3] += torch.where(hit[:, None], dv, 0.0)
+    return u
+
+
+def projectile_kick(u, hit, body, raw_dir, impulse: float, body_x, mass_tot):
+    """u with a projectile's impulse applied where `hit`: a mostly
+    horizontal direction (vertical draw at 0.3, normalized) times `impulse`
+    gives the root a linear kick impulse/mass and an angular kick (r ×
+    impulse)/(0.15·mass), r the lever arm from the root to the body hit."""
+    d = raw_dir * torch.tensor([1.0, 1.0, 0.3], device=raw_dir.device)
+    d = d / (torch.linalg.norm(d, dim=-1, keepdim=True) + 1e-8)
+    imp = impulse * d
+    xb = body_x[torch.arange(body_x.shape[0], device=body_x.device), body]
+    r = xb - body_x[:, 0]
+    dv = imp / mass_tot
+    dw = quat.cross(r, imp) / (mass_tot * 0.15)
+    u = u.clone()
+    u[:, 0:3] += torch.where(hit[:, None], dv, 0.0)
+    u[:, 3:6] += torch.where(hit[:, None], dw, 0.0)
+    return u
 
 
 class PedestrianTerrainEnv:
@@ -206,9 +279,12 @@ class PedestrianTerrainEnv:
         self.model = build_model(self.params)
         self.real_traj_bank = (None if real_traj_bank is None
                                else real_traj_bank.to(dev))
-        self.sensor_grid = torch.as_tensor(
-            obs.make_sensor_grid(cfg.sensor_extent, cfg.sensor_res),
-            device=dev)
+        grid = obs.SENSOR_GRIDS[cfg.sensor_shape](cfg.sensor_extent,
+                                                  cfg.sensor_res)
+        self.sensor_grid = torch.as_tensor(grid, device=dev)
+        # the y-mirror of the sensor grid, an index permutation
+        self.sensor_flip_perm = torch.as_tensor(obs.grid_flip_perm(grid),
+                                                device=dev)
         # feature-space self-obs mirror (signed permutation)
         fidx, fsign = obs.build_self_obs_flip(cfg.self_obs_dim)
         self._flip_self_idx = torch.as_tensor(fidx, device=dev)
@@ -249,6 +325,7 @@ class PedestrianTerrainEnv:
         self._contact_ids = torch.as_tensor(obs.CONTACT_BODY_IDS, device=dev)
         self._key_ids = torch.as_tensor(obs.KEY_BODY_IDS, device=dev)
         self._head = self.tree.index("Head")
+        self._mass_tot = self.params.mass.sum(-1, keepdim=True)
 
     @property
     def task_obs_dim(self):
@@ -262,18 +339,45 @@ class PedestrianTerrainEnv:
     # resets
     # ------------------------------------------------------------------
 
-    def _reset_states(self, gen: torch.Generator, n: int):
-        """Fresh per-env states: motion-library pose, random heading,
-        terrain spawn, new trajectory."""
+    def _sample_spawn(self, gen: torch.Generator, n: int):
+        """Spawn points drawn from the terrain's table; with group_obs one
+        center a group of consecutive envs plus a uniform jitter, kept two
+        cells inside the map."""
         cfg = self.cfg
         dev = self.device
-        mids = ml.sample_motions(self.motion_lib, gen, n)
+        table = self.terrain.spawnable_xy
+        if not cfg.group_obs:
+            return table[torch.randint(0, table.shape[0], (n,),
+                                       generator=gen, device=dev)]
+        G = min(cfg.group_size, n)
+        ng = -(-n // G)
+        centers = table[torch.randint(0, table.shape[0], (ng,),
+                                      generator=gen, device=dev)]
+        H, W = self.terrain.shape
+        cell = self.terrain.cell
+        spread = min(cfg.group_spawn_spread, 0.25 * (min(H, W) - 1) * cell)
+        jit = (torch.rand((ng, G, 2), generator=gen, device=dev)
+               * (2 * spread) - spread)
+        xy = (centers[:, None] + jit).reshape(ng * G, 2)[:n]
+        origin = torch.tensor(self.terrain.origin, device=dev)
+        lo = origin + 2 * cell
+        hi = origin + torch.tensor([(H - 3) * cell, (W - 3) * cell],
+                                   device=dev)
+        return torch.clamp(xy, lo, hi)
+
+    def _reset_states(self, gen: torch.Generator, n: int,
+                      motion_weights=None):
+        """Fresh per-env states: motion-library pose (motions drawn under
+        `motion_weights`, else the library's), random heading, terrain
+        spawn, new trajectory. Returns the motion ids too."""
+        cfg = self.cfg
+        dev = self.device
+        mids = ml.sample_motions(self.motion_lib, gen, n,
+                                 weights=motion_weights)
         t = ml.sample_time(self.motion_lib, gen, mids)
         ms = ml.get_motion_state(self.motion_lib, mids, t)
 
-        table = self.terrain.spawnable_xy
-        spawn_xy = table[torch.randint(0, table.shape[0], (n,), generator=gen,
-                                       device=dev)]
+        spawn_xy = self._sample_spawn(gen, n)
         ground_h = height_at(self.terrain, spawn_xy)
 
         root_rot = ms["root_rot"]
@@ -317,7 +421,7 @@ class PedestrianTerrainEnv:
         verts, inverted = traj_gen.sample_traj(
             gen, cfg.traj, root_pos, root_vel=root_vel,
             real_bank=self.real_traj_bank)
-        return physics, verts, inverted
+        return physics, verts, inverted, mids.to(torch.int32)
 
     def _capture_locoval_inputs(self, physics: PhysicsState, verts):
         """Waypoints and initial pose/velocity for the LocoVal function,
@@ -335,14 +439,23 @@ class PedestrianTerrainEnv:
         cfg = self.cfg
         n = cfg.num_envs
         dev = self.device
-        physics, verts, inverted = self._reset_states(generator, n)
+        physics, verts, inverted, mids = self._reset_states(generator, n)
         wp, pose, vel = self._capture_locoval_inputs(physics, verts)
         amp = self._amp_obs_single(physics)
         hist = amp[:, None].repeat(1, cfg.num_amp_obs_steps, 1)
         clock0 = torch.zeros((), dtype=torch.int32, device=dev)
         scales = (self._sample_dr_scales(generator, n, clock0)
                   if cfg.dr.enabled else self._neutral_dr_scales(n))
+        hn = {}
+        if cfg.hard_negative:
+            M = self.motion_lib.num_motions
+            hn = dict(motion_weights=self.motion_lib.weights.clone(),
+                      cur_mid=mids,
+                      motion_sampled=torch.zeros((M,), device=dev),
+                      motion_term=torch.zeros((M,), device=dev),
+                      motion_succ=torch.ones((M,), device=dev))
         return EnvState(
+            **hn,
             physics=physics, traj_verts=verts, inverted=inverted,
             progress=torch.zeros((n,), dtype=torch.int32, device=dev),
             reset_buf=torch.zeros((n,), dtype=torch.bool, device=dev),
@@ -412,24 +525,51 @@ class PedestrianTerrainEnv:
                                     limb_weights=self._obs_limbw)
 
     def _task_obs(self, state: EnvState):
+        """[trajectory samples | sensor | crowd]: the sensor a height map or
+        a velocity map, with the group's people stamped in under
+        group_obs."""
         cfg = self.cfg
-        pos, rot, _, _ = body_frame_state(self.model, state.physics)
+        physics = state.physics
+        pos, rot, _, _ = body_frame_state(self.model, physics)
         root_pos, root_rot = pos[:, 0], rot[:, 0]
         times = state.progress.float() * cfg.dt
         samples = traj_gen.fetch_samples(
             state.traj_verts, times, cfg.traj.episode_dur,
             cfg.num_traj_samples, cfg.traj_sample_timestep)
-        loc = obs.location_obs(root_pos, root_rot, samples)
-        if not cfg.terrain_obs:
-            return loc
-        hm = obs.heightmap_obs(self.terrain, pos[:, self._head], root_rot,
-                               root_pos[:, :2], self.sensor_grid,
-                               cfg.height_meas_scale)
-        return torch.cat([loc, hm], -1)
+        parts = [obs.location_obs(root_pos, root_rot, samples)]
+        gsz = cfg.obs_group_size
+        if cfg.terrain_obs:
+            head = pos[:, self._head]
+            sensor = (self.terrain, head, root_rot, root_pos[:, :2],
+                      self.sensor_grid)
+            vel = physics.body_v[:, 0]
+            if cfg.velocity_map and cfg.group_obs:
+                parts.append(obs.group_velocity_map_obs(
+                    *sensor, root_pos, vel, gsz, cfg.height_meas_scale))
+            elif cfg.velocity_map:
+                parts.append(obs.velocity_map_obs(*sensor, vel,
+                                                  cfg.height_meas_scale))
+            else:
+                parts.append(obs.heightmap_obs(*sensor,
+                                               cfg.height_meas_scale))
+        if cfg.group_obs:
+            parts.append(obs.group_obs(pos, physics.body_v, root_rot, gsz))
+        return torch.cat(parts, -1)
 
     def observe(self, state: EnvState):
         return torch.cat([self._self_obs(state.physics),
                           self._task_obs(state)], -1)
+
+    def observe_with_traj(self, state: EnvState, traj_samples):
+        """The observation with its trajectory slice rebuilt from the
+        hypothetical samples `traj_samples` (N, S, 3): differentiable with
+        respect to them, so a critic's gradient reaches the trajectory."""
+        o = self.observe(state)
+        pos, rot, _, _ = body_frame_state(self.model, state.physics)
+        loc = obs.location_obs(pos[:, 0], rot[:, 0], traj_samples)
+        base = self.cfg.self_obs_dim
+        S = self.cfg.num_traj_samples * 2
+        return torch.cat([o[:, :base], loc, o[:, base + S:]], -1)
 
     def observe_flipped(self, state: EnvState):
         """Left/right mirrored observation computed from the state: the
@@ -454,17 +594,33 @@ class PedestrianTerrainEnv:
 
     def _flip_task_parts(self, task):
         """The mirrored task obs, part by part: trajectory samples negate y;
-        the square height map reverses its minor (y) axis."""
+        the sensor mirrors its points (the square grid reverses its minor
+        (y) axis, the other shapes take the grid's flip permutation) and
+        the velocity map negates its lateral channel; every (x, y, z)
+        triplet of the crowd observation negates y."""
         cfg = self.cfg
         S = cfg.num_traj_samples
-        loc = task[:, :2 * S].reshape(-1, S, 2) \
+        n = task.shape[0]
+        loc = task[:, :2 * S].reshape(n, S, 2) \
             * torch.tensor([1.0, -1.0], device=task.device)
-        parts = [loc.reshape(-1, 2 * S)]
+        parts = [loc.reshape(n, 2 * S)]
         off = 2 * S
         if cfg.terrain_obs:
             P, res = cfg.num_sensor_points, cfg.sensor_res
-            hm = task[:, off:off + P].reshape(-1, res, res)
-            parts.append(hm.flip(-1).reshape(-1, P))
+            C = 3 if cfg.velocity_map else 1
+            hm = task[:, off:off + P * C].reshape(n, P, C)
+            if cfg.sensor_shape == "square":
+                hm = hm.reshape(n, res, res, C).flip(2).reshape(n, P, C)
+            else:
+                hm = hm[:, self.sensor_flip_perm]
+            if cfg.velocity_map:
+                hm = hm * torch.tensor([1.0, 1.0, -1.0], device=task.device)
+            parts.append(hm.reshape(n, P * C))
+            off += P * C
+        if cfg.group_obs:
+            grp = task[:, off:].reshape(n, -1, 3) \
+                * torch.tensor([1.0, -1.0, 1.0], device=task.device)
+            parts.append(grp.reshape(n, -1))
         return parts
 
     # ------------------------------------------------------------------
@@ -475,11 +631,16 @@ class PedestrianTerrainEnv:
         """actions (N, 69) in [-1, 1] exp-map scale → PD targets → one
         control step, reward, terminations, AMP history, auto-reset."""
         cfg = self.cfg
+        gen = state.rng
+        if cfg.action_noise_std > 0:
+            actions = actions + cfg.action_noise_std * action_noise_draw(
+                gen, actions.shape, actions.device)
         a = actions.reshape(-1, bm.NUM_JOINTS, 3)
         pd_target = a * self.pd_action_scale[None] * self.action_mask[None]
         physics = physics_step(self._dr_model(state), self.terrain,
                                state.physics, pd_target, cfg.engine,
                                self.tree)
+        physics = self._perturb(physics, state.progress, gen)
         progress = state.progress + 1
 
         reward, reward_raw = self._reward(state, physics, progress, pd_target)
@@ -519,12 +680,16 @@ class PedestrianTerrainEnv:
                                   amp_obs_hist=hist,
                                   dr_clock=state.dr_clock + 1)
         new_state = self._auto_reset(new_state, done)
+        obs_out = self.observe(new_state)
+        if cfg.obs_noise_std > 0:
+            obs_out = obs_out + cfg.obs_noise_std * obs_noise_draw(
+                gen, obs_out.shape, obs_out.device)
 
         def clean(x):
             return torch.nan_to_num(x, nan=0.0, posinf=0.0, neginf=0.0)
 
         out = StepOutput(
-            obs=clean(self.observe(new_state)),
+            obs=clean(obs_out),
             reward=clean(reward),
             done=done,
             terminated=terminated,
@@ -533,6 +698,26 @@ class PedestrianTerrainEnv:
             reward_raw=clean(reward_raw),
         )
         return new_state, out
+
+    def _perturb(self, physics, progress, gen: torch.Generator):
+        """After the physics step: root pushes on the envs whose `progress`
+        (before the step) ends a push interval, then projectile hits on
+        those ending a projectile interval."""
+        cfg = self.cfg
+        n = cfg.num_envs
+        if cfg.push_interval > 0:
+            hit = progress % cfg.push_interval == cfg.push_interval - 1
+            physics = physics.replace(u=push_kick(
+                physics.u, hit, push_draw(gen, n, self.device),
+                cfg.push_vel))
+        if cfg.projectile_interval > 0:
+            hit = (progress % cfg.projectile_interval
+                   == cfg.projectile_interval - 1)
+            body, raw = projectile_draw(gen, n, self.device)
+            physics = physics.replace(u=projectile_kick(
+                physics.u, hit, body, raw, cfg.projectile_impulse,
+                physics.body_x, self._mass_tot))
+        return physics
 
     def _reward(self, state: EnvState, physics, progress, pd_target):
         """Location reward + power penalty."""
@@ -559,7 +744,8 @@ class PedestrianTerrainEnv:
         """Fresh states for every env, selected where `done`."""
         cfg = self.cfg
         n = cfg.num_envs
-        physics_new, verts_new, inv_new = self._reset_states(state.rng, n)
+        physics_new, verts_new, inv_new, mids_new = self._reset_states(
+            state.rng, n, motion_weights=state.motion_weights)
         wp, pose, vel = self._capture_locoval_inputs(physics_new, verts_new)
 
         dr_scales, dr_last = state.dr_scales, state.dr_last
@@ -569,6 +755,19 @@ class PedestrianTerrainEnv:
             dr_scales = _select(due, fresh, dr_scales)
             dr_last = torch.where(due, state.dr_clock, dr_last)
 
+        # hard-negative bookkeeping: each finishing episode counts one
+        # sample of its motion, an early termination one failure (integer
+        # counts in float32, exact below 2^24)
+        hn = {}
+        if cfg.hard_negative:
+            d = done.float()
+            mid = state.cur_mid
+            hn = dict(
+                motion_sampled=state.motion_sampled.index_add(0, mid, d),
+                motion_term=state.motion_term.index_add(
+                    0, mid, d * state.terminate_buf.float()),
+                cur_mid=torch.where(done, mids_new, mid))
+
         physics = dataclasses.replace(physics_new, **{
             f.name: _select(done, getattr(physics_new, f.name),
                             getattr(state.physics, f.name))
@@ -576,6 +775,7 @@ class PedestrianTerrainEnv:
         amp_new = self._amp_obs_single(physics_new)
         hist_new = amp_new[:, None].repeat(1, cfg.num_amp_obs_steps, 1)
         return state.replace(
+            **hn,
             physics=physics,
             traj_verts=_select(done, verts_new, state.traj_verts),
             inverted=_select(done, inv_new, state.inverted),
@@ -589,18 +789,28 @@ class PedestrianTerrainEnv:
         )
 
     def apply_hard_negative_update(self, state: EnvState) -> EnvState:
-        """The per-epoch refresh of the motion-sampling weights: the
-        identity, since `hard_negative` is not ported."""
-        return state
+        """The per-epoch refresh of the live motion-sampling weights from
+        the episode counts since the last one (motion_lib.
+        hard_negative_update); the identity unless cfg.hard_negative."""
+        if not self.cfg.hard_negative:
+            return state
+        w, succ, sampled, term = ml.hard_negative_update(
+            state.motion_succ, state.motion_sampled, state.motion_term,
+            temp=self.cfg.hard_negative_temp)
+        return state.replace(motion_weights=w, motion_succ=succ,
+                             motion_sampled=sampled, motion_term=term)
 
     # ------------------------------------------------------------------
     # AMP demo fetch
     # ------------------------------------------------------------------
 
-    def sample_amp_demo(self, gen: torch.Generator, num_samples: int):
-        """The demo fetch's draws: motion ids and each window's newest time
-        t0, late enough that the whole window lies in the clip."""
-        mids = ml.sample_motions(self.motion_lib, gen, num_samples)
+    def sample_amp_demo(self, gen: torch.Generator, num_samples: int,
+                        motion_weights=None):
+        """The demo fetch's draws: motion ids (under `motion_weights`, else
+        the library's) and each window's newest time t0, late enough that
+        the whole window lies in the clip."""
+        mids = ml.sample_motions(self.motion_lib, gen, num_samples,
+                                 weights=motion_weights)
         truncate = self.cfg.dt * (self.cfg.num_amp_obs_steps - 1)
         t0 = ml.sample_time(self.motion_lib, gen, mids,
                             truncate_time=truncate)
@@ -624,6 +834,9 @@ class PedestrianTerrainEnv:
                         limb_weights=limbw)
         return a.reshape(mids.shape[0], -1)
 
-    def fetch_amp_obs_demo(self, gen: torch.Generator, num_samples: int):
-        """Demo AMP windows drawn from the motion library."""
-        return self.amp_obs_demo(*self.sample_amp_demo(gen, num_samples))
+    def fetch_amp_obs_demo(self, gen: torch.Generator, num_samples: int,
+                           motion_weights=None):
+        """Demo AMP windows drawn from the motion library, the motions under
+        `motion_weights` (the live hard-negative weights) where given."""
+        return self.amp_obs_demo(*self.sample_amp_demo(
+            gen, num_samples, motion_weights))

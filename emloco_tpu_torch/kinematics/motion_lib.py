@@ -156,6 +156,21 @@ def sample_motions(lib: MotionLib, gen: torch.Generator, n: int,
     return torch.multinomial(p, n, replacement=True, generator=gen)
 
 
+def hard_negative_update(succ_rate, sampled, terminated, temp: float = 0.2):
+    """Hard-negative refresh of the motion-sampling weights: each motion
+    sampled since the last refresh gets the success rate 1 − terminations /
+    samples (the others keep their estimate), and the new weights are
+    exp(−rate/temp), normalized, so that the motions the policy fails on
+    are drawn more often. Returns (weights, success rates, zeroed sample
+    counts, zeroed termination counts)."""
+    seen = sampled > 0
+    new_rate = torch.where(
+        seen, 1.0 - terminated / torch.clamp(sampled, min=1.0), succ_rate)
+    w = torch.exp(-new_rate / temp)
+    return (w / w.sum(), new_rate, torch.zeros_like(sampled),
+            torch.zeros_like(terminated))
+
+
 def sample_time(lib: MotionLib, gen: torch.Generator, motion_ids,
                 truncate_time=0.0):
     """Uniform phase sampling."""

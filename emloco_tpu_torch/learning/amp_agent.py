@@ -5,17 +5,25 @@ caller timing them may also call in turn:
   * rollout — `horizon` control steps of the env under the current policy
     (action noise μ + σ·ε, the critic's value on the normalized obs, the
     feature-space mirror of each obs for the symmetry loss), into buffers
-    allocated once per epoch;
+    allocated once per epoch, then the env's hard-negative refresh of its
+    motion-sampling weights;
   * prepare — the discriminator reward and GAE, the obs / AMP / value norms
     (updated after the rollout: the pools are normalized with the updated
     norms while logp was taken under the old one), the normalized
     advantages (population std), the replay ring's insert and draw, and the
-    demo windows fetched from the motion library;
+    demo windows fetched from the motion library under the env's live
+    motion-sampling weights;
   * update — `mini_epochs` × `num_minibatches` PPO + AMP updates, each with
     its three AMP dropout masks, the R1 gradient penalty on the demo batch,
     the motion-symmetry loss and a nonfinite guard that drops the whole
     update (parameters, moments and count) on the device.
 The combined reward is task_w·task + disc_w·(−log(max(1 − σ(D), 1e-4))·2).
+
+The network is `AMPConfig.network`'s ("sept", or "sept_cnn" with the conv
+encoder over the sensor image), with the people pointnet under the env's
+group_obs and bfloat16 hidden layers under `hidden_bf16` (`build_net`).
+`query_value_gradient` gives the critic's value under hypothetical
+trajectories and its gradient with respect to them.
 
 Parameters are a dict of tensors under the network's state_dict names; the
 heads run through `torch.func.functional_call`, so an update is a pure
@@ -44,10 +52,13 @@ import torch.nn.functional as F
 from torch.func import functional_call
 
 from ..envs import observations as obs_mod
-from ..envs.pedestrian_terrain import EnvState, PedestrianTerrainEnv
+from ..envs.pedestrian_terrain import (GROUP_OBS_DIM, EnvConfig, EnvState,
+                                       PedestrianTerrainEnv)
 from ..struct import TensorStruct
-from .networks import AMPSeptValueNet
+from .networks import AMPSeptCNNNet, AMPSeptValueNet
 from .running_norm import RunningNorm
+
+NETWORKS = ("sept", "sept_cnn")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,16 +97,35 @@ class AMPConfig:
     min_cum_reward: float = -10.0
 
     def __post_init__(self):
-        if self.hidden_bf16:
-            raise NotImplementedError(
-                "AMPConfig.hidden_bf16=True is not ported to "
-                "emloco_tpu_torch yet")
-        if self.network == "sept_cnn":
-            raise NotImplementedError(
-                "AMPConfig.network='sept_cnn' is not ported to "
-                "emloco_tpu_torch yet")
-        if self.network != "sept":
+        if self.network not in NETWORKS:
             raise ValueError(f"unknown network {self.network!r}")
+
+
+def build_net(ecfg: EnvConfig, task_obs_dim: int, amp_dim: int,
+              network: str = "sept", hidden_bf16: bool = False,
+              generator: torch.Generator | None = None, device=None,
+              **widths) -> AMPSeptValueNet:
+    """The network `network` names for the env configuration `ecfg`: the
+    people pointnet over the crowd observation under group_obs; for
+    "sept_cnn" the conv encoder over the square sensor image (3 channels
+    under velocity_map), which other sensors refuse with ValueError."""
+    kw = dict(people_obs_dim=GROUP_OBS_DIM if ecfg.group_obs else 0,
+              hidden_bf16=hidden_bf16, generator=generator, device=device,
+              **widths)
+    args = (ecfg.num_actions, ecfg.self_obs_dim, ecfg.num_traj_samples * 2,
+            task_obs_dim, amp_dim)
+    if network == "sept_cnn":
+        if ecfg.sensor_shape != "square" or not ecfg.terrain_obs:
+            raise ValueError(
+                "sept_cnn needs the square res² sensor image "
+                f"(sensor_shape={ecfg.sensor_shape!r}, "
+                f"terrain_obs={ecfg.terrain_obs})")
+        return AMPSeptCNNNet(*args, sensor_res=ecfg.sensor_res,
+                             sensor_channels=3 if ecfg.velocity_map else 1,
+                             **kw)
+    if network == "sept":
+        return AMPSeptValueNet(*args, **kw)
+    raise ValueError(f"unknown network {network!r}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -186,9 +216,9 @@ class AMPAgent:
         self.amp_dim = ecfg.num_amp_obs_steps * ecfg.amp_obs_per_step
         # the structure; `init` draws the weights (a fixed generator here
         # leaves torch's global one alone)
-        self.net = AMPSeptValueNet(
-            ecfg.num_actions, ecfg.self_obs_dim, ecfg.num_traj_samples * 2,
-            env.task_obs_dim, self.amp_dim,
+        self.net = build_net(
+            ecfg, env.task_obs_dim, self.amp_dim, cfg.network,
+            cfg.hidden_bf16,
             generator=torch.Generator(device=env.device).manual_seed(0),
             device=env.device)
         self.tx = ClipAdam(cfg.grad_norm, cfg.lr)
@@ -291,6 +321,20 @@ class AMPAgent:
             obs = out.obs
         env_state = env.apply_hard_negative_update(env_state)
         return ts.replace(env_state=env_state), batch, obs
+
+    def query_value_gradient(self, ts: TrainState, env_state: EnvState,
+                             new_traj):
+        """The critic's value of each env's state under the hypothetical
+        future trajectory samples `new_traj` (N, S, 3), and its gradient
+        with respect to them: (values (N,), gradient (N, S, 3))."""
+        traj = new_traj.detach().requires_grad_()
+        with torch.enable_grad():
+            o = self.env.observe_with_traj(env_state, traj)
+            if self.cfg.normalize_input:
+                o = ts.obs_norm.normalize(o)
+            v = self._apply(ts.params, "critic", o)
+            grad, = torch.autograd.grad(v.sum(), traj)
+        return v.detach(), grad
 
     def compute_gae(self, ts: TrainState, batch, last_obs):
         """GAE over the (T, N) batch, in reverse. Every done step bootstraps
@@ -480,8 +524,10 @@ class AMPAgent:
                     ret_01=ret01, amp_n=ts.amp_norm.normalize(amp_f))
         if cfg.motion_sym_loss:
             data["flip_obs_n"] = norm_obs(flat(batch["flip_obs"]))
+        # demos under the live hard-negative weights, as the resets
         demo_raw = self.env.fetch_amp_obs_demo(
-            gen, cfg.num_minibatches * cfg.amp_batch_size)
+            gen, cfg.num_minibatches * cfg.amp_batch_size,
+            motion_weights=ts.env_state.motion_weights)
         pools = dict(
             data=data,
             demo=ts.amp_norm.normalize(demo_raw).reshape(

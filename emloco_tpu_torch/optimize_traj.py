@@ -40,6 +40,7 @@ def main(argv=None):
     dev = _device.resolve(args.device)
     if dev.type == "cuda":
         torch.backends.cuda.matmul.fp32_precision = "ieee"
+        torch.backends.cudnn.conv.fp32_precision = "ieee"
     tree, meta = load_pytree(args.valuenet)
     vcfg = (meta or {}).get("config") or {}
     use_pose = bool(vcfg.get("use_pose", False))

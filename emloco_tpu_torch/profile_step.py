@@ -1,8 +1,11 @@
 """Where the rollout step's or the training epoch's time goes on the card.
 
     python3 -m emloco_tpu_torch.profile_step [--envs 4096] [--steps 3]
+        [env.<field>=<value> ...]
     python3 -m emloco_tpu_torch.profile_step --train [--envs 1600]
+        [amp.<field>=<value> ...] [env.<field>=<value> ...]
     python3 -m emloco_tpu_torch.profile_step --value [--envs 1600]
+        [amp.<field>=<value> ...] [env.<field>=<value> ...]
 
 Builds the env and actor at the bench configuration (`rollout.build_bench`)
 and times on the host, with a synchronize around each part: observe,
@@ -17,7 +20,9 @@ With `--train` the unit is one epoch of the bench's training configuration
 (`rollout.build_train_bench`): after a warm-up epoch, the host times of its
 three parts (rollout, prepare: GAE + norms + replay + demos, update), then
 the next epoch traced part by part, with the same tables for each part and
-the epoch's device time, launches and busy share.
+the epoch's device time, launches and busy share. The crowd epoch is
+`--train amp.network=sept_cnn env.group_obs=true env.group_size=100
+env.velocity_map=true`, the bfloat16 one `--train amp.hidden_bf16=true`.
 
 With `--value` the unit is one LocoVal epoch (`rollout.build_value_bench`),
 broken down the same way into its two parts: collect (the frozen policy's
@@ -27,6 +32,7 @@ the valuenet on the epoch's samples).
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import time
@@ -35,7 +41,8 @@ import torch
 
 from . import device as _device
 from .physics import step as physics_step
-from .rollout import build_bench, build_train_bench, build_value_bench
+from .rollout import (TRAIN_AMP, build_bench, build_train_bench,
+                      build_value_bench, parse_overrides)
 
 
 def _host_ms(fn, reps):
@@ -130,7 +137,9 @@ def _train(args, dev, card):
     """The bench's training epoch (rollout, prepare: GAE + norms + replay +
     demos, update) after a warm-up epoch."""
     envs = args.envs or 1600
-    agent, ts = build_train_bench(envs, dev)
+    agent, ts = build_train_bench(
+        envs, dev, amp=dataclasses.replace(TRAIN_AMP, **args.amp_fields),
+        **args.env_fields)
     ts, _ = agent.train_epoch(ts)                        # warm-up
     _epoch(ts, [("rollout", agent.rollout), ("prepare", agent.prepare),
                 ("update", agent.update)], agent.cfg.horizon * envs, card,
@@ -143,7 +152,9 @@ def _value(args, dev, card):
     policy's rollout with the return latching, update: one AdamW step of
     the valuenet) after a warm-up epoch."""
     envs = args.envs or 1600
-    trainer, vts = build_value_bench(envs, dev)
+    trainer, vts = build_value_bench(
+        envs, dev, amp=dataclasses.replace(TRAIN_AMP, **args.amp_fields),
+        env_fields=args.env_fields)
     vts, _ = trainer.train_epoch(vts)                    # warm-up
     _epoch(vts, [("collect", trainer._collect), ("update", trainer.update)],
            trainer.cfg.horizon * envs, card, args.top, num_envs=envs)
@@ -166,11 +177,18 @@ def main(argv=None):
                     help="break down one training epoch instead")
     ap.add_argument("--value", action="store_true",
                     help="break down one LocoVal training epoch instead")
+    ap.add_argument("overrides", nargs="*",
+                    help="amp.<field>=<value> (--train, --value) and "
+                         "env.<field>=<value>")
     args = ap.parse_args(argv)
+    args.amp_fields, args.env_fields = parse_overrides(args.overrides)
+    if args.amp_fields and not (args.train or args.value):
+        raise SystemExit("amp.<field> overrides need --train or --value")
     dev = _device.resolve(None)
-    # the networks' float32 GEMMs in full float32, not TF32 (the physics
-    # step sets this for itself)
+    # the networks' float32 GEMMs and convs in full float32, not TF32 (the
+    # physics step sets this for itself)
     torch.backends.cuda.matmul.fp32_precision = "ieee"
+    torch.backends.cudnn.conv.fp32_precision = "ieee"
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -181,7 +199,7 @@ def main(argv=None):
         return _value(args, dev, card)
 
     envs = args.envs or 4096
-    r = build_bench(envs, dev)
+    r = build_bench(envs, dev, **args.env_fields)
     cfg, env = r.cfg, r.env
     state = env.reset(torch.Generator(device=dev).manual_seed(0))
     for _ in range(2):                                   # warm-up

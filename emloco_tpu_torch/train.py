@@ -22,27 +22,7 @@ import time
 import torch
 
 from . import device as _device
-from .envs import EnvConfig
-from .rollout import TRAIN_AMP, build_train_bench
-
-
-def _parse_overrides(items):
-    """["amp.horizon=4", "env.sensor_res=8"] → ({"horizon": 4},
-    {"sensor_res": 8}), each value typed as its field's default."""
-    out = {"amp": {}, "env": {}}
-    defaults = {"amp": TRAIN_AMP, "env": EnvConfig()}
-    for item in items:
-        key, sep, value = item.partition("=")
-        part, _, name = key.partition(".")
-        if not sep or part not in out or not hasattr(defaults[part], name):
-            raise SystemExit(f"bad override {item!r}: expected "
-                             "amp.<field>=<value> or env.<field>=<value>")
-        kind = type(getattr(defaults[part], name))
-        if kind is bool:
-            out[part][name] = value.lower() in ("1", "true", "yes")
-        else:
-            out[part][name] = kind(value)
-    return out["amp"], out["env"]
+from .rollout import TRAIN_AMP, build_train_bench, parse_overrides
 
 
 def main(argv=None):
@@ -54,12 +34,13 @@ def main(argv=None):
                     help="torch device; default the CUDA card")
     ap.add_argument("overrides", nargs="*")
     args = ap.parse_args(argv)
-    amp_fields, env_fields = _parse_overrides(args.overrides)
+    amp_fields, env_fields = parse_overrides(args.overrides)
     dev = _device.resolve(args.device)
     if dev.type == "cuda":
-        # the networks' float32 GEMMs in full float32, not TF32 (the physics
-        # step sets this for itself)
+        # the networks' float32 GEMMs and convs in full float32, not TF32
+        # (the physics step sets this for itself)
         torch.backends.cuda.matmul.fp32_precision = "ieee"
+        torch.backends.cudnn.conv.fp32_precision = "ieee"
     agent, ts = build_train_bench(
         args.num_envs, dev, args.seed,
         dataclasses.replace(TRAIN_AMP, **amp_fields), **env_fields)

@@ -30,8 +30,7 @@ import time
 import torch
 
 from . import device as _device
-from .rollout import TRAIN_AMP, build_value_bench
-from .train import _parse_overrides
+from .rollout import TRAIN_AMP, build_value_bench, parse_overrides
 from .utils.checkpoint import save_valuenet
 
 
@@ -51,12 +50,13 @@ def main(argv=None):
     ap.add_argument("--save-every", type=int, default=200)
     ap.add_argument("overrides", nargs="*")
     args = ap.parse_args(argv)
-    amp_fields, env_fields = _parse_overrides(args.overrides)
+    amp_fields, env_fields = parse_overrides(args.overrides)
     dev = _device.resolve(args.device)
     if dev.type == "cuda":
-        # the networks' float32 GEMMs in full float32, not TF32 (the physics
-        # step sets this for itself)
+        # the networks' float32 GEMMs and convs in full float32, not TF32
+        # (the physics step sets this for itself)
         torch.backends.cuda.matmul.fp32_precision = "ieee"
+        torch.backends.cudnn.conv.fp32_precision = "ieee"
     use = dict(use_pose=not args.nopose, use_vel=not args.novel)
     trainer, vts = build_value_bench(
         args.num_envs, dev, args.seed,

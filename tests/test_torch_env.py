@@ -208,15 +208,6 @@ def test_entry_points_need_cuda_unless_cpu_requested(monkeypatch):
         PedestrianTerrainEnv(EnvConfig(num_envs=2), terrain, lib)
 
 
-@pytest.mark.parametrize("field,value", [
-    ("obs_noise_std", 0.1), ("action_noise_std", 0.1), ("push_interval", 5),
-    ("projectile_interval", 5), ("hard_negative", True), ("group_obs", True),
-    ("velocity_map", True), ("sensor_shape", "fov")])
-def test_env_config_refuses_unported_options(field, value):
-    with pytest.raises(NotImplementedError):
-        EnvConfig(**{field: value})
-
-
 def test_bench_rollout_control_step_on_cpu(monkeypatch):
     """The bench configuration's builder (shared by chip_smoke.py and
     profile_step) at 2 envs: its settings, one finite control step, and no

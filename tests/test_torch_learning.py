@@ -313,8 +313,9 @@ def test_prepare_matches_jax(world, monkeypatch, ring, ptr):
     mids = jml.sample_motions(jenv.motion_lib, k1, n_demo)
     trunc = jenv.cfg.dt * (jenv.cfg.num_amp_obs_steps - 1)
     t0 = jml.sample_time(jenv.motion_lib, k2, mids, truncate_time=trunc)
-    monkeypatch.setattr(env, "sample_amp_demo", lambda gen, n: (
-        t_(mids).long(), t_(t0 + trunc)))
+    monkeypatch.setattr(env, "sample_amp_demo",
+                        lambda gen, n, motion_weights=None: (
+                            t_(mids).long(), t_(t0 + trunc)))
 
     got_ts, pools = agent.prepare(ts, {k: t_(v) for k, v in batch.items()},
                                   t_(last_obs))

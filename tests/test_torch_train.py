@@ -2,7 +2,7 @@
 `_update_minibatch` from identical parameters, optimizer state, minibatch
 and dropout masks, from a fresh optimizer state and again from the JAX
 state after one step; the nonfinite guard; one port `train_epoch` on the
-CPU; the configurations the port refuses; the `train` entry point. 4 envs,
+CPU; the `train` entry point. 4 envs,
 sensor_res 8, 3 AMP steps, network widths of a few dozen (`agent.net`
 replaced before `init` in both packages).
 
@@ -334,15 +334,6 @@ def test_replay_insert_takes_a_subset_when_the_ring_is_smaller():
     assert len({int(i) for i in match.float().argmax(1)}) == 12
     assert pools["demo"].shape == (2, 8, agent.amp_dim)
     assert pools["replay"].shape == (2, 4, agent.amp_dim)
-
-
-@pytest.mark.parametrize("kw", [dict(hidden_bf16=True),
-                                dict(network="sept_cnn")])
-def test_amp_config_refuses_unported_options(kw):
-    with pytest.raises(NotImplementedError):
-        AMPConfig(**kw)
-    with pytest.raises(ValueError):
-        AMPConfig(network="mlp")
 
 
 def test_train_entry_point_on_cpu(capsys, monkeypatch):
