@@ -179,6 +179,42 @@ Phases, each printed as one JSON line with its elapsed seconds:
                 motion_sampled equals the dones; after the refresh the
                 weights sum to 1 within 1e-6 and the demo fetch draws its
                 motions in their proportions; everything finite
+ 24. contact_paths — the control step at 4,096 envs under the engine's
+                contact variants (CONTACT_PATHS: self-contact, the mesh
+                colliders with the template's capsule-axis spheres and with
+                spheres fit to the SMPL fixture, the 32-cell terrain
+                window, self + mesh on implicit substeps, and gram_kernel
+                with self, mesh and both): one warm-up and 2 control steps
+                each, launch counts read around the 2 steps (with
+                self-contact the dense solve, 2 a step: 6 of the pairs
+                couple two limbs outside the block-arrow pattern), each
+                with its env-steps/s, merged rows M and active self pairs;
+                on the warm-up step of each gram variant the rows it passes
+                to gram_diag are recorded, and
+ 25. contact_kernels — gram_diag against its plain version on those rows
+                (M = 352, 480, 576), bit for bit, batch-major and staged,
+                and its time at each M with its bound
+ 26. reference_contacts — one 8-env step on the card against the CPU for
+                self_contact, mesh_contacts, terrain_patch=32 and
+                gram_kernel + self_contact, from a pose with the left
+                forearm folded into the torso (an interpenetrating self
+                pair), with the contacts (ground and pair rows) whose
+                `active` flag differs between the devices at each call of
+                _contact_and_jacobians
+ 27. getup_train — the getup training configuration
+                (rollout.build_getup_bench: 1,600 envs, TRAIN_AMP,
+                self-contact and SMPL-fixture mesh colliders): the fall
+                bank generated again and timed (75 control steps at 2
+                substeps; finite, the median root between the terrain and
+                the drop height, at least 90% of the envs on the ground),
+                then a warm-up and a timed epoch
+                part by part with both schedules applied (dense solve 64
+                an epoch); finite, parameters moved, fall-bank resets and
+                recovery counters seen
+ 28. hand_train — the hand task's training configuration
+                (rollout.build_hand_bench): a warm-up and a timed epoch
+                part by part (factor 32, resolve 64), obs_dim the terrain
+                env's + 2, finite, parameters moved
 Then the kernels' summary line and, last, the device line. Any failed check
 raises and the script exits non-zero. Without a CUDA device it exits 2 and
 runs nothing.
@@ -226,6 +262,42 @@ PATHS = (
     ("two_operand", dict(sqrt_gram=False),
      {"cholesky_factor_blocked_t": 1, "cholesky_resolve_blocked_t": 2}),
 )
+# the engine's contact variants at the bench configuration (name, engine
+# fields, bodies fit to the SMPL fixture, kernels per control step). With
+# self-contact both steps solve densely (reduced._arrow_exact); the TGS step
+# refactors its one LHS each substep.
+DENSE2 = {"cholesky_solve_soa_t": 2}
+ARROW = {"cholesky_factor_blocked_t": 1, "cholesky_resolve_blocked_t": 2}
+GRAM = {"gram_diag": 1, "to_env_last": 1}
+CONTACT_PATHS = (
+    ("self_contact", dict(self_contact=True), False, DENSE2),
+    ("mesh", dict(mesh_contacts=True), False, ARROW),
+    ("mesh_smpl", dict(mesh_contacts=True), True, ARROW),
+    ("terrain_patch", dict(terrain_patch=32), False, ARROW),
+    ("self_mesh_implicit",
+     dict(self_contact=True, mesh_contacts=True, tgs_step=False), False,
+     DENSE2),
+    ("gram_self", dict(gram_kernel=True, self_contact=True), False,
+     {**GRAM, **DENSE2}),
+    ("gram_mesh", dict(gram_kernel=True, mesh_contacts=True), False,
+     {**GRAM, **ARROW}),
+    ("gram_self_mesh",
+     dict(gram_kernel=True, self_contact=True, mesh_contacts=True), False,
+     {**GRAM, **DENSE2}),
+)
+# configurations of the reference_contacts phase (8 envs, card vs CPU, from
+# the folded-arm pose)
+CONTACT_REFERENCES = (dict(self_contact=True), dict(mesh_contacts=True),
+                      dict(terrain_patch=32),
+                      dict(gram_kernel=True, self_contact=True))
+# the getup fall bank: envs whose summed contact force is above this are on
+# the ground; at least GROUND_SHARE of them must be (a few are thrown clear
+# by the drop, in the JAX package's bank too), and the median root must lie
+# above the terrain and below the 0.6 m it was dropped from. Single bodies
+# can end inside the heightfield's steep cell ramps (stairs, stone edges),
+# where the contact normal is near horizontal: the deepest collider is
+# printed, not gated.
+GROUND_FORCE_N, GROUND_SHARE, DROP_M = 1.0, 0.9, 0.6
 # the bench's training configuration (bench.py:133-138)
 TRAIN_ENVS = 1600
 # the discriminator reward's cap, −log(1e-4)·disc_reward_scale: a mean at
@@ -415,11 +487,19 @@ def recording(inner, log, extract):
 
 
 def contact_flags(args, out):
-    """_contact_and_jacobians: (active flags, penetrations) of the ground
-    contacts, (N, C) each."""
+    """_contact_and_jacobians(model, terrain, state, cfg): (active flags,
+    penetrations) of the ground rows and then the self pairs' rows, (N, C)
+    each, and the number of ground rows."""
+    import torch
+    from emloco_tpu_torch.physics import reduced as R
     nrm, active, h, radius, pts = out[4], out[5], out[9], out[10], out[11]
-    pen = (h + radius - pts[..., 2]) * nrm[..., 2]
-    return active.cpu() > 0, pen.cpu()
+    ng = radius.shape[1]
+    pen = (h + radius - pts[..., 2]) * nrm[:, :ng, 2]
+    if out[13] is not None:
+        model, st = args[0], args[2]
+        pen = torch.cat([pen, R._self_contact_geometry(
+            model, st.body_x, st.body_q)[3]], dim=1)
+    return active.cpu() > 0, pen.cpu(), ng
 
 
 def spring_errors(args, out):
@@ -439,12 +519,13 @@ RECORDED = (("_contact_and_jacobians", contact_flags),
 
 
 def contact_differences(log_g, log_c, keep):
-    """Per call of the contact builder: the kept envs' contacts active on
+    """Per call of _contact_and_jacobians: the kept envs' contacts active on
     the card only and on the CPU only, each with (env, contact, penetration
-    on the card, on the CPU), and the largest penetration difference."""
+    on the card, on the CPU) (contacts from the number of ground rows on are
+    self pairs), and the largest penetration difference."""
     calls = []
     envs = keep.nonzero()[:, 0]
-    for (act_g, pen_g), (act_c, pen_c) in zip(log_g, log_c):
+    for (act_g, pen_g, ng), (act_c, pen_c, _) in zip(log_g, log_c):
         act_g, act_c = act_g[keep], act_c[keep]
         pen_g, pen_c = pen_g[keep], pen_c[keep]
 
@@ -455,7 +536,8 @@ def contact_differences(log_g, log_c, keep):
         calls.append(dict(card_only=listed(act_g & ~act_c),
                           cpu_only=listed(act_c & ~act_g),
                           active_card=int(act_g.sum()),
-                          active_cpu=int(act_c.sum()),
+                          active_cpu=int(act_c.sum()), ground_rows=ng,
+                          active_self_cpu=int(act_c[:, ng:].sum()),
                           max_pen_diff=(pen_g - pen_c).abs().max().item()))
     return calls
 
@@ -479,12 +561,14 @@ def spring_differences(log_g, log_c, keep):
     return calls
 
 
-def card_vs_cpu(phase, cfg, env, gen, **extra):
+def card_vs_cpu(phase, cfg, env, gen, start=None, **extra):
     """One step of an 8-env copy of `env` (config `cfg`) on the card and on
-    the CPU from the same reset state and actions; fails past STEP_RTOL.
-    Reports, for each call of the contact builder, the contacts whose
-    `active` flag differs between the two devices, and for each substep the
-    joints whose PD error is zero on one device only."""
+    the CPU from the same reset state (passed through `start(env, state)`
+    where given) and actions; fails past STEP_RTOL. Reports, for each call
+    of _contact_and_jacobians, the contacts whose `active` flag differs between
+    the two devices, and for each substep the joints whose PD error is zero
+    on one device only. Returns its calls as the
+    card and the CPU saw them."""
     import torch
     from emloco_tpu_torch.envs import PedestrianTerrainEnv
     from emloco_tpu_torch.physics import reduced as R
@@ -495,6 +579,8 @@ def card_vs_cpu(phase, cfg, env, gen, **extra):
     env_c = PedestrianTerrainEnv(small, env.terrain.to(cpu),
                                  env.motion_lib.to(cpu), device=cpu)
     st_g = env_g.reset(torch.Generator(device=dev).manual_seed(3))
+    if start is not None:
+        st_g = start(env_g, st_g)
     st_c = st_g.to(cpu).replace(rng=torch.Generator().manual_seed(3))
     act = 0.3 * torch.randn((8, small.num_actions), generator=gen,
                             device=dev)
@@ -530,6 +616,7 @@ def card_vs_cpu(phase, cfg, env, gen, **extra):
     if int(keep.sum()) == 0 or not max(checks.values()) <= STEP_RTOL:
         raise SystemExit(f"card and CPU disagree on one step ({extra}): "
                          f"{checks}")
+    return [log["_contact_and_jacobians"] for log in logs]
 
 
 def solver_kernels(cases, arrow):
@@ -650,7 +737,7 @@ def gram_inputs(env, state, engine, gen):
     return cases
 
 
-def gram_kernels(cases):
+def gram_kernels(cases, phase="gram_kernel"):
     """gram_diag against its plain version on each case, batch-major and on
     the (N, 80, 75) staging shape, whose 75 rows are compared and which
     goes on through to_env_last cropped to 75; every output bit-equal (on
@@ -680,7 +767,7 @@ def gram_kernels(cases):
             if not (finite and r <= KERNEL_RTOL and torch.equal(k, p)):
                 bad.append(key)
             worst = max(worst, e)
-        emit("gram_kernel", case=name, num_envs=N, rows=M, cols=C,
+        emit(phase, case=name, num_envs=N, rows=M, cols=C,
              dtype=str(Rr.dtype), tolerance_rel=KERNEL_RTOL, outputs=report)
         if bad:
             raise SystemExit(f"gram_diag disagrees with its plain version "
@@ -853,12 +940,13 @@ def run_probe():
     return launches, res
 
 
-def drive_path(r, name, per_step, card, phase="paths", **extra):
+def drive_path(r, name, per_step, card, phase="paths", after=None,
+               **extra):
     """A bench rollout `r` (another engine configuration or sensor): one
     warm-up, then PATH_STEPS control steps with the launch counts read
     around them. Fails unless the counts are `per_step` × PATH_STEPS (every
-    other kernel 0) and everything is finite. Returns the launch counts and
-    the last state."""
+    other kernel 0) and everything is finite. `after(state)` adds entries
+    to the printed line. Returns the launch counts and the last state."""
     import torch
     from emloco_tpu_torch.physics import linalg
     dev = r.env.device
@@ -880,6 +968,8 @@ def drive_path(r, name, per_step, card, phase="paths", **extra):
         out.obs, out.reward))
     want = dict.fromkeys(launches, 0)
     want.update({k: n * PATH_STEPS for k, n in per_step.items()})
+    if after is not None:
+        extra.update(after(state))
     emit(phase, path=name, **extra, steps=PATH_STEPS,
          num_envs=NUM_ENVS, seconds=round(dt, 4),
          env_steps_per_s=NUM_ENVS * PATH_STEPS / dt, card=card,
@@ -1780,6 +1870,262 @@ def perturbations(card):
     return launches
 
 
+def merged_rows(engine):
+    """The merged row count M of an engine configuration: 72 body and 72
+    inertia rows, 4 rows a ground point (3 point rows and a normal row), 4
+    a self pair."""
+    from emloco_tpu_torch.physics import reduced as R
+    ground = R.NC_MESH if engine.mesh_contacts else R.NC
+    return 2 * R.MROWS + 4 * ground + (4 * R.NSELF if engine.self_contact
+                                       else 0)
+
+
+def contact_paths(rollout, card):
+    """The control step at NUM_ENVS under each of CONTACT_PATHS, with the
+    rows gram_diag gets on its first call (the warm-up step) recorded for
+    the gram variants. Returns (launch counts by path, {name: (R, w,
+    d)})."""
+    from emloco_tpu_torch.physics import EngineConfig
+    from emloco_tpu_torch.physics import reduced as R
+    from emloco_tpu_torch.rollout import smpl_params
+    by_path, rows = {}, {}
+    inner = R.gram_diag
+    for name, kw, smpl, per_step in CONTACT_PATHS:
+        engine = EngineConfig(**kw)
+        params = smpl_params(NUM_ENVS, "cuda") if smpl else None
+        r = rollout.with_engine(engine, params)
+        seen = []
+
+        def rec(Rr, w, d, out_rows=None, _seen=seen):
+            if not _seen:
+                _seen.append((Rr.clone(), w.clone(), d.clone()))
+            return inner(Rr, w, d, out_rows=out_rows)
+
+        def after(state, _r=r):
+            ph = state.physics
+            pen = R._self_contact_geometry(_r.env.model, ph.body_x,
+                                           ph.body_q)[3]
+            return dict(self_pairs_penetrating=int((pen > 0).sum()))
+
+        R.gram_diag = rec
+        try:
+            by_path[f"contact_{name}"], _ = drive_path(
+                r, name, per_step, card, phase="contact_paths", after=after,
+                engine=kw, smpl_colliders=smpl,
+                merged_rows=merged_rows(engine))
+        finally:
+            R.gram_diag = inner
+        if kw.get("gram_kernel"):
+            rows[name] = seen[0]
+        del r, params
+    return by_path, rows
+
+
+def contact_kernels(rows, card):
+    """gram_diag against its plain version on the recorded rows of each
+    gram variant, bit for bit (gram_kernels), and its time at each M with
+    its bound as gram_times computes it. Returns the max abs error."""
+    worst = gram_kernels({f"{k}_M{v[0].shape[1]}": v
+                          for k, v in rows.items()}, phase="contact_kernels")
+    for name, (Rr, w, d) in rows.items():
+        t, (nb, nf, pk) = gram_times(Rr, w, d)
+        bound_ms = max(nb / HBM_BYTES_S, nf / pk) * 1e3
+        emit("contact_kernels", case=name, num_envs=int(Rr.shape[0]),
+             rows=int(Rr.shape[1]), dtype=str(Rr.dtype), card=card, **t,
+             bound_ms=bound_ms, bound_share=bound_ms / t["ms"], bytes=nb,
+             flops=nf, flop_peak=pk)
+    return worst
+
+
+def folded_arm(env, state):
+    """`state` with every env standing at its spawn in the rest pose, the
+    left forearm folded into the torso (shoulder exp-map (−2.2, 0, 0),
+    elbow (0, 1.2, 0), as tests/test_engine.py:344-355): the L_Elbow/Torso
+    pair interpenetrates."""
+    import torch
+    from emloco_tpu_torch.kinematics import body_model as bm
+    from emloco_tpu_torch.ops import quat
+    from emloco_tpu_torch.physics import height_at, kinematic_state
+    ph = state.physics
+    n, dev = ph.root_pos.shape[0], ph.root_pos.device
+    loc = quat.identity_like((n, bm.NUM_BODIES), device=dev)
+    for body, e in (("L_Shoulder", (-2.2, 0.0, 0.0)),
+                    ("L_Elbow", (0.0, 1.2, 0.0))):
+        loc[:, bm.BODY_NAMES.index(body)] = quat.exp_map_to_quat(
+            torch.tensor(e, device=dev))
+    xy = ph.root_pos[:, :2]
+    z = height_at(env.terrain, xy) + env.params.height_offset
+    return state.replace(physics=kinematic_state(
+        env.model, env.tree, torch.cat([xy, z[:, None]], -1),
+        quat.identity_like((n,), device=dev), loc))
+
+
+def reference_contacts(cfg, env, gen):
+    """card_vs_cpu from the folded-arm pose for each CONTACT_REFERENCES
+    configuration; with self-contact the CPU's first contact build must
+    find an interpenetrating pair."""
+    from emloco_tpu_torch.physics import EngineConfig
+    for kw in CONTACT_REFERENCES:
+        calls = card_vs_cpu(
+            "reference_contacts",
+            dataclasses.replace(cfg, engine=EngineConfig(**kw)), env, gen,
+            start=folded_arm, engine=kw)
+        act, _, ng = calls[1][0]
+        if kw.get("self_contact") and not bool(act[:, ng:].any()):
+            raise SystemExit(f"reference_contacts {kw}: no self pair "
+                             "interpenetrates in the folded-arm pose")
+
+
+def epoch_kernels(engine, T):
+    """Kernel launches of a training epoch of T control steps: the dense
+    solve 2 a step where self-contact pairs leave the block-arrow pattern,
+    else the factor 1 and the resolve 2."""
+    from emloco_tpu_torch.physics import reduced as R
+    n = engine.n_substeps
+    if not R._arrow_exact(engine):
+        return {"cholesky_solve_soa_t": T * n}
+    return {"cholesky_factor_blocked_t": T,
+            "cholesky_resolve_blocked_t": T * n}
+
+
+def task_epochs(phase, agent, ts, card, schedules=False, **extra):
+    """A warm-up and a timed epoch part by part with the launch counts read
+    around each, with the getup schedules applied at each epoch's number
+    where `schedules`; fails unless each epoch's counts are epoch_kernels,
+    everything is finite, no gradient was nonfinite and the parameters
+    moved. Returns the epochs' records."""
+    import torch
+    from emloco_tpu_torch.physics import linalg
+    env = agent.env
+    T, N = agent.cfg.horizon, env.cfg.num_envs
+    p_init = {k: v.clone() for k, v in ts.params.items()}
+    epochs = []
+    torch.cuda.reset_peak_memory_stats()
+    for ep in range(2):
+        if schedules:
+            upd = env.cfg.getup_update_epoch
+            ts = ts.replace(env_state=env.update_getup_schedule(
+                ts.env_state, ts.epoch, upd))
+            ts = agent.update_getup_reward_schedule(ts, ts.epoch, upd)
+        linalg.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        ts, batch, last_obs = agent.rollout(ts)
+        torch.cuda.synchronize()
+        t1 = time.time()
+        ts, pools = agent.prepare(ts, batch, last_obs)
+        torch.cuda.synchronize()
+        t2 = time.time()
+        ts, metrics = agent.update(ts, pools)
+        metrics = {k: v.item() for k, v in metrics.items()}
+        t3 = time.time()
+        launches = dict(linalg.LAUNCHES)
+        rec = dict(warmup=ep == 0, rollout_seconds=t1 - t0,
+                   prepare_seconds=t2 - t1, update_seconds=t3 - t2,
+                   epoch_seconds=t3 - t0, env_steps_per_s=T * N / (t3 - t0),
+                   launches=launches, metrics=metrics,
+                   dones=int(batch["done"].sum()),
+                   terminations=int(batch["terminated"].sum()),
+                   task_reward_w=ts.task_reward_w.item(),
+                   disc_reward_w=ts.disc_reward_w.item())
+        if schedules:
+            st = ts.env_state
+            rec.update(fall_init_prob=st.fall_init_prob.item(),
+                       recovery_episode_prob=st.recovery_episode_prob.item(),
+                       recovering=int((st.recovery_counter > 0).sum()))
+        epochs.append(rec)
+        del batch, pools
+        want = dict.fromkeys(launches, 0)
+        want.update(epoch_kernels(env.cfg.engine, T))
+        if launches != want:
+            raise SystemExit(f"{phase}: launch counts {launches}, "
+                             f"expected {want}")
+    finite = (all(math.isfinite(v) for e in epochs
+                  for v in e["metrics"].values())
+              and all(bool(torch.isfinite(v).all())
+                      for v in ts.params.values()))
+    moved = any(not torch.equal(ts.params[k], p_init[k]) for k in p_init)
+    nonfinite = sum(e["metrics"]["nonfinite_grad"] for e in epochs)
+    emit(phase, num_envs=N, amp=dataclasses.asdict(agent.cfg),
+         engine=dataclasses.asdict(env.cfg.engine), obs_dim=env.obs_dim,
+         epochs=epochs, env_steps_per_s=epochs[-1]["env_steps_per_s"],
+         card=card, finite=finite, params_moved=moved,
+         max_memory_gb=torch.cuda.max_memory_allocated() / 2 ** 30, **extra)
+    if not (finite and moved and nonfinite == 0):
+        raise SystemExit(f"{phase} failed: finite {finite}, moved {moved}, "
+                         f"nonfinite_grad {nonfinite}")
+    return epochs
+
+
+def getup_train(card):
+    """The getup training configuration: the fall bank generated again and
+    timed, then task_epochs with both schedules. Returns the timed epoch's
+    launch counts."""
+    import torch
+    from emloco_tpu_torch.physics import height_at
+    from emloco_tpu_torch.physics import reduced as R
+    from emloco_tpu_torch.rollout import build_getup_bench
+    t = time.time()
+    agent, ts = build_getup_bench(TRAIN_ENVS, "cuda", seed=0)
+    torch.cuda.synchronize()
+    setup_s = time.time() - t
+    env = agent.env
+    t = time.time()
+    bank = env._generate_fall_states(
+        torch.Generator(device="cuda").manual_seed(1234))
+    torch.cuda.synchronize()
+    bank_s = time.time() - t
+    fields = [f.name for f in dataclasses.fields(bank)]
+    h = bank.root_pos[:, 2] - height_at(env.terrain, bank.root_pos[:, :2])
+    pts, radius, _ = R._ground_geometry(env.model, bank.body_x, bank.body_q,
+                                        env.cfg.engine)
+    clear = pts[..., 2] - radius - height_at(env.terrain, pts[..., :2])
+    force = bank.contact_force.norm(dim=-1).sum(-1)
+    steps = env.cfg.fall_gen_steps // env.cfg.engine.n_substeps
+    stats = dict(
+        control_steps=steps, seconds=bank_s,
+        env_steps_per_s=TRAIN_ENVS * steps / bank_s,
+        finite=all(bool(torch.isfinite(getattr(bank, f)).all())
+                   for f in fields),
+        regenerated_bit_equal=all(torch.equal(getattr(bank, f),
+                                              getattr(env.fall_bank, f))
+                                  for f in fields),
+        root_height_min=h.min().item(), root_height_median=h.median().item(),
+        root_height_max=h.max().item(),
+        collider_clearance_min=clear.min().item(),
+        ground_share=(force > GROUND_FORCE_N).float().mean().item())
+    del bank
+    epochs = task_epochs("getup_train", agent, ts, card, schedules=True,
+                         setup_seconds=setup_s, fall_bank=stats)
+    dones = sum(e["dones"] for e in epochs)
+    recovering = max(e["recovering"] for e in epochs)
+    if not (stats["finite"] and 0 < stats["root_height_median"] < DROP_M
+            and stats["ground_share"] >= GROUND_SHARE and dones > 0
+            and recovering > 0):
+        raise SystemExit(f"getup_train failed: fall bank {stats}, fall "
+                         f"resets {dones}, recovering envs {recovering}")
+    return epochs[-1]["launches"]
+
+
+def hand_train(card):
+    """The hand task's training configuration through task_epochs; its
+    observation is the terrain env's and the two hand targets. Returns the
+    timed epoch's launch counts."""
+    import torch
+    from emloco_tpu_torch.rollout import build_hand_bench
+    t = time.time()
+    agent, ts = build_hand_bench(TRAIN_ENVS, "cuda", seed=0)
+    torch.cuda.synchronize()
+    env = agent.env
+    epochs = task_epochs("hand_train", agent, ts, card,
+                         setup_seconds=time.time() - t,
+                         terrain_obs_dim=env.cfg.obs_dim)
+    if env.obs_dim != env.cfg.obs_dim + 2:
+        raise SystemExit(f"hand_train: obs_dim {env.obs_dim}, expected "
+                         f"{env.cfg.obs_dim} + 2")
+    return epochs[-1]["launches"]
+
+
 def main():
     import numpy as np
     import torch
@@ -2071,6 +2417,20 @@ def main():
 
     # 23. the perturbations and hard-negative sampling -----------------------
     by_path["perturbations"] = perturbations(card)
+
+    # 24-25. the contact variants, and gram_diag at their row counts --------
+    contact_launches, contact_rows = contact_paths(rollout, card)
+    by_path.update(contact_launches)
+    errs["gram_diag"] = max(errs["gram_diag"],
+                            contact_kernels(contact_rows, card))
+    del contact_rows
+
+    # 26. the contact variants, card against CPU ----------------------------
+    reference_contacts(cfg, env, gen)
+
+    # 27-28. the getup and hand training epochs -----------------------------
+    by_path["getup_train"] = getup_train(card)
+    by_path["hand_train"] = hand_train(card)
 
     # summary ---------------------------------------------------------------
     kernels = []

@@ -7,8 +7,9 @@
 // which forms, per env n, At[n, :C] = R[n]^T (w[n] o R[n]) + diag(d[n]) for
 // R (N, M, C) and w (N, M) in the row dtype (bf16 or float32), d (N, C) and
 // At (N, C', C) float32, rows C..C'-1 (the to_env_last staging pad) left
-// unwritten. The engine calls it with M = 256 merged Jacobian rows and
-// C = 75 generalized velocities.
+// unwritten. The engine calls it with C = 75 generalized velocities and M
+// merged Jacobian rows: 256 with the capsule ground contacts, 352 with the
+// self-contact pairs added, 480 with the mesh colliders, 576 with both.
 //
 // Numerics, shared with gram_diag_plain in physics/linalg.py:
 //   rw[m, c]  = float(R[m, c]) * float(w[m]), one float32 product (exact
@@ -32,7 +33,8 @@
 // rounds. Float32 rows round each product, so the two orders differ; their
 // instantiation sums every entry.
 //
-// Bound on the H100 at 4,096 envs, M = 256, C = 75, bf16 rows: reading R,
+// Bound on the H100 at 4,096 envs, M = 256 (the default contacts; at
+// M = 576, 452 MB -> 0.135 ms), C = 75, bf16 rows: reading R,
 // w and d once and writing the 75 x 75 float32 sums once moves 253 MB ->
 // 0.076 ms at 3.35 TB/s; the 2 * 256 * 75^2 * 4,096 = 11.8 GFLOP are bf16
 // products with float32 sums, 0.012 ms at the tensor cores' 989 TFLOP/s. So

@@ -23,6 +23,11 @@ from the state, `observe_flipped_from` in feature space), the observation
 under hypothetical trajectory samples (`observe_with_traj`) and the AMP
 demo fetch from the motion library.
 
+The getup and hand-task variants (envs/getup.py, envs/hand_task.py)
+override the hooks `_task_extra_dim` (a task-obs insert after the
+trajectory samples) with `_flip_task_extra` (its mirror),
+`_termination_allowed`, `reset`, `_auto_reset` and `_reward`.
+
 Random draws come from the torch.Generator the caller passes to `reset`; it
 travels in EnvState.rng and advances in place. Each perturbation's draw is a
 function of its own (`action_noise_draw`, `push_draw`, `projectile_draw`,
@@ -328,8 +333,14 @@ class PedestrianTerrainEnv:
         self._mass_tot = self.params.mass.sum(-1, keepdim=True)
 
     @property
+    def _task_extra_dim(self):
+        """Width of a variant's task-obs insert after the trajectory
+        samples (the hand targets); 0 here."""
+        return 0
+
+    @property
     def task_obs_dim(self):
-        return self.cfg.task_obs_dim
+        return self.cfg.task_obs_dim + self._task_extra_dim
 
     @property
     def obs_dim(self):
@@ -592,12 +603,17 @@ class PedestrianTerrainEnv:
         task = obs_full[:, sd:sd + self.task_obs_dim]
         return torch.cat([self_obs] + self._flip_task_parts(task), -1)
 
+    def _flip_task_extra(self, extra):
+        """Mirror of a variant's task-obs insert; the identity here."""
+        return extra
+
     def _flip_task_parts(self, task):
         """The mirrored task obs, part by part: trajectory samples negate y;
-        the sensor mirrors its points (the square grid reverses its minor
-        (y) axis, the other shapes take the grid's flip permutation) and
-        the velocity map negates its lateral channel; every (x, y, z)
-        triplet of the crowd observation negates y."""
+        a variant's insert after them goes through _flip_task_extra; the
+        sensor mirrors its points (the square grid reverses its minor (y)
+        axis, the other shapes take the grid's flip permutation) and the
+        velocity map negates its lateral channel; every (x, y, z) triplet of
+        the crowd observation negates y."""
         cfg = self.cfg
         S = cfg.num_traj_samples
         n = task.shape[0]
@@ -605,6 +621,10 @@ class PedestrianTerrainEnv:
             * torch.tensor([1.0, -1.0], device=task.device)
         parts = [loc.reshape(n, 2 * S)]
         off = 2 * S
+        if self._task_extra_dim:
+            parts.append(self._flip_task_extra(
+                task[:, off:off + self._task_extra_dim]))
+            off += self._task_extra_dim
         if cfg.terrain_obs:
             P, res = cfg.num_sensor_points, cfg.sensor_res
             C = 3 if cfg.velocity_map else 1
@@ -664,6 +684,7 @@ class PedestrianTerrainEnv:
             > cfg.fail_dist ** 2
         terminated = ((has_fallen | tar_fail) if cfg.enable_early_termination
                       else torch.zeros_like(has_fallen))
+        terminated = terminated & self._termination_allowed(state)
         # a numerically diverged env must recycle: NaN fails every check
         bad = (~torch.isfinite(physics.u).all(-1)
                | ~torch.isfinite(physics.root_pos).all(-1)
@@ -698,6 +719,12 @@ class PedestrianTerrainEnv:
             reward_raw=clean(reward_raw),
         )
         return new_state, out
+
+    def _termination_allowed(self, state: EnvState):
+        """(N,) bool: the envs whose early termination counts this step
+        (a variant's grace period clears it); all here."""
+        return torch.ones((self.cfg.num_envs,), dtype=torch.bool,
+                          device=self.device)
 
     def _perturb(self, physics, progress, gen: torch.Generator):
         """After the physics step: root pushes on the envs whose `progress`

@@ -1,8 +1,8 @@
 """SMPL-parameterized humanoid body model → batched physics parameters.
 
 Port of emloco_tpu/kinematics/body_model.py (the canonical 24-joint skeleton,
-its tables, and `build_body_params`); the tables are kept here as a copy
-because the JAX module imports jax and flax.
+its tables, `build_body_params` and `from_smpl_npz`); the tables are kept
+here as a copy because the JAX module imports jax and flax.
 """
 from __future__ import annotations
 
@@ -180,10 +180,13 @@ def _bone_vectors(offsets: torch.Tensor) -> torch.Tensor:
 
 def build_body_params(betas, kp_scale: float = 1.0, kd_scale: float = 1.0,
                       total_mass: Optional[float] = None,
-                      device=None) -> BodyParams:
+                      offsets_override=None, device=None) -> BodyParams:
     """betas (N, 16) → BodyParams (template shape space, as in the JAX
     package: beta[0] overall scale, beta[1] limb length, beta[2] girth, the
-    rest a fixed small per-body projection)."""
+    rest a fixed small per-body projection). `offsets_override` (N, 24, 3)
+    or (24, 3): parent-relative rest offsets of a real SMPL model
+    (from_smpl_npz) in place of the scaled template's; every derived
+    quantity is computed from them."""
     dev = _device.resolve(device)
     betas = torch.as_tensor(np.asarray(betas, np.float32), device=dev)
     if betas.dim() == 1:
@@ -205,7 +208,15 @@ def build_body_params(betas, kp_scale: float = 1.0, kd_scale: float = 1.0,
     limb_scale = torch.where(torch.as_tensor(is_limb, device=dev)[None],
                              limb, torch.ones_like(limb))
     scale = overall * limb_scale * per_body
-    offsets = torch.as_tensor(_MEAN_OFFSETS, **f32)[None] * scale[..., None]
+    if offsets_override is not None:
+        offsets = torch.as_tensor(np.asarray(offsets_override, np.float32),
+                                  device=dev)
+        if offsets.dim() == 2:
+            offsets = offsets[None]
+        offsets = offsets.expand(N, B, 3).contiguous()
+    else:
+        offsets = torch.as_tensor(_MEAN_OFFSETS, **f32)[None] \
+            * scale[..., None]
 
     bones = _bone_vectors(offsets)
     start = torch.zeros_like(offsets)
@@ -272,3 +283,70 @@ def build_body_params(betas, kp_scale: float = 1.0, kd_scale: float = 1.0,
         height_offset=height_offset,
         friction_scale=torch.ones((N,), **f32),
     )
+
+
+def from_smpl_npz(path: str, betas, device=None, **kw) -> BodyParams:
+    """BodyParams from an SMPL model file (v_template, shapedirs,
+    J_regressor and, where present, skinning weights), as the JAX package
+    builds them: the regressor's joints of the beta-shaped template, turned
+    z-up upright, give the parent-relative offsets; with skinning weights
+    each body's mesh colliders are fit to its vertices (owner = the argmax
+    weight): MESH_K vertices picked by farthest-point sampling on env 0,
+    each a tangent sphere with its centre at γ·v in the COM frame and radius
+    (1 − γ)·‖v‖, γ = 0.8. A body owning no vertex keeps the capsule
+    spheres."""
+    data = np.load(path, allow_pickle=True)
+    v_template = np.asarray(data["v_template"], np.float32)        # (V,3)
+    shapedirs = np.asarray(data["shapedirs"], np.float32)          # (V,3,K)
+    j_reg = np.asarray(data["J_regressor"], np.float32)            # (24,V)
+    betas_np = np.asarray(betas, np.float32)
+    if betas_np.ndim == 1:
+        betas_np = betas_np[None]
+    K = min(shapedirs.shape[-1], betas_np.shape[-1])
+    v = v_template[None] + np.einsum("vdk,nk->nvd", shapedirs[..., :K],
+                                     betas_np[:, :K])
+    joints = np.einsum("jv,nvd->njd", j_reg, v)                    # y-up
+    # SMPL's y-up, +z forward → z-up, +x forward
+    R = np.array([[0, 0, 1], [1, 0, 0], [0, 1, 0]], np.float32)
+    joints = joints @ R.T
+    offsets = joints.copy()
+    offsets[:, 0] = 0.0
+    for j in range(1, NUM_BODIES):
+        offsets[:, j] = joints[:, j] - joints[:, PARENTS[j]]
+    bp = build_body_params(betas_np, offsets_override=offsets, device=device,
+                           **kw)
+
+    wkey = "weights" if "weights" in data else "lbs_weights"
+    if wkey not in data:
+        return bp
+    w = np.asarray(data[wkey], np.float32)                         # (V,24)
+    verts = v @ R.T                                                # z-up
+    owner = np.argmax(w, axis=-1)
+    com_off = (bp.capsule_start
+               + bp.capsule_axis * bp.capsule_half[..., None]).cpu().numpy()
+    com_rest = joints + com_off                                    # (N,24,3)
+    gamma = 0.8
+    n = verts.shape[0]
+    centers = np.zeros((n, NUM_BODIES, MESH_K, 3), np.float32)
+    radii = np.zeros((n, NUM_BODIES, MESH_K), np.float32)
+    mesh_points = bp.mesh_points.cpu().numpy()
+    mesh_radius = bp.mesh_point_radius.cpu().numpy()
+    for b in range(NUM_BODIES):
+        sel = np.nonzero(owner == b)[0]
+        if sel.size == 0:
+            centers[:, b] = mesh_points[:, b]
+            radii[:, b] = mesh_radius[:, b]
+            continue
+        loc0 = verts[0, sel] - com_rest[0, b]
+        picks = [int(np.argmax(np.linalg.norm(loc0, axis=-1)))]
+        d = np.linalg.norm(loc0 - loc0[picks[0]], axis=-1)
+        while len(picks) < MESH_K:
+            picks.append(int(np.argmax(d)))
+            d = np.minimum(d, np.linalg.norm(loc0 - loc0[picks[-1]],
+                                             axis=-1))
+        vloc = verts[:, sel[picks]] - com_rest[:, b:b + 1]        # (N,K,3)
+        centers[:, b] = gamma * vloc
+        radii[:, b] = (1.0 - gamma) * np.linalg.norm(vloc, axis=-1)
+    dev = bp.mass.device
+    return bp.replace(mesh_points=torch.as_tensor(centers, device=dev),
+                      mesh_point_radius=torch.as_tensor(radii, device=dev))

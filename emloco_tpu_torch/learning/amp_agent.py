@@ -587,6 +587,18 @@ class AMPAgent:
         return ts.replace(params=params, opt_state=opt_state,
                           epoch=ts.epoch + 1), metrics
 
+    def update_getup_reward_schedule(self, ts: TrainState, epoch: int,
+                                     update_epoch: int) -> TrainState:
+        """The getup reward curriculum: the discriminator's reward alone up
+        to `update_epoch`, the configured task/disc mix after."""
+        early = epoch <= update_epoch
+        dev = ts.task_reward_w.device
+        return ts.replace(
+            task_reward_w=torch.tensor(
+                0.0 if early else self.cfg.task_reward_w, device=dev),
+            disc_reward_w=torch.tensor(
+                1.0 if early else self.cfg.disc_reward_w, device=dev))
+
     def train_epoch(self, ts: TrainState):
         """rollout → prepare → update; returns (ts, metrics as 0-d device
         tensors)."""

@@ -8,6 +8,11 @@ from .terrain import (  # noqa: F401
     make_heightfield,
     normal_at,
 )
+from .mesh_terrain import (  # noqa: F401
+    load_mesh,
+    mesh_heightfield,
+    mesh_terrain_from_file,
+)
 from .types import EngineConfig  # noqa: F401
 from .reduced import (  # noqa: F401
     Model,

@@ -496,7 +496,8 @@ def gram_diag(R: torch.Tensor, w: torch.Tensor, diag: torch.Tensor,
     float32, w (N, M) in R's dtype, diag (N, C) float32 → At (N, C', C)
     float32, C' = out_rows or C, with At[n, :C] = R[n]ᵀ(w[n]∘R[n]) +
     diag(diag[n]). Rows C:C' are the staging pad of to_env_last and are
-    left unwritten."""
+    left unwritten. The engine's M is its merged row count: 256 (capsule
+    contacts), 352 (with self-contact), 480 (mesh colliders), 576 (both)."""
     if R.dim() != 3 or min(R.shape) < 1:
         raise ValueError(f"R must be (N, M, C) with N, M, C ≥ 1, got "
                          f"{tuple(R.shape)}")

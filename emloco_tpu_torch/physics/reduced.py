@@ -1,7 +1,7 @@
 """Reduced-coordinate articulated dynamics — the engine core.
 
-Port of emloco_tpu/physics/reduced.py for capsule ground contacts. Two
-control steps, as in the JAX engine:
+Port of emloco_tpu/physics/reduced.py. Two control steps, as in the JAX
+engine:
   - the TGS step (`_tgs_step`, the default) builds the merged Jacobian rows
     and the contact set once, assembles the 75×75 implicit system, factors
     it once with the block-arrow kernel and re-solves it every substep;
@@ -19,13 +19,23 @@ solves
 
 with Stable-PD drives and implicit spring-damper contacts folded into A.
 
+Contact rows come from one of two ground tables, the capsule end-spheres
+(28 points, the default) or the mesh colliders (`mesh_contacts`: MESH_K
+spheres on each of the 14 contact bodies, 84 points), each looked up in the
+global corner texture or in a per-env window of it (`terrain_patch`); with
+`self_contact` the 24 capsule pairs of _SELF_PAIR_NAMES add relative rows
+whose linear columns cancel. The merged row count M is 256 (capsule), 352
+(capsule + self), 480 (mesh) or 576 (mesh + self).
+
 Generalized coordinates (75 DOF): u = [v_root (3, world), ω_root (3,
 world), qd_1..23 (world-frame relative joint angular velocities)].
 Positions: root COM position, root rotation, 23 relative joint quaternions.
 
 Layouts follow the JAX engine so tests compare like with like: the LHS is
 emitted env-last (75, 75, N) and the right-hand side (75, N), or (N, 75, 75)
-and (N, 75) batch-major.
+and (N, 75) batch-major. The 4-D functions (`_build_jacobians` and the
+others of that section) are the oracle the merged rows are held against in
+the tests, as in the JAX engine.
 """
 from __future__ import annotations
 
@@ -40,11 +50,13 @@ from ..kinematics import body_model as bm
 from ..kinematics.skeleton import forward_kinematics
 from ..ops import quat
 from ..struct import TensorStruct
-from .linalg import (cholesky_factor_blocked, cholesky_factor_blocked_t,
+from .linalg import (arrow_pattern, cholesky_factor_blocked,
+                     cholesky_factor_blocked_t,
                      cholesky_resolve_blocked, cholesky_resolve_blocked_t,
                      cholesky_solve_blocked, cholesky_solve_blocked_t,
                      cholesky_solve_soa_t, gram_diag, to_env_last)
-from .terrain import Heightfield, height_and_normal_at
+from .terrain import (Heightfield, corner_patch, height_and_normal_at,
+                      height_and_normal_at_patch)
 from .types import EngineConfig
 
 B = bm.NUM_BODIES            # 24
@@ -186,13 +198,142 @@ _CONTACT_ONEHOT = np.eye(B, dtype=np.float32)[_CONTACT_BODY]
 NC = len(_CONTACT_BODY)
 RC = 3 * NC
 
-# merged point rows of the capsule table: E1C folds −[pt]×·JW per contact
-_E1C = np.zeros((NC, 3, RC, NA), np.float32)
-for _c in range(NC):
-    _E1C[_c, :, 3 * _c:3 * _c + 3, :] = _EPS_JW[_CONTACT_BODY[_c]]
-# row r of a contact row triple reads merged body row 3·body(r//3) + r%3
-_ROW_BODY = np.array([3 * _CONTACT_BODY[r // 3] + r % 3 for r in range(RC)])
-_ISEL_C = np.tile(np.eye(3, dtype=np.float32), (NC, 1))  # (RC, 3)
+# self-contact: capsule pairs where fall and getup interpenetration shows
+# (forearms and hands against the trunk, legs crossing); adjacent bodies
+# share a pivot and are left out
+_SELF_PAIR_NAMES = (
+    ("L_Elbow", "Pelvis"), ("L_Elbow", "Torso"), ("L_Elbow", "Chest"),
+    ("R_Elbow", "Pelvis"), ("R_Elbow", "Torso"), ("R_Elbow", "Chest"),
+    ("L_Wrist", "Pelvis"), ("L_Wrist", "Torso"), ("L_Wrist", "Chest"),
+    ("R_Wrist", "Pelvis"), ("R_Wrist", "Torso"), ("R_Wrist", "Chest"),
+    ("L_Hand", "Pelvis"), ("L_Hand", "Torso"), ("L_Hand", "Chest"),
+    ("R_Hand", "Pelvis"), ("R_Hand", "Torso"), ("R_Hand", "Chest"),
+    ("L_Wrist", "L_Hip"), ("R_Wrist", "R_Hip"),
+    ("L_Knee", "R_Knee"), ("L_Ankle", "R_Ankle"),
+    ("L_Knee", "R_Hip"), ("R_Knee", "L_Hip"),
+)
+_SELF_A = np.array([bm.BODY_NAMES.index(a) for a, _ in _SELF_PAIR_NAMES])
+_SELF_B = np.array([bm.BODY_NAMES.index(b) for _, b in _SELF_PAIR_NAMES])
+NSELF = len(_SELF_PAIR_NAMES)
+# signed map: +F on body A, −F reaction on body B
+_SELF_ONEHOT = (np.eye(B, dtype=np.float32)[_SELF_A]
+                - np.eye(B, dtype=np.float32)[_SELF_B])
+# (+ε[A], −ε[B]) stacked: the pair-difference Jacobian in one contraction
+_SELF_EPS = np.stack([_EPS_JW[_SELF_A], -_EPS_JW[_SELF_B]],
+                     axis=1).astype(np.float32)          # (K,2,3,3,72)
+
+
+def _self_rows_fit_arrow() -> bool:
+    """Whether every self pair's rows keep the LHS inside the block-arrow
+    pattern. A pair's relative row spans the DoFs of both bodies' chains
+    (and the root's); when those are two limbs (a wrist and a hip, the two
+    legs) its outer product fills the limb-limb block, which the block-arrow
+    factor and solves never read. The JAX engine's Pallas path solves that
+    system without those entries; its CPU path, the reference of the
+    tests, solves it whole."""
+    perm = np.concatenate([np.arange(lo, hi) for lo, hi in _ARROW_CHUNKS])
+    keep = arrow_pattern(_ARROW_LIMBS, _ARROW_S, NU)
+    keep = keep | keep.T
+    for a, b in zip(_SELF_A, _SELF_B):
+        dof = np.zeros(NU, bool)
+        dof[:6] = True
+        for j in range(1, NJ + 1):
+            if _SUBX[j, a] or _SUBX[j, b]:
+                dof[6 + 3 * (j - 1):6 + 3 * j] = True
+        dof = dof[perm]
+        if (np.outer(dof, dof) & ~keep).any():
+            return False
+    return True
+
+
+SELF_ROWS_FIT_ARROW = _self_rows_fit_arrow()     # False: 6 pairs span limbs
+
+# mesh-collider ground table: the same contact bodies, MESH_K spheres each
+# from BodyParams.mesh_points
+_MESH_BODY_U = np.array([bm.BODY_NAMES.index(n) for n in _CONTACT_BODY_NAMES])
+_MESH_BODY = np.repeat(_MESH_BODY_U, bm.MESH_K)
+_MESH_ONEHOT = np.eye(B, dtype=np.float32)[_MESH_BODY]
+NC_MESH = len(_MESH_BODY)
+
+_TABLE_BODY = {"capsule": _CONTACT_BODY, "mesh": _MESH_BODY}
+
+
+@functools.lru_cache(maxsize=None)
+def _merged_point_statics(bodies_key: str):
+    """The JAX engine's static tensors of a contact table's merged point
+    rows, as numpy: (E1C, OH, P, FLC, ISELC) with
+      E1C (C,3,RC,72) −[pt]×·JW folded per row block ((C,2,3,RC,72) for
+                      "self", the A side and the B side negated);
+      OH  (RC,72)     row r → merged body row 3·body(r//3) + r%3 (signed
+                      for "self": +A, −B);
+      P   (C,RC)      per-contact sum over its 3 rows;
+      FLC (C,3,RC)    (N,C,3) → (N,RC) one-hot merger;
+      ISELC (RC,3)    row → xyz selector.
+    The port's row functions index with `_table_statics` instead; the tests
+    hold both against JAX's."""
+    if bodies_key == "self":
+        C = NSELF
+        RCn = 3 * C
+        E1C = np.zeros((C, 2, 3, RCn, NA), np.float32)
+        OH = np.zeros((RCn, MROWS), np.float32)
+        for ci in range(C):
+            E1C[ci, 0, :, 3 * ci:3 * ci + 3, :] = _EPS_JW[_SELF_A[ci]]
+            E1C[ci, 1, :, 3 * ci:3 * ci + 3, :] = -_EPS_JW[_SELF_B[ci]]
+        for r in range(RCn):
+            OH[r, 3 * _SELF_A[r // 3] + r % 3] += 1.0
+            OH[r, 3 * _SELF_B[r // 3] + r % 3] -= 1.0
+    else:
+        bodies = _TABLE_BODY[bodies_key]
+        C = len(bodies)
+        RCn = 3 * C
+        E1C = np.zeros((C, 3, RCn, NA), np.float32)
+        OH = np.zeros((RCn, MROWS), np.float32)
+        for ci in range(C):
+            E1C[ci, :, 3 * ci:3 * ci + 3, :] = _EPS_JW[bodies[ci]]
+        for r in range(RCn):
+            OH[r, 3 * bodies[r // 3] + r % 3] = 1.0
+    P = np.zeros((C, RCn), np.float32)
+    FLC = np.zeros((C, 3, RCn), np.float32)
+    for ci in range(C):
+        P[ci, 3 * ci:3 * ci + 3] = 1.0
+        for i in range(3):
+            FLC[ci, i, 3 * ci + i] = 1.0
+    ISELC = np.tile(np.eye(3, dtype=np.float32), (C, 1))
+    return E1C, OH, P, FLC, ISELC
+
+
+def _rows_of(bodies):
+    """Merged body row 3·body(r//3) + r%3 of each point row r."""
+    return np.array([3 * bodies[r // 3] + r % 3
+                     for r in range(3 * len(bodies))])
+
+
+@functools.lru_cache(maxsize=None)
+def _table_statics(table: str, device: torch.device):
+    """A row table's statics on `device`: `eps`, the ε-folded −[pt]×·JW of
+    each point, (C,3,3,72), or of each pair's two sides, (K,2,3,3,72) for
+    "self"; `row`, the merged body row each point row reads in t2m (for
+    "self" `row_a` and `row_b`, A's and B's: the OH selection as an index);
+    `iselc`, the row → xyz selector (3C,3); `onehot`, the row → body map of
+    the force readback (C,24), signed for "self"; `body` (and for "self"
+    `body_b`), the body of each point."""
+    def t(a, dtype=torch.float32):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                               device=device)
+    if table == "self":
+        out = dict(eps=t(_SELF_EPS), row_a=t(_rows_of(_SELF_A), torch.long),
+                   row_b=t(_rows_of(_SELF_B), torch.long),
+                   onehot=t(_SELF_ONEHOT), body=t(_SELF_A, torch.long),
+                   body_b=t(_SELF_B, torch.long))
+        C = NSELF
+    else:
+        bodies = _TABLE_BODY[table]
+        C = len(bodies)
+        out = dict(eps=t(_EPS_JW[bodies]), row=t(_rows_of(bodies), torch.long),
+                   onehot=t(np.eye(B, dtype=np.float32)[bodies]),
+                   body=t(bodies, torch.long))
+    out["iselc"] = t(np.tile(np.eye(3, dtype=np.float32), (C, 1)))
+    return out
 
 
 @functools.lru_cache(maxsize=None)
@@ -204,17 +345,17 @@ def _statics(device: torch.device):
     parent = np.maximum(PARENTS, 0)
     return dict(
         sub=t(_SUB),
+        subx=t(_SUBX),
         jw=t(_JW_EXT.reshape(MROWS, NA)),
+        jw3=t(_JW_EXT),
+        eps_jw=t(_EPS_JW),
+        eps_col=t(_EPS_COL),
         g_m=t(_G_M.reshape(2 * B * 3, MROWS * NA)),
         f_m=t(_F_M.reshape((NJ + 1) * 3, MROWS * NA)),
         tw_m=t(_TW_M.reshape(B * 9, MROWS * NA)),
-        e1c=t(_E1C.reshape(NC * 3, RC * NA)),
-        row_body=t(_ROW_BODY, torch.long),
         isel=t(_ISEL_M),
-        iselc=t(_ISEL_C),
-        contact_body=t(_CONTACT_BODY, torch.long),
         contact_end=t(_CONTACT_END, torch.long),
-        onehot=t(_CONTACT_ONEHOT),
+        mesh_body_u=t(_MESH_BODY_U, torch.long),
         parent=t(parent, torch.long),
         parent_j=t(parent[1:], torch.long),
         eye=torch.eye(NU, dtype=torch.float32, device=device),
@@ -385,34 +526,52 @@ def _build_rows_merged(model: Model, x, q, pivots_x, out_dtype):
     return G, W, t2m
 
 
-def _point_rows_merged(points, t2m):
-    """Merged angular point-Jacobian rows Gc (N,3C,72) of the contact
-    points (their linear block is an implicit identity per row triple)."""
-    s = _statics(points.device)
-    t1 = _flat_dot(points, s["e1c"], RC, NA)
-    return t1.to(t2m.dtype) + t2m[:, s["row_body"]]
+def _point_rows_merged(points, table: str, t2m):
+    """Merged angular point-Jacobian rows Gc (N,3C,72) of the world points
+    of `table` (their linear block is an implicit identity per row triple).
+    For "self", `points` is (N,K,2,3) [cA, cB] and the rows are the
+    relative pair Jacobian, whose linear block is exactly zero. The
+    −[pt]×·JW part picks one signed point coordinate per entry (exact in
+    any order); the pivot part selects t2m's rows (for "self" A's minus
+    B's, in float32, then rounded to the row dtype, as the JAX engine's
+    signed one-hot contraction rounds it)."""
+    s = _table_statics(table, points.device)
+    if table == "self":
+        t1 = torch.einsum("ncsj,csjid->ncid", points, s["eps"])
+        piv = (t2m[:, s["row_a"]].float()
+               - t2m[:, s["row_b"]].float()).to(t2m.dtype)
+    else:
+        t1 = torch.einsum("ncj,cjid->ncid", points, s["eps"])
+        piv = t2m[:, s["row"]]
+    N, C = t1.shape[:2]
+    return t1.reshape(N, 3 * C, NA).to(t2m.dtype) + piv
 
 
 def _normal_rows_merged(nrm, Gc):
     """Jn_ang (N,C,72): Σ_i n_i·Gc[3c+i] per contact."""
-    N = nrm.shape[0]
-    nrm_m = nrm.reshape(N, RC).to(Gc.dtype)
-    prod = (nrm_m[..., None] * Gc).float().reshape(N, NC, 3, NA)
+    N, C = nrm.shape[:2]
+    nrm_m = nrm.reshape(N, 3 * C).to(Gc.dtype)
+    prod = (nrm_m[..., None] * Gc).float().reshape(N, C, 3, NA)
     return (prod[:, :, 0] + prod[:, :, 1] + prod[:, :, 2]).to(Gc.dtype)
 
 
-def _q_contact_merged(kpen, nrm, Jn_a):
-    """Generalized contact-spring force (N,75): linear block Σ_c f_c·n_c,
-    angular block contracted through the normal rows."""
-    return torch.cat([torch.einsum("nc,nci->ni", kpen, nrm),
-                      torch.einsum("nc,ncd->nd", kpen, Jn_a.float())], dim=-1)
+def _q_contact_merged(kpen_g, nrm_g, kpen_all, Jn_a_all):
+    """Generalized contact-spring force (N,75): the linear block Σ_c f_c·n_c
+    over the ground rows only (the pair rows' linear columns are zero), the
+    angular block through every normal row."""
+    return torch.cat([torch.einsum("nc,nci->ni", kpen_g, nrm_g),
+                      torch.einsum("nc,ncd->nd", kpen_all, Jn_a_all.float())],
+                     dim=-1)
 
 
-def _merged_rows(model: Model, G, W, ground, weight_fn=None):
+def _merged_rows(model: Model, G, W, ground, selfrows=None,
+                 table: str = "capsule", weight_fn=None):
     """Stack the LHS row families into R (N, M, 75) with weights wv (N, M):
     body rows [e_i | G] (w = m_k), inertia rows [0 | W] (w = 1), point rows
-    [e_i | Gc] (w = wt), normal rows [n | Jn] (w = wn − wt). Weighted sums
-    of outer products of R's rows give the whole LHS.
+    [e_i | Gc] (w = wt), normal rows [n | Jn] (w = wn − wt), then with
+    `selfrows` = (Gcs, Jn_sa, wn_s, wt_s) the pair rows [0 | Gcs] (w = wt_s)
+    and [0 | Jn_sa] (w = wn_s − wt_s). Weighted sums of outer products of
+    R's rows give the whole LHS.
 
     With `weight_fn` (torch.sqrt for the single-operand √w Gram) each family
     is scaled by weight_fn(w) in the row dtype before the concat and wv is
@@ -424,14 +583,23 @@ def _merged_rows(model: Model, G, W, ground, weight_fn=None):
     rdt = G.dtype
     N = G.shape[0]
     isel = s["isel"].to(rdt).expand(N, MROWS, 3)
-    iselc = s["iselc"].to(rdt).expand(N, RC, 3)
+    iselc = _table_statics(table, G.device)["iselc"].to(rdt)
+    iselc = iselc.expand(N, *iselc.shape)
     mass_m = torch.repeat_interleave(p.mass, 3, dim=-1)  # (N,72)
+
+    def zeros(rows):
+        return torch.zeros(rows.shape[:2] + (3,), dtype=rdt, device=G.device)
+
     rows = [torch.cat([isel, G], -1),
-            torch.cat([torch.zeros((N, MROWS, 3), dtype=rdt,
-                                   device=G.device), W], -1),
+            torch.cat([zeros(W), W], -1),
             torch.cat([iselc, Gc], -1),
             torch.cat([nrm.to(rdt), Jn_a], -1)]
     wgt = [mass_m, None, torch.repeat_interleave(wt, 3, dim=-1), wn - wt]
+    if selfrows is not None:
+        Gcs, Jn_sa, wn_s, wt_s = selfrows
+        rows += [torch.cat([zeros(Gcs), Gcs], -1),
+                 torch.cat([zeros(Jn_sa), Jn_sa], -1)]
+        wgt += [torch.repeat_interleave(wt_s, 3, dim=-1), wn_s - wt_s]
     if weight_fn is not None:
         rows = [r if w is None else r * weight_fn(w.to(rdt))[..., None]
                 for r, w in zip(rows, wgt)]
@@ -443,19 +611,20 @@ def _merged_rows(model: Model, G, W, ground, weight_fn=None):
 
 
 def _assemble_lhs_rhs(model: Model, G, W, q, v_b, w_b, f_lin, dt, Q_rest,
-                      diag, ground, batch_major: bool = False,
-                      gram: bool = False, sqrt_gram: bool = True):
+                      diag, ground, selfrows=None, table: str = "capsule",
+                      batch_major: bool = False, gram: bool = False,
+                      sqrt_gram: bool = True):
     """The LHS and RHS of one substep, env-last or batch-major."""
-    return (_assemble_lhs_merged(model, G, W, diag, ground,
+    return (_assemble_lhs_merged(model, G, W, diag, ground, selfrows, table,
                                  batch_major=batch_major, gram=gram,
                                  sqrt_gram=sqrt_gram),
             _assemble_rhs_merged(model, G, W, q, v_b, w_b, f_lin, dt, Q_rest,
                                  batch_major=batch_major))
 
 
-def _assemble_lhs_merged(model: Model, G, W, diag, ground,
-                         batch_major: bool = False, gram: bool = False,
-                         sqrt_gram: bool = True):
+def _assemble_lhs_merged(model: Model, G, W, diag, ground, selfrows=None,
+                         table: str = "capsule", batch_major: bool = False,
+                         gram: bool = False, sqrt_gram: bool = True):
     """A = Rᵀ(w∘R) + diag, emitted env-last (75, 75, N) or batch-major
     (N, 75, 75), in one of the JAX engine's three forms, in its order:
       - √w (`sqrt_gram and not gram`): S = √w∘R on both sides, SᵀS;
@@ -469,10 +638,11 @@ def _assemble_lhs_merged(model: Model, G, W, diag, ground,
     the JAX step's two-operand einsum forms it under jit and as gram_diag
     does, so those two forms differ only in the order of the sums."""
     if sqrt_gram and not gram:
-        S, _ = _merged_rows(model, G, W, ground, weight_fn=torch.sqrt)
+        S, _ = _merged_rows(model, G, W, ground, selfrows, table,
+                            weight_fn=torch.sqrt)
         S = S.float()
         return _plus_diag(torch.bmm(S.transpose(1, 2), S), diag, batch_major)
-    R, wv = _merged_rows(model, G, W, ground)
+    R, wv = _merged_rows(model, G, W, ground, selfrows, table)
     if gram:
         if batch_major:
             return gram_diag(R, wv, diag)
@@ -569,6 +739,95 @@ def _gravity_bias_spring(model, x, q, v_b, w_b, u, target_q, gvec):
 
 
 # ---------------------------------------------------------------------------
+# 4-D oracles: the JAX engine's layout (N, ·, 3, 75), which the
+# tests hold the merged rows and their assembly against
+# ---------------------------------------------------------------------------
+
+def _build_jacobians(model: Model, x, q, pivots_x):
+    """Body Jacobians Jv4 (N,B,3,75), inertia rows W4 = √D·RᵀJw (N,B,3,75,
+    zero linear columns) and term2 (N,B,3,72), the pivot contraction the
+    point Jacobians share: Jv[k, :, a] = −[x_k]× + [p_a]× for every
+    ancestor a of k."""
+    s = _statics(x.device)
+    p = model.params
+    N = x.shape[0]
+    term1 = torch.einsum("nkj,kjic->nkic", x, s["eps_jw"])
+    t2 = torch.einsum("naj,ajic->naic", pivots_x, -s["eps_col"])
+    term2 = torch.einsum("naic,ak->nkic", t2, s["subx"])
+    eye = torch.eye(3, dtype=x.dtype, device=x.device).expand(N, B, 3, 3)
+    Jv4 = torch.cat([eye, term1 + term2], dim=-1)
+    RtJw = torch.einsum("nkji,kjc->nkic", quat.to_matrix(q), s["jw3"])
+    W = torch.sqrt(p.inertia)[..., None] * RtJw
+    W4 = torch.cat([torch.zeros((N, B, 3, 3), dtype=W.dtype,
+                                device=W.device), W], dim=-1)
+    return Jv4, W4, term2
+
+
+def _mass_matrix_from_jac(model: Model, Jv4, W4):
+    """M = Jv4ᵀ diag(m) Jv4 + W4ᵀW4 (N, 75, 75)."""
+    m = model.params.mass[..., None, None]
+    return (torch.einsum("nkic,nkid->ncd", m * Jv4, Jv4)
+            + torch.einsum("nkic,nkid->ncd", W4, W4))
+
+
+def _assemble_lhs(model: Model, Jv4, W4, diag, wn, wt, Jn, Jc):
+    """The 4-D LHS, env-last (75, 75, N): Jvᵀm Jv + WᵀW + wt·JcᵀJc +
+    (wn − wt)·JnᵀJn + diag."""
+    m = model.params.mass[..., None, None]
+    At = torch.einsum("nkic,nkid->cdn", m * Jv4, Jv4)
+    At = At + torch.einsum("nkic,nkid->cdn", W4, W4)
+    At = At + torch.einsum("nkic,nkid->cdn", wt[..., None, None] * Jc, Jc)
+    At = At + torch.einsum("nci,ncj->ijn", (wn - wt)[..., None] * Jn, Jn)
+    eye = _statics(At.device)["eye"]
+    return At + eye[:, :, None] * diag.T[:, None, :]
+
+
+def _assemble_rhs(model: Model, Jv4, W4, q, v_b, w_b, f_lin, dt, Q_rest):
+    """The 4-D right-hand side M·u + dt·Q, env-last (75, N)."""
+    p = model.params
+    Mu = torch.einsum("nkic,nki->cn", Jv4, p.mass[..., None] * v_b
+                      + dt * f_lin)
+    v2 = torch.sqrt(p.inertia) * quat.rotate_inv(q, w_b)
+    Mu = Mu + torch.einsum("nkic,nki->cn", W4, v2)
+    return Mu + dt * Q_rest.T
+
+
+def _point_jacobians(points, bodies, term2):
+    """Velocity Jacobians (N, C, 3, 75) of world points attached to
+    `bodies` (index array) from _build_jacobians' term2."""
+    N, C = points.shape[:2]
+    bodies = torch.as_tensor(bodies, dtype=torch.long, device=points.device)
+    eps = _statics(points.device)["eps_jw"][bodies]        # (C,3,3,72)
+    term1 = torch.einsum("ncj,cjid->ncid", points, eps)
+    eye = torch.eye(3, dtype=points.dtype,
+                    device=points.device).expand(N, C, 3, 3)
+    return torch.cat([eye, term1 + term2[:, bodies]], dim=-1)
+
+
+def _self_pair_jacobians(cA, cB, term2):
+    """Relative-velocity Jacobian (N,K,3,75) of the self-contact pairs in
+    one contraction: the A side's minus the B side's; the root-linear
+    columns are exactly zero."""
+    s = _table_statics("self", cA.device)
+    ang = torch.einsum("ncsj,csjid->ncid", torch.stack([cA, cB], dim=2),
+                       s["eps"])
+    ang = ang + term2[:, s["body"]] - term2[:, s["body_b"]]
+    z = torch.zeros(ang.shape[:3] + (3,), dtype=ang.dtype, device=ang.device)
+    return torch.cat([z, ang], dim=-1)
+
+
+def _self_contact_rows(model: Model, x, q, v_b, w_b, term2,
+                       cfg: EngineConfig, speculative: bool):
+    """Self-contact rows in the 4-D layout: ((Jc, Jn, nrm, active, d_t,
+    pen_f_masked, wn, wt), (cA, cB)), gated as the merged rows are."""
+    (cA, cB, nrm, active, d_t, pen_f_m, wn, wt) = _self_contact_gates(
+        model, x, q, v_b, w_b, cfg, speculative)
+    Jc = _self_pair_jacobians(cA, cB, term2)
+    Jn = torch.einsum("nci,ncij->ncj", nrm, Jc)
+    return (Jc, Jn, nrm, active, d_t, pen_f_m, wn, wt), (cA, cB)
+
+
+# ---------------------------------------------------------------------------
 # Contacts
 # ---------------------------------------------------------------------------
 
@@ -578,7 +837,8 @@ def _contact_points(model: Model, x, q):
     a = model.params.capsule_axis * model.params.capsule_half[..., None]
     offs = torch.stack([-a, a], dim=2)                    # (N,B,2,3)
     pts = x[:, :, None] + quat.rotate(q[:, :, None], offs)
-    return pts[:, s["contact_body"], s["contact_end"]]
+    return pts[:, _table_statics("capsule", x.device)["body"],
+               s["contact_end"]]
 
 
 def _point_velocities(x, v_b, w_b, pts, bodies):
@@ -586,15 +846,151 @@ def _point_velocities(x, v_b, w_b, pts, bodies):
     return v_b[:, bodies] + quat.cross(w_b[:, bodies], pts - x[:, bodies])
 
 
+def _capsule_segments(model: Model, x, q, bodies):
+    """World-space segment endpoints of the capsules of `bodies`."""
+    p = model.params
+    a = p.capsule_axis[:, bodies] * p.capsule_half[:, bodies, None]
+    off = quat.rotate(q[:, bodies], a)
+    xb = x[:, bodies]
+    return xb - off, xb + off
+
+
+def _self_contact_geometry(model: Model, x, q):
+    """Closest points of the _SELF_PAIR capsule segments (branchless
+    Ericson segment-segment), the normal n = (cA − cB)/‖·‖ and the
+    penetration rA + rB − dist: (cA, cB, nrm (N,K,3), pen (N,K))."""
+    s = _table_statics("self", x.device)
+    pA0, pA1 = _capsule_segments(model, x, q, s["body"])
+    pB0, pB1 = _capsule_segments(model, x, q, s["body_b"])
+    d1 = pA1 - pA0
+    d2 = pB1 - pB0
+    r = pA0 - pB0
+    a = torch.sum(d1 * d1, -1)
+    e = torch.sum(d2 * d2, -1)
+    b = torch.sum(d1 * d2, -1)
+    c = torch.sum(d1 * r, -1)
+    f = torch.sum(d2 * r, -1)
+    denom = a * e - b * b
+    ok = denom > 1e-9
+    sv = torch.where(ok, (b * f - c * e) / torch.where(ok, denom, 1.0), 0.0)
+    sv = torch.clamp(sv, 0.0, 1.0)
+    t = torch.clamp((b * sv + f) / torch.clamp(e, min=1e-9), 0.0, 1.0)
+    sv = torch.clamp((b * t - c) / torch.clamp(a, min=1e-9), 0.0, 1.0)
+    cA = pA0 + d1 * sv[..., None]
+    cB = pB0 + d2 * t[..., None]
+    delta = cA - cB
+    dist = torch.linalg.norm(delta, dim=-1)
+    nrm = delta / torch.clamp(dist, min=1e-6)[..., None]
+    rad = model.params.capsule_radius
+    return cA, cB, nrm, rad[:, s["body"]] + rad[:, s["body_b"]] - dist
+
+
+def _self_contact_gates(model: Model, x, q, v_b, w_b, cfg: EngineConfig,
+                        speculative: bool):
+    """The self pairs' geometry and implicit-row weights: (cA, cB, nrm,
+    active, d_t, pen_f_masked, wn, wt). `speculative` (the TGS step, whose
+    factor serves the whole control step) gates the LHS rows of pairs that
+    close within the step at their relative normal velocity; the implicit
+    substep gates by the true penetration."""
+    s = _table_statics("self", x.device)
+    dt = cfg.substep_dt
+    cA, cB, nrm, pen = _self_contact_geometry(model, x, q)
+    active = (pen > 0.0).to(x.dtype)
+    vpt = (_point_velocities(x, v_b, w_b, cA, s["body"])
+           - _point_velocities(x, v_b, w_b, cB, s["body_b"]))
+    vn = torch.sum(vpt * nrm, dim=-1)
+    vt = vpt - nrm * vn[..., None]
+    vt_mag = torch.linalg.norm(vt, dim=-1)
+    k_n = cfg.contact_stiffness
+    d_n = cfg.contact_damping
+    pen_f = torch.clamp(pen, max=cfg.max_depenetration)
+    mu = torch.where(vt_mag < cfg.friction_vel_ref,
+                     cfg.static_friction, cfg.dynamic_friction)
+    mu = mu * model.params.friction_scale[:, None]
+    d_t = mu * (k_n * torch.clamp(pen_f, min=0.0)) / (vt_mag
+                                                     + cfg.friction_vel_ref)
+    d_t = torch.clamp(d_t, max=cfg.max_friction_damping)
+    if speculative:
+        pen_pred = pen + (-cfg.control_dt * torch.clamp(vn, max=0.0))
+        gate = (pen_pred > 0.0).to(x.dtype)
+        d_t_lhs = mu * (k_n * torch.clamp(pen_pred, 0.0,
+                                          cfg.max_depenetration)) \
+            / (vt_mag + cfg.friction_vel_ref)
+        d_t_lhs = torch.clamp(d_t_lhs, max=cfg.max_friction_damping)
+        wt = gate * dt * d_t_lhs
+    else:
+        gate = active
+        wt = gate * dt * d_t
+    wn = gate * dt * (dt * k_n + d_n)
+    return cA, cB, nrm, active, d_t, active * pen_f, wn, wt
+
+
+def _self_contact_rows_merged(model: Model, x, q, v_b, w_b, t2m,
+                              cfg: EngineConfig, speculative: bool):
+    """Merged self-contact rows: Gcs (N,3K,72) relative pair Jacobian rows,
+    Jn_sa (N,K,72) their normal projections. Returns ((Gcs, Jn_sa, nrm,
+    active, d_t, pen_f_masked, wn, wt), (cA, cB))."""
+    (cA, cB, nrm, active, d_t, pen_f_m, wn, wt) = _self_contact_gates(
+        model, x, q, v_b, w_b, cfg, speculative)
+    Gcs = _point_rows_merged(torch.stack([cA, cB], dim=2), "self", t2m)
+    Jn_sa = _normal_rows_merged(nrm, Gcs)
+    return (Gcs, Jn_sa, nrm, active, d_t, pen_f_m, wn, wt), (cA, cB)
+
+
+def _ground_table(cfg: EngineConfig) -> str:
+    return "mesh" if cfg.mesh_contacts else "capsule"
+
+
+def _ground_geometry(model: Model, x, q, cfg: EngineConfig):
+    """The ground sample set: (points (N,C,3), radius (N,C), point → body
+    index (C,)): the capsule end-spheres, or with `mesh_contacts` the mesh
+    colliders of the same bodies (MESH_K spheres each, BodyParams.
+    mesh_points in the COM frame)."""
+    table = _table_statics(_ground_table(cfg), x.device)
+    if cfg.mesh_contacts:
+        u = _statics(x.device)["mesh_body_u"]
+        mp = model.params.mesh_points[:, u]               # (N,14,K,3)
+        mr = model.params.mesh_point_radius[:, u]
+        N = x.shape[0]
+        pts = x[:, u, None] + quat.rotate(q[:, u, None], mp)
+        return (pts.reshape(N, NC_MESH, 3), mr.reshape(N, NC_MESH),
+                table["body"])
+    return (_contact_points(model, x, q),
+            model.params.capsule_radius[:, table["body"]], table["body"])
+
+
+def _terrain_contact_lookup(terrain: Heightfield, x, pts, cfg: EngineConfig):
+    """Height and normal under the contact points: through each env's
+    corner_patch window around its root when `terrain_patch` is set (and
+    the terrain has a corner texture), else the global lookup."""
+    if cfg.terrain_patch and terrain.corner_tex is not None:
+        patch, xb, yb = corner_patch(terrain, x[:, 0, :2], cfg.terrain_patch)
+        return height_and_normal_at_patch(terrain, patch, xb, yb,
+                                          pts[..., :2])
+    return height_and_normal_at(terrain, pts[..., :2])
+
+
+def _readback_onehot(cfg: EngineConfig, device):
+    """Row → body map of the force readback: the ground table's rows, then
+    the signed pair rows with `self_contact`."""
+    ground = _table_statics(_ground_table(cfg), device)["onehot"]
+    if cfg.self_contact:
+        return torch.cat([ground, _table_statics("self", device)["onehot"]])
+    return ground
+
+
 def _contact_and_jacobians(model: Model, terrain: Heightfield,
                            st: PhysicsState, cfg: EngineConfig,
                            speculative: bool = True):
     """Step-start geometry in the row-merged layout. Returns
-    (G, W, ground, Jn_a, nrm, active, d_t, pen_f_m, diag, h, radius, pts,
-    contact_body) with ground = (Gc, Jn_a, nrm, wn, wt). The TGS step,
-    which reuses the LHS over the control step, wants `speculative` LHS rows
-    (see below); the implicit substep re-assembles every substep and gates
-    its rows by the true penetration."""
+    (G, W, ground, Jn_a_all, nrm, active, d_t, pen_f_m, diag, h, radius,
+    pts, ground_body, selfrows, self_pts, table) with ground = (Gc, Jn_a,
+    nrm_g, wn, wt) and selfrows = (Gcs, Jn_sa, wn_s, wt_s) or None; Jn_a_all,
+    nrm, active, d_t and pen_f_m are the ground rows followed by the pair
+    rows (the readback's order), h, radius and pts the ground rows'. The
+    TGS step, which reuses the LHS over the control step, wants
+    `speculative` LHS rows (see below); the implicit substep re-assembles
+    every substep and gates its rows by the true penetration."""
     s = _statics(st.u.device)
     p = model.params
     N = st.num_envs
@@ -614,13 +1010,12 @@ def _contact_and_jacobians(model: Model, terrain: Heightfield,
         torch.repeat_interleave(diag_joint, 3, dim=-1),
     ], dim=-1)
 
-    body = s["contact_body"]
-    pts = _contact_points(model, x, q)
-    radius = p.capsule_radius[:, body]
-    h, nrm = height_and_normal_at(terrain, pts[..., :2])
+    table = _ground_table(cfg)
+    pts, radius, body = _ground_geometry(model, x, q, cfg)
+    h, nrm = _terrain_contact_lookup(terrain, x, pts, cfg)
     pen = (h + radius - pts[..., 2]) * nrm[..., 2]
     active = (pen > 0.0).to(x.dtype)
-    Gc = _point_rows_merged(pts, t2m)
+    Gc = _point_rows_merged(pts, table, t2m)
     vpt = _point_velocities(x, st.body_v, st.body_w, pts, body)
     vn = torch.sum(vpt * nrm, dim=-1)
     vt = vpt - nrm * vn[..., None]
@@ -654,17 +1049,36 @@ def _contact_and_jacobians(model: Model, terrain: Heightfield,
     wn = active_lhs * dt * (dt * k_n + d_n)
     wt = active_lhs * dt * d_t_lhs
     ground = (Gc, Jn_a, nrm, wn, wt)
-    return (G, W, ground, Jn_a, nrm, active, d_t, active * pen_f, diag, h,
-            radius, pts, body)
+    pen_f_m = active * pen_f
+    selfrows = self_pts = None
+    if cfg.self_contact:
+        (Gcs, Jn_sa, nrm_s, act_s, d_t_s, pen_f_s, wn_s, wt_s), self_pts = \
+            _self_contact_rows_merged(model, x, q, st.body_v, st.body_w,
+                                      t2m, cfg, speculative)
+        selfrows = (Gcs, Jn_sa, wn_s, wt_s)
+        Jn_a = torch.cat([Jn_a, Jn_sa], dim=1)
+        nrm = torch.cat([nrm, nrm_s], dim=1)
+        active = torch.cat([active, act_s], dim=1)
+        d_t = torch.cat([d_t, d_t_s], dim=1)
+        pen_f_m = torch.cat([pen_f_m, pen_f_s], dim=1)
+    return (G, W, ground, Jn_a, nrm, active, d_t, pen_f_m, diag, h, radius,
+            pts, body, selfrows, self_pts, table)
 
 
-def _readback_contact(st_new: PhysicsState, pts, body, nrm, active, d_t,
-                      k_n, pen_f, dt, d_n):
+def _readback_contact(st_new: PhysicsState, pts, body, self_pts, nrm,
+                      active, d_t, k_n, pen_f, dt, d_n, onehot):
     """Per-body contact force from the post-integration velocity cache,
-    normal force clamped unilateral (as the reference reports it)."""
-    onehot = _statics(pts.device)["onehot"]
+    normal force clamped unilateral (as the reference reports it); the
+    pair rows (after the ground rows, `self_pts` = (cA, cB) or None) take
+    the relative velocity and map signed, +F on A and −F on B."""
     x, v_b, w_b = st_new.body_x, st_new.body_v, st_new.body_w
     vpt_new = _point_velocities(x, v_b, w_b, pts, body)
+    if self_pts is not None:
+        cA, cB = self_pts
+        s = _table_statics("self", x.device)
+        vpt_s = (_point_velocities(x, v_b, w_b, cA, s["body"])
+                 - _point_velocities(x, v_b, w_b, cB, s["body_b"]))
+        vpt_new = torch.cat([vpt_new, vpt_s], dim=1)
     vn_new = torch.sum(vpt_new * nrm, dim=-1)
     f_n = active * (k_n * pen_f - (dt * k_n + d_n) * vn_new)
     f_n = torch.clamp(f_n, min=0.0)
@@ -766,12 +1180,13 @@ def _tgs_step(model: Model, terrain, state: PhysicsState, target_q,
     """One control step reusing the substep-1 Jacobians and factor.
 
     Substep 1 builds everything fresh and factors the LHS once; later
-    substeps refresh penetrations, gravity/bias/spring forces and the PD
-    error but reuse the projections (Jacobians, normals, friction
-    coefficients) and the factor — the per-step staleness PhysX TGS
-    accepts. With `batch_major_solver` the system is assembled batch-major,
-    relaid env-last for the factor, and the substeps' right-hand sides and
-    solutions stay batch-major."""
+    substeps refresh penetrations (the ground rows' against the substep-1
+    heights, the pairs' from fresh closest points), gravity/bias/spring
+    forces and the PD error but reuse the projections (Jacobians, normals,
+    friction coefficients) and the factor — the per-step staleness PhysX
+    TGS accepts. With `batch_major_solver` the system is assembled
+    batch-major, relaid env-last for the factor, and the substeps'
+    right-hand sides and solutions stay batch-major."""
     dt = cfg.substep_dt
     gvec = torch.tensor([0.0, 0.0, cfg.gravity], device=state.u.device)
     k_n = cfg.contact_stiffness
@@ -780,18 +1195,27 @@ def _tgs_step(model: Model, terrain, state: PhysicsState, target_q,
     bm = _batch_major(cfg)
 
     st = state
-    (G, W, ground, Jn_a, nrm, active, d_t, pen_f, diag, h0, radius, pts0,
-     body) = _contact_and_jacobians(model, terrain, st, cfg)
+    (G, W, ground, Jn_a_all, nrm, active, d_t, pen_f, diag, h0, radius, pts0,
+     body, selfrows, self_pts0, table) = _contact_and_jacobians(
+         model, terrain, st, cfg)
+    ng = radius.shape[1]          # ground rows (capsule or mesh table)
     f_lin, Q_rest = _gravity_bias_spring(model, st.body_x, st.body_q,
                                          st.body_v, st.body_w, st.u,
                                          target_q, gvec)
-    Q_rest = Q_rest + _q_contact_merged(k_n * pen_f, nrm, Jn_a)
+    Q_rest = Q_rest + _q_contact_merged(k_n * pen_f[:, :ng], nrm[:, :ng],
+                                        k_n * pen_f, Jn_a_all)
     At, rhs_t = _assemble_lhs_rhs(model, G, W, st.body_q, st.body_v,
                                   st.body_w, f_lin, dt, Q_rest, diag, ground,
-                                  batch_major=bm, gram=cfg.gram_kernel,
+                                  selfrows, table, batch_major=bm,
+                                  gram=cfg.gram_kernel,
                                   sqrt_gram=_sqrt_gram_ok(cfg))
     At = _shift(At, bm)
-    if bm:
+    if not _arrow_exact(cfg):
+        # the dense solve of the whole LHS, refactored each substep (the
+        # dense kernel fuses factor and solve): the same A, the same L
+        def resolve(rhs):
+            return cholesky_solve_soa_t(At, rhs).T
+    elif bm:
         L = cholesky_factor_blocked(At, *arrow)
 
         def resolve(rhs):
@@ -802,45 +1226,66 @@ def _tgs_step(model: Model, terrain, state: PhysicsState, target_q,
         def resolve(rhs):
             return cholesky_resolve_blocked_t(L, rhs, *arrow).T
 
+    onehot = _readback_onehot(cfg, st.u.device)
     u_new = _velocity_clamp(resolve(rhs_t), cfg)
     st = _integrate_pose(model, st, u_new, dt, tree)
     st = st.replace(contact_force=_readback_contact(
-        st, pts0, body, nrm, active, d_t, k_n, pen_f, dt, d_n))
+        st, pts0, body, self_pts0, nrm, active, d_t, k_n, pen_f, dt, d_n,
+        onehot))
 
     for _ in range(cfg.n_substeps - 1):
-        pts = _contact_points(model, st.body_x, st.body_q)
-        pen = (h0 + radius - pts[..., 2]) * nrm[..., 2]
+        pts, _, _ = _ground_geometry(model, st.body_x, st.body_q, cfg)
+        pen = (h0 + radius - pts[..., 2]) * nrm[:, :ng, 2]
+        self_pts = None
+        if cfg.self_contact:
+            cA, cB, _, pen_s = _self_contact_geometry(model, st.body_x,
+                                                      st.body_q)
+            pen = torch.cat([pen, pen_s], dim=1)
+            self_pts = (cA, cB)
         act = (pen > 0.0).to(pen.dtype)
         pf = act * torch.clamp(pen, max=cfg.max_depenetration)
         f_l, Q_r = _gravity_bias_spring(model, st.body_x, st.body_q,
                                         st.body_v, st.body_w, st.u,
                                         target_q, gvec)
-        Q_r = Q_r + _q_contact_merged(k_n * pf, nrm, Jn_a)
+        Q_r = Q_r + _q_contact_merged(k_n * pf[:, :ng], nrm[:, :ng],
+                                      k_n * pf, Jn_a_all)
         rhs = _assemble_rhs_merged(model, G, W, st.body_q, st.body_v,
                                    st.body_w, f_l, dt, Q_r, batch_major=bm)
         u2 = _velocity_clamp(resolve(rhs), cfg)
         st2 = _integrate_pose(model, st, u2, dt, tree)
         st = st2.replace(contact_force=_readback_contact(
-            st2, pts, body, nrm, act, d_t, k_n, pf, dt, d_n))
+            st2, pts, body, self_pts, nrm, act, d_t, k_n, pf, dt, d_n,
+            onehot))
     return st
+
+
+def _arrow_exact(cfg: EngineConfig) -> bool:
+    """Whether the block-arrow kernels solve this configuration's LHS whole:
+    always, unless self-contact pairs add entries outside their pattern
+    (SELF_ROWS_FIT_ARROW). Then both steps solve with the dense Cholesky
+    kernel, env-last, which is what the JAX engine computes on the CPU (its
+    Pallas path would drop those entries)."""
+    return not cfg.self_contact or SELF_ROWS_FIT_ARROW
 
 
 def _batch_major(cfg: EngineConfig) -> bool:
     """The JAX engine's rule `batch_major_solver and (blocked_solver or not
     use_pallas)` on its Pallas side, which the port always takes: the
-    batch-major layout pairs with the block-arrow kernels only. Likewise
-    the JAX rule `gram_kernel and use_pallas` is `cfg.gram_kernel` here: the
-    Gram kernel runs whenever it is asked for (its plain version on a CPU
-    tensor)."""
-    return cfg.batch_major_solver and cfg.blocked_solver
+    batch-major layout pairs with the block-arrow kernels only (so not with
+    the dense solve of `_arrow_exact`). Likewise the JAX rule `gram_kernel
+    and use_pallas` is `cfg.gram_kernel` here: the Gram kernel runs whenever
+    it is asked for (its plain version on a CPU tensor)."""
+    return (cfg.batch_major_solver and cfg.blocked_solver
+            and _arrow_exact(cfg))
 
 
 def _implicit_substep(model: Model, terrain, state: PhysicsState, target_q,
                       cfg: EngineConfig, tree) -> PhysicsState:
     """One fully re-assembled implicit substep: fresh Jacobians, contact set
-    and LHS rows gated by the true penetration (no speculation: nothing is
-    reused), solved with the fused block-arrow kernel — env-last, or
-    batch-major through the relayout — or the dense Cholesky kernel."""
+    and LHS rows gated by the true penetration (no speculation, the pair
+    rows' neither: nothing is reused), solved with the fused block-arrow
+    kernel — env-last, or batch-major through the relayout — or the dense
+    Cholesky kernel."""
     dt = cfg.substep_dt
     gvec = torch.tensor([0.0, 0.0, cfg.gravity], device=state.u.device)
     k_n = cfg.contact_stiffness
@@ -849,25 +1294,29 @@ def _implicit_substep(model: Model, terrain, state: PhysicsState, target_q,
     bm = _batch_major(cfg)
 
     st = state
-    (G, W, ground, Jn_a, nrm, active, d_t, pen_f, diag, _, _, pts,
-     body) = _contact_and_jacobians(model, terrain, st, cfg,
-                                    speculative=False)
+    (G, W, ground, Jn_a_all, nrm, active, d_t, pen_f, diag, _, radius, pts,
+     body, selfrows, self_pts, table) = _contact_and_jacobians(
+         model, terrain, st, cfg, speculative=False)
+    ng = radius.shape[1]
     f_lin, Q_rest = _gravity_bias_spring(model, st.body_x, st.body_q,
                                          st.body_v, st.body_w, st.u,
                                          target_q, gvec)
-    Q_rest = Q_rest + _q_contact_merged(k_n * pen_f, nrm, Jn_a)
+    Q_rest = Q_rest + _q_contact_merged(k_n * pen_f[:, :ng], nrm[:, :ng],
+                                        k_n * pen_f, Jn_a_all)
     At, rhs_t = _assemble_lhs_rhs(model, G, W, st.body_q, st.body_v,
                                   st.body_w, f_lin, dt, Q_rest, diag, ground,
-                                  batch_major=bm, gram=cfg.gram_kernel,
+                                  selfrows, table, batch_major=bm,
+                                  gram=cfg.gram_kernel,
                                   sqrt_gram=_sqrt_gram_ok(cfg))
     At = _shift(At, bm)
     if bm:
         u_new = cholesky_solve_blocked(At, rhs_t, *arrow)
-    elif cfg.blocked_solver:
+    elif cfg.blocked_solver and _arrow_exact(cfg):
         u_new = cholesky_solve_blocked_t(At, rhs_t, *arrow).T
     else:
         u_new = cholesky_solve_soa_t(At, rhs_t).T
     u_new = _velocity_clamp(u_new, cfg)
     st2 = _integrate_pose(model, st, u_new, dt, tree)
     return st2.replace(contact_force=_readback_contact(
-        st2, pts, body, nrm, active, d_t, k_n, pen_f, dt, d_n))
+        st2, pts, body, self_pts, nrm, active, d_t, k_n, pen_f, dt, d_n,
+        _readback_onehot(cfg, st.u.device)))

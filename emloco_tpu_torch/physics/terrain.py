@@ -124,6 +124,48 @@ def height_and_normal_at(hf: Heightfield, xy: torch.Tensor):
     return _bilinear(*c, fx, fy), _normal_from_corners(hf, *c, fx, fy)
 
 
+def corner_patch(hf: Heightfield, center_xy: torch.Tensor, size: int):
+    """Per-env window of the corner texture around `center_xy` (N, 2):
+    (patch (N, sx, sy, 4), xb (N,), yb (N,)) with sx = min(size, H-1), sy =
+    min(size, W-1) and the window's first cell (xb, yb) clamped into
+    [0, H-1-sx] × [0, W-1-sy], as the JAX engine's dynamic slice clamps
+    it."""
+    gx, gy = _grid_coords_xy(hf, center_xy[..., 0], center_xy[..., 1])
+    H, W = hf.shape
+    sx = min(size, H - 1)
+    sy = min(size, W - 1)
+    xb = torch.clamp(torch.floor(gx).long() - sx // 2, 0, H - 1 - sx)
+    yb = torch.clamp(torch.floor(gy).long() - sy // 2, 0, W - 1 - sy)
+    dev = center_xy.device
+    ix = xb[:, None, None] + torch.arange(sx, device=dev)[None, :, None]
+    iy = yb[:, None, None] + torch.arange(sy, device=dev)[None, None, :]
+    return hf.corner_tex[ix, iy], xb, yb
+
+
+def height_and_normal_at_patch(hf: Heightfield, patch, xb, yb,
+                               xy: torch.Tensor, return_oob: bool = False):
+    """height_and_normal_at through a corner_patch window: each query's cell
+    is clamped into its env's window and read there (the JAX engine picks it
+    with two one-hot contractions; both select the same four corners, so the
+    result is bit-equal to the global lookup wherever the cell lies inside
+    the window). With `return_oob` also the (N, C) bool mask of the queries
+    whose cell fell outside the window and was clamped to its edge."""
+    x0, y0, fx, fy = _bilinear_parts(hf, xy)              # (N, C)
+    sx, sy = patch.shape[1], patch.shape[2]
+    rx = x0 - xb[:, None]
+    ry = y0 - yb[:, None]
+    lx = torch.clamp(rx, 0, sx - 1)
+    ly = torch.clamp(ry, 0, sy - 1)
+    env = torch.arange(patch.shape[0], device=patch.device)[:, None]
+    t = patch[env, lx, ly]                                # (N, C, 4)
+    c = (t[..., 0], t[..., 1], t[..., 2], t[..., 3])
+    h = _bilinear(*c, fx, fy)
+    n = _normal_from_corners(hf, *c, fx, fy)
+    if return_oob:
+        return h, n, (rx != lx) | (ry != ly)
+    return h, n
+
+
 # ---------------------------------------------------------------------------
 # Host-side procedural generators (numpy)
 # ---------------------------------------------------------------------------
@@ -207,6 +249,19 @@ def gen_stepping_stones(shape, cell, stone_size=0.8, spacing=0.4, height=0.1,
     return out
 
 
+def gen_poles(shape, cell, num_poles=40, radius=0.15, height=2.0, rng=None):
+    """Square vertical poles of half-width `radius` and `height` at random
+    centres."""
+    rng = rng or np.random.RandomState(0)
+    H, W = shape
+    out = np.zeros(shape, np.float32)
+    rr = max(1, int(radius / cell))
+    for _ in range(num_poles):
+        cx, cy = rng.randint(rr, H - rr), rng.randint(rr, W - rr)
+        out[cx - rr:cx + rr, cy - rr:cy + rr] = height
+    return out
+
+
 _GENERATORS = {
     "random_uniform": gen_random_uniform,
     "sloped": gen_sloped,
@@ -216,6 +271,7 @@ _GENERATORS = {
     "stairs": gen_stairs,
     "pyramid_stairs": gen_pyramid_stairs,
     "stepping_stones": gen_stepping_stones,
+    "poles": gen_poles,
 }
 
 

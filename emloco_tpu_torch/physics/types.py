@@ -1,23 +1,18 @@
 """Engine configuration (port of emloco_tpu/physics/types.py).
 
-Same fields and defaults as the JAX EngineConfig. The port implements the
-TGS step (the default) and the fully re-assembled implicit substeps
-(`tgs_step=False` or `n_substeps=1`), each with the block-arrow or the dense
-solver and the env-last or batch-major layout, and each LHS assembly: the
-single-operand √w Gram, the two-operand Gram and the `gram_kernel` Gram, all
-with capsule ground contacts. It refuses the branches it does not implement
-instead of silently running something else.
+Same fields and defaults as the JAX EngineConfig, and every branch of the
+JAX engine is ported: the TGS step (the default) and the fully re-assembled
+implicit substeps (`tgs_step=False` or `n_substeps=1`), each with the
+block-arrow or the dense solver and the env-last or batch-major layout; each
+LHS assembly (the single-operand √w Gram, the two-operand Gram and the
+`gram_kernel` Gram); ground contacts through the capsule end-spheres or the
+mesh colliders (`mesh_contacts`), looked up in the global corner texture or a
+per-env window of it (`terrain_patch`); and the self-contact capsule pairs
+(`self_contact`).
 """
 from __future__ import annotations
 
 import dataclasses
-
-# non-default branches of the JAX engine this port does not implement yet
-_UNPORTED = {
-    "self_contact": False,
-    "mesh_contacts": False,
-    "terrain_patch": 0,
-}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,13 +44,6 @@ class EngineConfig:
     batch_major_solver: bool = False
     gram_kernel: bool = False
     sqrt_gram: bool = True
-
-    def __post_init__(self):
-        for name, value in _UNPORTED.items():
-            if getattr(self, name) != value:
-                raise NotImplementedError(
-                    f"EngineConfig.{name}={getattr(self, name)!r} is not "
-                    "ported to emloco_tpu_torch yet")
 
     @property
     def substep_dt(self) -> float:

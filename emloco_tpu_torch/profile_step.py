@@ -3,7 +3,8 @@
     python3 -m emloco_tpu_torch.profile_step [--envs 4096] [--steps 3]
         [env.<field>=<value> ...]
     python3 -m emloco_tpu_torch.profile_step --train [--envs 1600]
-        [amp.<field>=<value> ...] [env.<field>=<value> ...]
+        [--task terrain|getup|hand] [amp.<field>=<value> ...]
+        [env.<field>=<value> ...] [engine.<field>=<value> ...]
     python3 -m emloco_tpu_torch.profile_step --value [--envs 1600]
         [amp.<field>=<value> ...] [env.<field>=<value> ...]
 
@@ -22,7 +23,12 @@ three parts (rollout, prepare: GAE + norms + replay + demos, update), then
 the next epoch traced part by part, with the same tables for each part and
 the epoch's device time, launches and busy share. The crowd epoch is
 `--train amp.network=sept_cnn env.group_obs=true env.group_size=100
-env.velocity_map=true`, the bfloat16 one `--train amp.hidden_bf16=true`.
+env.velocity_map=true`, the bfloat16 one `--train amp.hidden_bf16=true`;
+`--task getup|hand` breaks down the getup (its schedules applied at epoch
+0: fall resets only, the discriminator's reward alone) or the hand task's
+epoch (`rollout.build_train_bench(task=...)`). `engine.<field>=<value>`
+replaces a field of the engine (the task's: self-contact and mesh colliders
+for getup).
 
 With `--value` the unit is one LocoVal epoch (`rollout.build_value_bench`),
 broken down the same way into its two parts: collect (the frozen policy's
@@ -41,7 +47,7 @@ import torch
 
 from . import device as _device
 from .physics import step as physics_step
-from .rollout import (TRAIN_AMP, build_bench, build_train_bench,
+from .rollout import (TASKS, TRAIN_AMP, build_bench, build_train_bench,
                       build_value_bench, parse_overrides)
 
 
@@ -139,7 +145,12 @@ def _train(args, dev, card):
     envs = args.envs or 1600
     agent, ts = build_train_bench(
         envs, dev, amp=dataclasses.replace(TRAIN_AMP, **args.amp_fields),
-        **args.env_fields)
+        task=args.task, **args.env_fields)
+    if args.task == "getup":
+        upd = agent.env.cfg.getup_update_epoch
+        ts = ts.replace(env_state=agent.env.update_getup_schedule(
+            ts.env_state, 0, upd))
+        ts = agent.update_getup_reward_schedule(ts, 0, upd)
     ts, _ = agent.train_epoch(ts)                        # warm-up
     _epoch(ts, [("rollout", agent.rollout), ("prepare", agent.prepare),
                 ("update", agent.update)], agent.cfg.horizon * envs, card,
@@ -177,13 +188,18 @@ def main(argv=None):
                     help="break down one training epoch instead")
     ap.add_argument("--value", action="store_true",
                     help="break down one LocoVal training epoch instead")
+    ap.add_argument("--task", choices=TASKS, default="terrain",
+                    help="the task of --train")
     ap.add_argument("overrides", nargs="*",
-                    help="amp.<field>=<value> (--train, --value) and "
-                         "env.<field>=<value>")
+                    help="amp.<field>=<value> (--train, --value), "
+                         "env.<field>=<value> and engine.<field>=<value>")
     args = ap.parse_args(argv)
-    args.amp_fields, args.env_fields = parse_overrides(args.overrides)
+    args.amp_fields, args.env_fields = parse_overrides(args.overrides,
+                                                       args.task)
     if args.amp_fields and not (args.train or args.value):
         raise SystemExit("amp.<field> overrides need --train or --value")
+    if args.task != "terrain" and not args.train:
+        raise SystemExit("--task needs --train")
     dev = _device.resolve(None)
     # the networks' float32 GEMMs and convs in full float32, not TF32 (the
     # physics step sets this for itself)

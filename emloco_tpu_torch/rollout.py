@@ -25,6 +25,16 @@ with them stamped in) in groups of 100 (the largest divisor of 1,600 not
 above the reference's 128) and the conv encoder over the 32×32×3 sensor
 image (`network="sept_cnn"`).
 
+`build_getup_bench` and `build_hand_bench` build the training configuration
+of the getup and the hand task (`--task getup|hand` of `cli/run.py`): the
+task's env class (`TASK_ENVS`) on the same world, the getup one with its
+engine (`TASK_ENGINES`: self-contact and mesh colliders). Wherever a
+training configuration's engine runs mesh contacts, the colliders are fit
+to the SMPL fixture (`tests/data/smpl_fixture.npz`) at betas N(0, 0.3²)
+drawn from the seed, as `cli/run.py:63-80` builds them (`smpl_params`);
+`build_bench`, as `bench.py`, keeps the template bodies and their
+capsule-axis spheres.
+
 `build_value_bench` builds the LocoVal training configuration on that
 world: `cmd_train_valuenet` (`emloco_tpu/cli/run.py:176-223`) with the
 training configuration's env, the synthetic real-trajectory bank, half of
@@ -34,11 +44,16 @@ with pose and velocity at 13 waypoints and ValueTrainConfig's defaults.
 from __future__ import annotations
 
 import dataclasses
+import os
 
+import numpy as np
 import torch
 
 from . import device as _device
 from .envs import EnvConfig, PedestrianTerrainEnv, traj_gen
+from .envs.getup import GetupEnvConfig, PedestrianTerrainGetupEnv
+from .envs.hand_task import PedestrianTerrainHandEnv
+from .kinematics import body_model as bm
 from .kinematics import motion_lib as ml
 from .learning import AMPSeptValueNet, RunningNorm, ValuePoseNet
 from .learning.amp_agent import AMPAgent, AMPConfig, TrainState, build_net
@@ -67,13 +82,14 @@ class Rollout:
         state, out = self.env.step(state, mu)
         return state, out, obs, mu
 
-    def with_engine(self, engine: EngineConfig) -> "Rollout":
-        """This rollout with `engine` in place of its engine configuration:
-        a new env on the same terrain and motion library, the same actor
-        and norm."""
+    def with_engine(self, engine: EngineConfig,
+                    params: bm.BodyParams | None = None) -> "Rollout":
+        """This rollout with `engine` in place of its engine configuration
+        (and `params` in place of the bodies, where given): a new env on the
+        same terrain and motion library, the same actor and norm."""
         cfg = dataclasses.replace(self.cfg, engine=engine)
         env = PedestrianTerrainEnv(cfg, self.env.terrain,
-                                   self.env.motion_lib,
+                                   self.env.motion_lib, params=params,
                                    device=self.env.device)
         return Rollout(cfg, env, self.actor, self.norm)
 
@@ -94,41 +110,72 @@ SENSOR_VARIANTS = (
 )
 
 
-def parse_overrides(items):
-    """["amp.horizon=4", "env.sensor_res=8"] → ({"horizon": 4},
-    {"sensor_res": 8}), each value typed as its field's default; the
-    entry points' `amp.<field>=<value>` and `env.<field>=<value>`
-    arguments."""
-    out = {"amp": {}, "env": {}}
-    defaults = {"amp": TRAIN_AMP, "env": EnvConfig()}
+# the tasks of `cli/run.py`: each one's env class, config class and engine
+TASKS = ("terrain", "getup", "hand")
+TASK_ENVS = {"terrain": PedestrianTerrainEnv,
+             "getup": PedestrianTerrainGetupEnv,
+             "hand": PedestrianTerrainHandEnv}
+TASK_CONFIGS = {"terrain": EnvConfig, "getup": GetupEnvConfig,
+                "hand": EnvConfig}
+TASK_ENGINES = {"terrain": EngineConfig(), "hand": EngineConfig(),
+                "getup": EngineConfig(self_contact=True, mesh_contacts=True)}
+SMPL_FIXTURE = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "tests",
+    "data", "smpl_fixture.npz")
+
+
+def parse_overrides(items, task: str = "terrain"):
+    """["amp.horizon=4", "env.sensor_res=8", "engine.self_contact=true"] →
+    ({"horizon": 4}, {"sensor_res": 8, "engine": EngineConfig(...)}), each
+    value typed as its field's default; the entry points'
+    `amp.<field>=<value>`, `env.<field>=<value>` (fields of the task's env
+    config) and `engine.<field>=<value>` arguments, the last applied to
+    the task's engine and returned as env["engine"]."""
+    out = {"amp": {}, "env": {}, "engine": {}}
+    defaults = {"amp": TRAIN_AMP, "env": TASK_CONFIGS[task](),
+                "engine": TASK_ENGINES[task]}
     for item in items:
         key, sep, value = item.partition("=")
         part, _, name = key.partition(".")
-        if not sep or part not in out or not hasattr(defaults[part], name):
+        if (not sep or part not in out or name == "engine"
+                or not hasattr(defaults[part], name)):
             raise SystemExit(f"bad override {item!r}: expected "
-                             "amp.<field>=<value> or env.<field>=<value>")
+                             "amp.<field>=<value>, env.<field>=<value> or "
+                             "engine.<field>=<value>")
         kind = type(getattr(defaults[part], name))
         if kind is bool:
             out[part][name] = value.lower() in ("1", "true", "yes")
         else:
             out[part][name] = kind(value)
+    if out["engine"]:
+        out["env"]["engine"] = dataclasses.replace(defaults["engine"],
+                                                   **out["engine"])
     return out["amp"], out["env"]
 
 
-def _bench_env(cfg: EnvConfig, dev,
-               real_traj_bank=None) -> PedestrianTerrainEnv:
-    return PedestrianTerrainEnv(
+def smpl_params(num_envs: int, device=None, seed: int = 0) -> bm.BodyParams:
+    """Bodies with mesh colliders fit to the SMPL fixture at betas
+    N(0, 0.3²) (num_envs, 16) from a numpy generator seeded with `seed`."""
+    betas = np.random.RandomState(seed).randn(num_envs, 16) * 0.3
+    return bm.from_smpl_npz(SMPL_FIXTURE, betas.astype(np.float32),
+                            device=device)
+
+
+def _bench_env(cfg: EnvConfig, dev, real_traj_bank=None,
+               task: str = "terrain", params=None) -> PedestrianTerrainEnv:
+    """The task's env on the bench's terrain and motions."""
+    return TASK_ENVS[task](
         cfg, generate_mixed_terrain(map_length=8.0, num_tiles=2,
                                     difficulty=0.5, device=dev),
         ml.synthetic_walk_motions(speeds=(1.0, 1.5), duration=2.0,
                                   device=dev),
-        real_traj_bank=real_traj_bank, device=dev)
+        real_traj_bank=real_traj_bank, params=params, device=dev)
 
 
-def _bench_cfg(num_envs: int, **fields) -> EnvConfig:
-    return dataclasses.replace(
-        EnvConfig(num_envs=num_envs, sensor_res=32, episode_length=168,
-                  num_amp_obs_steps=15), **fields)
+def _bench_cfg(num_envs: int, task: str = "terrain", **fields) -> EnvConfig:
+    base = dict(num_envs=num_envs, sensor_res=32, episode_length=168,
+                num_amp_obs_steps=15, engine=TASK_ENGINES[task])
+    return TASK_CONFIGS[task](**{**base, **fields})
 
 
 def build_bench(num_envs: int = 4096, device=None, seed: int = 1,
@@ -150,15 +197,32 @@ def build_bench(num_envs: int = 4096, device=None, seed: int = 1,
 
 
 def build_train_bench(num_envs: int = 1600, device=None, seed: int = 0,
-                      amp: AMPConfig = TRAIN_AMP,
+                      amp: AMPConfig = TRAIN_AMP, task: str = "terrain",
                       **env_fields) -> tuple[AMPAgent, TrainState]:
-    """The agent at the bench's training configuration and its initial
-    TrainState from `seed`; `amp` and `env_fields` (EnvConfig fields)
-    replace parts of the configuration."""
+    """The agent of `task` at the bench's training configuration and its
+    initial TrainState from `seed`; `amp` and `env_fields` (fields of the
+    task's env config, the engine TASK_ENGINES[task] unless given) replace
+    parts of the configuration. With mesh contacts the bodies are
+    smpl_params(num_envs, seed=seed), as `cli/run.py` fits them."""
     dev = _device.resolve(device)
-    agent = AMPAgent(_bench_env(_bench_cfg(num_envs, **env_fields), dev),
-                     amp)
+    cfg = _bench_cfg(num_envs, task, **env_fields)
+    params = (smpl_params(num_envs, dev, seed) if cfg.engine.mesh_contacts
+              else None)
+    agent = AMPAgent(_bench_env(cfg, dev, task=task, params=params), amp)
     return agent, agent.init(seed)
+
+
+def build_getup_bench(num_envs: int = 1600, device=None, seed: int = 0
+                      ) -> tuple[AMPAgent, TrainState]:
+    """The agent at the getup training configuration: the getup env with
+    self-contact and SMPL-fixture mesh colliders, TRAIN_AMP."""
+    return build_train_bench(num_envs, device, seed, task="getup")
+
+
+def build_hand_bench(num_envs: int = 1600, device=None, seed: int = 0
+                     ) -> tuple[AMPAgent, TrainState]:
+    """The agent at the hand task's training configuration."""
+    return build_train_bench(num_envs, device, seed, task="hand")
 
 
 def build_crowd_bench(num_envs: int = 1600, device=None, seed: int = 0

@@ -6,8 +6,12 @@ impacts, torque saturation) with the JAX tests' own setups, lengths and
 thresholds, run on the port alone on the CPU at 1-4 envs: nothing else
 checks the port's rollouts beyond three steps. Standing and weight on ground
 also run under `gram_kernel=True`, whose LHS comes from the gram_diag
-kernel's plain version here.
+kernel's plain version here. The contact variants' oracles follow:
+self-contact push-out (tests/test_engine.py:329), mesh-collider standing
+(:394), the SMPL-fixture colliders (:422) and their beta shift (:678).
 """
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -173,3 +177,114 @@ def test_actuator_torque_saturation():
     v_free = float(dof_vel_free.abs().max())
     assert np.isfinite(v_cap) and np.isfinite(v_free)
     assert v_cap < v_free * 0.75, (v_cap, v_free)
+
+
+FIXTURE = os.path.join(os.path.dirname(__file__), "data", "smpl_fixture.npz")
+
+
+def test_self_contact_rest_clearance_and_pushout():
+    """The rest pose clears every pair by 2 cm; an arm PD-held inside the
+    torso is pushed out with self-contact on (implicit and TGS) and stays
+    buried with it off; the pair force reaches the arm's body; at rest the
+    flag changes nothing."""
+    from emloco_tpu_torch.physics import reduced as R
+    model, terrain = make_world(2)
+    st = rest_state(model)
+    pen = R._self_contact_geometry(model, st.body_x, st.body_q)[3]
+    assert float(pen.max()) < -0.02
+    names = bm.BODY_NAMES
+    j_sh, j_el = names.index("L_Shoulder") - 1, names.index("L_Elbow") - 1
+    target = torch.zeros((2, 23, 3))
+    target[:, j_sh, 0] = -2.2
+    target[:, j_el, 1] = 1.2
+    loc = quat.identity_like((2, bm.NUM_BODIES))
+    loc[:, j_sh + 1] = quat.exp_map_to_quat(target[:, j_sh])
+    loc[:, j_el + 1] = quat.exp_map_to_quat(target[:, j_el])
+    st0 = kinematic_state(model, TREE, torch.tensor([[0., 0., 1.]] * 2),
+                          quat.identity_like((2,)), loc)
+    pen0 = R._self_contact_geometry(model, st0.body_x, st0.body_q)[3]
+    k = int(pen0[0].argmax())
+    assert float(pen0[:, k].min()) > 0.08
+    for tgs in (False, True):
+        on = EngineConfig(n_substeps=2, self_contact=True, tgs_step=tgs)
+        off = EngineConfig(n_substeps=2, tgs_step=tgs)
+        s_on = rollout(model, terrain, st0, target, on, 20)
+        s_off = rollout(model, terrain, st0, target, off, 20)
+        assert bool(torch.isfinite(s_on.body_x).all())
+        p_on = R._self_contact_geometry(model, s_on.body_x, s_on.body_q)[3]
+        p_off = R._self_contact_geometry(model, s_off.body_x,
+                                         s_off.body_q)[3]
+        assert float(p_on[:, k].max()) < 0.03, (tgs, p_on[:, k])
+        assert float(p_off[:, k].min()) > 0.08, (tgs, p_off[:, k])
+    on = EngineConfig(n_substeps=2, self_contact=True)
+    s1 = step(model, terrain, st0, target, on)
+    assert float(s1.contact_force[:, R._SELF_A[k]].abs().max()) > 1.0
+    s_rest = step(model, terrain, rest_state(model), torch.zeros((2, 23, 3)),
+                  on)
+    s_rest_off = step(model, terrain, rest_state(model),
+                      torch.zeros((2, 23, 3)), EngineConfig(n_substeps=2))
+    torch.testing.assert_close(s_rest.body_x, s_rest_off.body_x, rtol=0,
+                               atol=1e-5)
+
+
+def test_mesh_contact_variant():
+    """With the capsule-axis collision spheres the standing humanoid carries
+    its weight on its feet and stays up, implicit and TGS."""
+    model, terrain = make_world(1)
+    weight = float(model.params.mass[0].sum() * 9.81)
+    feet = [bm.BODY_NAMES.index(n)
+            for n in ("L_Ankle", "R_Ankle", "L_Toe", "R_Toe")]
+    for tgs in (False, True):
+        cfg = EngineConfig(n_substeps=4, mesh_contacts=True, tgs_step=tgs)
+        st = rollout(model, terrain, rest_state(model),
+                     torch.zeros((1, 23, 3)), cfg, 20)
+        fz = st.contact_force[0, :, 2]
+        total = float(fz.sum())
+        assert abs(total - weight) / weight < 0.1, (tgs, total, weight)
+        assert float(fz[feet].sum()) > 0.9 * total
+        assert float(st.root_pos[0, 2]) > 0.5 * float(
+            model.params.height_offset[0])
+
+
+def test_mesh_points_from_smpl_fixture():
+    """from_smpl_npz's colliders: static shapes, radii in [0, 0.3), centre
+    plus radius inside 1.2 m, and the mesh variant runs on them."""
+    betas = torch.zeros((2, 10))
+    betas[1, 0] = 1.0
+    bp = bm.from_smpl_npz(FIXTURE, betas, device="cpu")
+    assert bp.mesh_points.shape == (2, bm.NUM_BODIES, bm.MESH_K, 3)
+    assert bp.mesh_point_radius.shape == (2, bm.NUM_BODIES, bm.MESH_K)
+    r = bp.mesh_point_radius
+    assert float(r.min()) >= 0.0 and float(r.max()) < 0.3
+    c = bp.mesh_points.norm(dim=-1)
+    assert bool((c + r < 1.2).all())
+    model = build_model(bp)
+    terrain = flat_terrain(extent=20.0, cell=0.1, device="cpu")
+    st = rollout(model, terrain, rest_state(model), torch.zeros((2, 23, 3)),
+                 EngineConfig(n_substeps=2, mesh_contacts=True), 5)
+    assert bool(torch.isfinite(st.body_x).all())
+
+
+def test_mesh_colliders_beta_variation_shifts_contacts():
+    """Fitted colliders move with the betas, and two shapes knocked over
+    load the ground through measurably different bodies."""
+    betas = torch.zeros((2, 10))
+    betas[1, 0], betas[1, 1] = 2.0, -2.0
+    bp = bm.from_smpl_npz(FIXTURE, betas, device="cpu")
+    assert float((bp.mesh_points[0] - bp.mesh_points[1]).abs().max()) > 0.01
+    assert float((bp.mesh_point_radius[0]
+                  - bp.mesh_point_radius[1]).abs().max()) > 0.003
+    model = build_model(bp)
+    terrain = flat_terrain(extent=20.0, cell=0.1, device="cpu")
+    st = rest_state(model)
+    u = st.u.clone()
+    u[:, 3] = 6.0                                   # a hard roll about x
+    st = st.replace(u=u)
+    cfg = EngineConfig(n_substeps=2, mesh_contacts=True)
+    acc = torch.zeros((2, bm.NUM_BODIES))
+    for _ in range(30):
+        st = step(model, terrain, st, torch.zeros((2, 23, 3)), cfg)
+        acc = acc + st.contact_force.norm(dim=-1)
+    assert bool(torch.isfinite(acc).all()) and float(acc.sum(-1).min()) > 1.0
+    p = acc / acc.sum(-1, keepdim=True)
+    assert float((p[0] - p[1]).abs().sum()) > 0.05

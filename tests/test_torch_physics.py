@@ -128,13 +128,6 @@ def test_step_matches_jax(world, steps, rows_bf16):
         rel_close(getattr(ts, f), getattr(js, f), tol["rel"])
 
 
-@pytest.mark.parametrize("field,value", [
-    ("self_contact", True), ("mesh_contacts", True), ("terrain_patch", 32)])
-def test_engine_config_refuses_unported_branches(field, value):
-    with pytest.raises(NotImplementedError):
-        EngineConfig(**{field: value})
-
-
 CONFIG_FIELDS = (
     "control_dt", "n_substeps", "gravity", "static_friction",
     "dynamic_friction", "linear_damping", "angular_damping",
@@ -155,10 +148,11 @@ def test_engine_config_defaults_match_jax():
 @pytest.mark.parametrize("field,value", [
     ("batch_major_solver", True), ("tgs_step", False),
     ("blocked_solver", False), ("n_substeps", 1), ("gram_kernel", True),
-    ("sqrt_gram", False)])
+    ("sqrt_gram", False), ("self_contact", True), ("mesh_contacts", True),
+    ("terrain_patch", 32)])
 def test_engine_config_takes_ported_branches(field, value):
-    """The solver and assembly branches the port runs construct, with JAX's
-    values in every other field."""
+    """The solver, assembly and contact branches the port runs construct,
+    with JAX's values in every other field."""
     j, t = JEngineConfig(**{field: value}), EngineConfig(**{field: value})
     for f in CONFIG_FIELDS:
         assert getattr(t, f) == getattr(j, f), f
