@@ -215,6 +215,44 @@ Phases, each printed as one JSON line with its elapsed seconds:
                 (rollout.build_hand_bench): a warm-up and a timed epoch
                 part by part (factor 32, resolve 64), obs_dim the terrain
                 env's + 2, finite, parameters moved
+ 29. policy_checkpoint — one training epoch at 1,600 envs saved as a policy
+                file (utils.checkpoint.save_policy) and read into a fresh
+                agent: the deterministic action on the same observation,
+                the parameters, the three norms and the Adam moments and
+                count bit-equal; then `train_value --policy` for one epoch,
+                finite, the policy's parameters loaded
+ 30. predictor_train — the jta preset at full width (nhid 128, 4 heads,
+                dim_ff 1,024, 6 local + 3 global layers, 20 modes, dropout
+                0.1, 453-token local sequences) on SyntheticScenes of 4
+                people: a warm-up step, then 20 steps of batch 10 (one epoch
+                of the CLI's defaults) with the EmLoco loss through a frozen
+                ValuePoseNet; losses finite, parameters moved, the LocoVal
+                parameters bit-equal, the value loss nonzero and its
+                gradient at the heads nonzero; steps/s and ms a step; none
+                of the engine's kernels launched (as in 31-33)
+ 31. predictor_reference — one train step at full width, dropout on, the
+                draws made on the CPU, on the card and on the CPU from the
+                same state and batch: in float64 with train_reference's
+                tolerances (the attention key biases' gradients, zero but
+                for rounding, held to the largest |g| of any leaf); then in
+                float32, the main path's step, with its loss terms held
+                and its gradients and updates printed beside the count of
+                FF pre-activations whose sign the devices take the other
+                way (ReLU kinks, where float32 gradients part); eval-mode
+                predict in float32 within 1e-4 of the largest |output|
+ 32. predictor_eval — evaluate_with_filter (LocoVal filter at 0.7) on the
+                JTA fixture's windows, batch 10, 20 batches on the card,
+                timed (scenes/s), the threshold sweep and the
+                observation-length sweep; then the same calls on the card
+                and on the CPU on 2 batches (1 for the length sweep) of the
+                same windows at the same padding of 8 people: every metric
+                within 1e-4 of its magnitude, a mode kept on one device
+                only only within 1e-5 of the threshold (counted by
+                threshold), and only at such a threshold its filtered
+                minima excused and its kept_frac within two modes a flip
+ 33. predictor_paths — the jrdb preset (246-token local sequences) and the
+                lstm preset: a warm-up and 2 train steps and one predict
+                each, finite, steps/s
 Then the kernels' summary line and, last, the device line. Any failed check
 raises and the script exits non-zero. Without a CUDA device it exits 2 and
 runs nothing.
@@ -345,6 +383,18 @@ D_LOSS_FLOOR = 1e-3
 # configurations of the reference_implicit phase (8 envs, card vs CPU)
 REFERENCES = (dict(tgs_step=False), dict(batch_major_solver=True),
               dict(gram_kernel=True), dict(sqrt_gram=False))
+# the predictor phases: the jta preset at full width, the CLI's defaults
+# (batch 10, 20 steps an epoch), the frozen LocoVal net's seed, the CPU
+# generator of the card-vs-CPU step's dropout draws; the tolerances of
+# train_reference for that step, 1e-4 of the largest |output| for predict;
+# evaluation on the JTA fixture's windows (20 batches on the card, 4 and 2
+# of them against the CPU), each metric within 1e-4 of its magnitude, a
+# mode within 1e-5 of the filter's threshold excused
+PRED_BATCH, PRED_STEPS, PRED_VNET_SEED, PRED_REF_SEED = 10, 20, 11, 12
+PRED_PREDICT_REL = 1e-4
+PRED_EVAL_BATCHES, PRED_EVAL_SEED = 20, 2
+PRED_REF_BATCHES, PRED_REF_LENGTH_BATCHES = 2, 1
+PRED_EVAL_REL, PRED_EDGE = 1e-4, 1e-5
 # H100 SXM peaks (NVIDIA data sheet, 700 W): HBM bytes/s; non-tensor-core
 # f32 FLOP/s, the peak of every kernel's bound but gram_diag's; dense bf16
 # tensor-core FLOP/s (float32 sums), the peak of gram_diag's bound on bf16
@@ -2126,6 +2176,478 @@ def hand_train(card):
     return epochs[-1]["launches"]
 
 
+# ---------------------------------------------------------------------------
+# 29-33: policy checkpoints and the trajectory predictor
+# ---------------------------------------------------------------------------
+
+def zero_launches(phase, launches):
+    """The predictor phases launch none of the engine's kernels."""
+    if any(launches.values()):
+        raise SystemExit(f"{phase}: launched engine kernels {launches}")
+
+
+def policy_checkpoint(card):
+    """One training epoch at the bench's training configuration, saved as a
+    policy file and read into a fresh agent: the deterministic action on
+    the same observation, the three norms and the Adam state bit-equal;
+    then train_value --policy for one epoch. Returns the launch counts."""
+    import tempfile
+
+    import torch
+    from emloco_tpu_torch import train_value
+    from emloco_tpu_torch.learning.amp_agent import AMPAgent
+    from emloco_tpu_torch.physics import linalg
+    from emloco_tpu_torch.rollout import build_train_bench
+    from emloco_tpu_torch.utils import checkpoint as ckpt
+    linalg.reset_launch_counts()
+    t = time.time()
+    agent, ts = build_train_bench(TRAIN_ENVS, "cuda", seed=0)
+    ts, _ = agent.train_epoch(ts)
+    torch.cuda.synchronize()
+    epoch_s = time.time() - t
+    with tempfile.TemporaryDirectory() as out:
+        path = os.path.join(out, "policy_00000000.ckpt")
+        t = time.time()
+        ckpt.save_policy(path, ts, 0)
+        tree, meta = ckpt.load_pytree(path)
+        fresh = AMPAgent(agent.env, agent.cfg)
+        back = ckpt.restore_policy(fresh.init(1), tree)
+        io_s = time.time() - t
+        size_mb = os.path.getsize(path) / 2 ** 20
+        obs = agent.env.observe(ts.env_state)
+
+        def act(a, s):
+            with torch.no_grad():
+                return a._apply(s.params, "actor", s.obs_norm.normalize(obs))[0]
+
+        same = dict(
+            action=bool(torch.equal(act(agent, ts), act(fresh, back))),
+            norms=all(torch.equal(getattr(getattr(ts, n), f),
+                                  getattr(getattr(back, n), f))
+                      for n in ("obs_norm", "amp_norm", "value_norm")
+                      for f in ("mean", "var", "count")),
+            adam=bool(torch.equal(ts.opt_state.count, back.opt_state.count))
+            and all(torch.equal(ts.opt_state.mu[k], back.opt_state.mu[k])
+                    and torch.equal(ts.opt_state.nu[k], back.opt_state.nu[k])
+                    for k in ts.params),
+            params=all(torch.equal(ts.params[k], back.params[k])
+                       for k in ts.params))
+        del agent, fresh, back
+        buf = io.StringIO()
+        t = time.time()
+        with contextlib.redirect_stdout(buf):
+            vts = train_value.main(["--policy", path, "--epochs", "1",
+                                    "--out", out])
+        value_s = time.time() - t
+        line = json.loads(buf.getvalue().splitlines()[-1])
+        policy_same = all(torch.equal(vts.policy.params[k], ts.params[k])
+                          for k in ts.params)
+        del vts
+    launches = dict(linalg.LAUNCHES)
+    finite = all(math.isfinite(v) for v in line.values()
+                 if isinstance(v, float))
+    # the training epoch and the LocoVal epoch: 32 control steps each
+    want = dict.fromkeys(launches, 0)
+    want.update({"cholesky_factor_blocked_t": 64,
+                 "cholesky_resolve_blocked_t": 128})
+    emit("policy_checkpoint", card=card, num_envs=TRAIN_ENVS,
+         epoch_seconds=epoch_s, save_load_seconds=io_s, file_mb=size_mb,
+         metadata=meta, bit_equal=same, train_value=line,
+         train_value_seconds=value_s, train_value_policy_loaded=policy_same,
+         launches=launches)
+    if not (all(same.values()) and policy_same and finite
+            and launches == want):
+        raise SystemExit(f"policy_checkpoint failed: bit-equal {same}, "
+                         f"train_value policy {policy_same}, line {line}, "
+                         f"launches {launches} (expected {want})")
+    return launches
+
+
+def predictor_setup():
+    """The jta preset at full width on the card, the frozen LocoVal net from
+    PRED_VNET_SEED and its state_dict on the CPU, and the synthetic scenes
+    of 4 people."""
+    import torch
+    from emloco_tpu_torch.learning import ValuePoseNet
+    from emloco_tpu_torch.prediction.data import SyntheticScenes
+    from emloco_tpu_torch.prediction.presets import configs
+    from emloco_tpu_torch.prediction.train import PredictorTrainer
+    mcfg, pcfg = configs("jta")
+    vnet = ValuePoseNet(generator=torch.Generator().manual_seed(
+        PRED_VNET_SEED), device="cpu")
+    vp = {k: v.detach().clone() for k, v in vnet.named_parameters()}
+    trainer = PredictorTrainer(mcfg, pcfg,
+                               vnet=ValuePoseNet(device="cuda"),
+                               device="cuda")
+    return trainer, vp, SyntheticScenes(num_people=4, seed=0)
+
+
+def predictor_train(card, trainer, vp, scenes):
+    """One epoch of the CLI's defaults (20 steps of batch 10) with the
+    EmLoco loss: losses finite, parameters moved, the LocoVal parameters
+    bit-equal, the value loss nonzero with a nonzero gradient at the heads.
+    Returns the state after the epoch and one more batch."""
+    import torch
+    from torch.func import functional_call
+    from emloco_tpu_torch.physics import linalg
+    from emloco_tpu_torch.prediction.data import OBS_FRAMES
+    mcfg = trainer.mcfg
+    ts = trainer.init(0, vnet_params=vp)
+    p0 = {k: v.clone() for k, v in ts.params.items()}
+    vp0 = {k: v.clone() for k, v in ts.vnet_params.items()}
+    t = time.time()
+    batches = list(scenes.batches(PRED_BATCH, PRED_STEPS + 2))
+    data_s = time.time() - t
+    ts, _ = trainer.train_step(ts, *batches[0])         # warm-up
+    torch.cuda.synchronize()
+    linalg.reset_launch_counts()
+    t = time.time()
+    aux = []
+    for b in batches[1:PRED_STEPS + 1]:
+        ts, a = trainer.train_step(ts, *b)
+        aux.append(a)
+    torch.cuda.synchronize()
+    dt = time.time() - t
+    launches = dict(linalg.LAUNCHES)
+    aux = {k: [a[k].item() for a in aux] for k in aux[0]}
+    finite = all(math.isfinite(v) for vals in aux.values() for v in vals)
+    moved = any(not torch.equal(ts.params[k], p0[k]) for k in p0)
+    frozen = all(torch.equal(ts.vnet_params[k], vp0[k]) for k in vp0)
+    # the value loss alone and its gradient at the heads
+    obs, mask, _, pose, vel = trainer.tensors(batches[-1])
+    pose = pose * torch.tensor([1.0, 1.0, -1.0], device="cuda")
+    p = {k: v.detach().requires_grad_(k.startswith("heads."))
+         for k, v in ts.params.items()}
+    with torch.enable_grad():
+        out = functional_call(trainer.model, p, (obs, mask))
+        vloss = trainer._value_loss(ts.vnet_params, out[:, OBS_FRAMES:],
+                                    pose, vel)
+        g, = torch.autograd.grad(vloss, p["heads.weight"])
+    heads_grad = g.abs().max().item()
+    n_params = sum(v.numel() for v in ts.params.values())
+    emit("predictor_train", card=card, preset="jta",
+         model=dataclasses.asdict(mcfg),
+         train=dataclasses.asdict(trainer.cfg), parameters=n_params,
+         local_tokens=mcfg.total_frames + mcfg.obs_frames * (
+             2 + mcfg.num_3dpose + mcfg.num_2dpose),
+         batch=PRED_BATCH, people=scenes.num_people, steps=PRED_STEPS,
+         seconds=dt, steps_per_s=PRED_STEPS / dt,
+         step_ms=dt / PRED_STEPS * 1e3, data_seconds=data_s,
+         traj_loss=aux["traj_loss"], value_loss=aux["value_loss"],
+         total=aux["total"], finite=finite, params_moved=moved,
+         locoval_bit_equal=frozen, value_loss_alone=vloss.item(),
+         heads_grad_max_abs=heads_grad, launches=launches,
+         max_memory_gb=torch.cuda.max_memory_allocated() / 2 ** 30)
+    zero_launches("predictor_train", launches)
+    if not (finite and moved and frozen and min(aux["value_loss"]) > 0
+            and vloss.item() > 0 and heads_grad > 0):
+        raise SystemExit(
+            f"predictor_train failed: finite {finite}, moved {moved}, "
+            f"LocoVal bit-equal {frozen}, value loss {aux['value_loss']}, "
+            f"heads gradient {heads_grad}")
+    return ts, batches[-1], launches
+
+
+def cast(x, dev, dtype):
+    """A tensor on `dev`, in `dtype` if it is floating point."""
+    return x.to(dev, dtype) if x.is_floating_point() else x.to(dev)
+
+
+def ff_kinks(card, cpu):
+    """Card against CPU, for each encoder layer's FF pre-activations
+    (`ff1`'s output, before the ReLU) of one train step: the units whose
+    sign the two devices take the other way, and the units within 1e-6 of
+    the layer's largest |pre-activation| on the CPU."""
+    out = {}
+    for name, z in cpu.items():
+        eps = 1e-6 * z.abs().max().item()
+        out[name] = dict(flips=int(((card[name] > 0) != (z > 0)).sum()),
+                         within_1e6=int((z.abs() < eps).sum()),
+                         units=z.numel())
+    return out
+
+
+def predictor_step(trainer, cpu_tr, ts, batch, vp, dtype, record=False):
+    """One train step (dropout on, the draws made on the CPU) in `dtype` on
+    the card and on the CPU from the same state and batch: by device its
+    seconds, loss terms, gradients and updated parameters on the CPU, and
+    with `record` each encoder layer's FF pre-activations."""
+    import torch
+    from emloco_tpu_torch.prediction.data import SceneBatch
+    runs = {}
+    for dev, tr in (("cuda", trainer), ("cpu", cpu_tr)):
+        def to(x):
+            return cast(x, dev, dtype)
+        s = ts.replace(params={k: to(v) for k, v in ts.params.items()},
+                       opt_state=ts.opt_state.map_tensors(to),
+                       vnet_params={k: to(v) for k, v in vp.items()},
+                       rng=torch.Generator().manual_seed(PRED_REF_SEED))
+        b = SceneBatch(*(to(x) for x in tr.tensors(batch)))
+        ff = {}
+        hooks = [m.register_forward_hook(
+                     lambda m, i, o, n=n, ff=ff:
+                     ff.__setitem__(n, o.detach().cpu()))
+                 for n, m in tr.model.named_modules()
+                 if record and n.endswith("ff1")]
+        t = time.time()
+        try:
+            total, aux, grads = tr.loss_and_grads(s, *b)
+            p1, _ = tr.tx.update(grads, s.opt_state, s.params)
+        finally:
+            for h in hooks:
+                h.remove()
+        seconds = time.time() - t
+        runs[dev] = dict(seconds=seconds,
+                         terms={k: v.item() for k, v in
+                                {**aux, "total": total}.items()},
+                         grads={k: v.cpu() for k, v in grads.items()},
+                         params={k: v.cpu() for k, v in p1.items()}, ff=ff)
+    return runs
+
+
+def predictor_reference(trainer, ts, batch, vp):
+    """One full-width train step on the card against the CPU: in float64
+    with train_reference's gates; then in float32, the step the main path
+    runs, with its loss terms held and its gradients and updates printed
+    beside the count of FF ReLU decisions that the two devices take the
+    other way. Those kinks, among 40·453·1,024 units a local layer, are
+    where the float32 gradients part (PR 14's crowd update parts at its
+    ReLU and max-pool kinks alike); float64 rounding meets none. Then
+    eval-mode predict in float32."""
+    import torch
+    from emloco_tpu_torch.learning import ValuePoseNet
+    from emloco_tpu_torch.prediction.train import PredictorTrainer
+    cpu_tr = PredictorTrainer(trainer.mcfg, trainer.cfg,
+                              vnet=ValuePoseNet(device="cpu"), device="cpu")
+    tol = dict(loss_rel=LOSS_REL, grad_rel=GRAD_REL, step_lr=UPDATE_LR,
+               update_lr=UPDATE_LR)
+    for dtype, gated in ((torch.float64, tuple(tol)),
+                         (torch.float32, ("loss_rel",))):
+        runs = predictor_step(trainer, cpu_tr, ts, batch, vp, dtype,
+                              record=dtype == torch.float32)
+        card, cpu = runs["cuda"], runs["cpu"]
+        opt_cpu = ts.opt_state.map_tensors(lambda x: cast(x, "cpu", dtype))
+        p0 = {k: cast(v, "cpu", dtype) for k, v in ts.params.items()}
+        step_ref, _ = cpu_tr.tx.update(card["grads"], opt_cpu, p0)
+        lr_t = cpu_tr.tx.learning_rate(opt_cpu.count).item()
+        top = max(g.abs().max().item() for g in cpu["grads"].values())
+        term_err = {k: abs(card["terms"][k] - v) / max(abs(v), 1e-6)
+                    for k, v in cpu["terms"].items()}
+        grad_err, step_err, update_err = {}, {}, {}
+        for k, g in cpu["grads"].items():
+            # the key projections' bias gradients are zero (the softmax
+            # over keys ignores a common shift): rounding, held to the
+            # largest |g|
+            scale = max(top if k.endswith("attn.key.bias")
+                        else g.abs().max().item(), 1e-30)
+            grad_err[k] = (card["grads"][k] - g).abs().max().item() / scale
+            step_err[k] = (card["params"][k] - step_ref[k]).abs().max() \
+                .item() / lr_t
+            clear = g.abs() >= GRAD_REL * scale
+            du = card["params"][k] - cpu["params"][k]
+            update_err[k] = (du[clear].abs().max().item() / lr_t
+                             if bool(clear.any()) else 0.0)
+        worst = dict(loss_rel=max(term_err.values()),
+                     grad_rel=max(grad_err.values()),
+                     step_lr=max(step_err.values()),
+                     update_lr=max(update_err.values()))
+        precision = str(dtype).split(".")[-1]
+        kinks = ff_kinks(card["ff"], cpu["ff"]) if card["ff"] else None
+        emit("predictor_reference", precision=precision, batch=PRED_BATCH,
+             lr_t=lr_t, count=int(opt_cpu.count),
+             card_seconds=card["seconds"], cpu_seconds=cpu["seconds"],
+             terms_card=card["terms"], terms_cpu=cpu["terms"], worst=worst,
+             tolerance=tol, gated=gated, grad_rel_by_leaf=grad_err,
+             ff_kinks_card_vs_cpu=kinks,
+             ff_flips=(sum(v["flips"] for v in kinks.values())
+                       if kinks else None))
+        finite = all(math.isfinite(v) for r in (card, cpu)
+                     for v in r["terms"].values())
+        if not (finite and all(worst[k] <= tol[k] for k in gated)):
+            raise SystemExit(f"predictor_reference: the card's {precision} "
+                             f"step disagrees with the CPU's: {worst}")
+    b = trainer.tensors(batch)
+    pred = {dev: tr.predict({k: v.to(dev) for k, v in ts.params.items()},
+                            b.obs, b.padding_mask).cpu()
+            for dev, tr in (("cuda", trainer), ("cpu", cpu_tr))}
+    pred_err = ((pred["cuda"] - pred["cpu"]).abs().max().item()
+                / max(pred["cpu"].abs().max().item(), 1e-30))
+    emit("predictor_reference", precision="float32", predict_rel=pred_err,
+         tolerance=PRED_PREDICT_REL)
+    if not pred_err <= PRED_PREDICT_REL:
+        raise SystemExit(f"predictor_reference: the card's predict disagrees "
+                         f"with the CPU's: {pred_err}")
+
+
+def predictor_eval(card, trainer, ts, vp):
+    """evaluate_with_filter at threshold 0.7 on the JTA fixture's windows,
+    PRED_EVAL_BATCHES batches on the card, timed; then both sweeps; then the
+    same calls on the card and on the CPU on fewer batches of the same
+    windows at the same padding (the fixture holds 4 windows, which every
+    batch of 10 draws again), each metric within 1e-4 of its magnitude. At
+    a threshold where a mode within 1e-5 of it is kept on one device only,
+    that threshold's filtered minima are excused and its kept_frac may
+    differ by at most two modes a flip (the mode and the argmax
+    fallback)."""
+    import numpy as np
+    import torch
+    from emloco_tpu_torch.learning import ValuePoseNet
+    from emloco_tpu_torch.physics import linalg
+    from emloco_tpu_torch.prediction import evaluate as ev
+    from emloco_tpu_torch.prediction.data import NdjsonScenes
+    from emloco_tpu_torch.prediction.train import PredictorTrainer
+    fixture = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "tests", "data", "jta_all_cues_fixture.ndjson")
+    zf = trainer.cfg.pose_z_flip
+    cpu_tr = PredictorTrainer(trainer.mcfg, trainer.cfg, device="cpu")
+    setups = {"cuda": (trainer, ts.params, {k: v.to("cuda")
+                                            for k, v in vp.items()}),
+              "cpu": (cpu_tr, {k: v.cpu() for k, v in ts.params.items()},
+                      vp)}
+    vnets = {d: ValuePoseNet(device=d) for d in setups}
+
+    def data():
+        return NdjsonScenes(fixture, seed=PRED_EVAL_SEED)
+
+    linalg.reset_launch_counts()
+    tr, params, vpc = setups["cuda"]
+    ev.evaluate_with_filter(tr, params, data(), PRED_BATCH, 1,
+                            vnet=vnets["cuda"], vnet_params=vpc,
+                            pose_z_flip=zf)                  # warm-up
+    torch.cuda.synchronize()
+    t = time.time()
+    full = ev.evaluate_with_filter(tr, params, data(), PRED_BATCH,
+                                   PRED_EVAL_BATCHES, vnet=vnets["cuda"],
+                                   vnet_params=vpc, threshold=0.7,
+                                   pose_z_flip=zf)
+    dt = time.time() - t
+    t = time.time()
+    sweep = ev.filter_threshold_sweep(tr, params, data(), PRED_BATCH,
+                                      PRED_EVAL_BATCHES, vnets["cuda"], vpc,
+                                      pose_z_flip=zf)
+    sweep_s = time.time() - t
+    t = time.time()
+    lengths = ev.observation_length_sweep(tr, params, data(), PRED_BATCH,
+                                          PRED_EVAL_BATCHES)
+    lengths_s = time.time() - t
+    launches = dict(linalg.LAUNCHES)
+    emit("predictor_eval", card=card, batch=PRED_BATCH,
+         batches=PRED_EVAL_BATCHES, windows=len(data()), threshold=0.7,
+         seconds=dt, scenes_per_s=PRED_BATCH * PRED_EVAL_BATCHES / dt,
+         evaluate=full, threshold_sweep=sweep, threshold_sweep_seconds=sweep_s,
+         obs_length_sweep=lengths, obs_length_sweep_seconds=lengths_s,
+         launches=launches)
+    zero_launches("predictor_eval", launches)
+
+    res = {}
+    for dev, (tr, params, vpc) in setups.items():
+        t = time.time()
+        res[dev] = dict(evaluate=ev.evaluate_with_filter(
+            tr, params, data(), PRED_BATCH, PRED_REF_BATCHES,
+            vnet=vnets[dev], vnet_params=vpc, threshold=0.7, pose_z_flip=zf),
+            sweep=ev.filter_threshold_sweep(
+                tr, params, data(), PRED_BATCH, PRED_REF_BATCHES,
+                vnets[dev], vpc, pose_z_flip=zf),
+            lengths=ev.observation_length_sweep(
+                tr, params, data(), PRED_BATCH, PRED_REF_LENGTH_BATCHES),
+            seconds=time.time() - t)
+
+    def values(dev):
+        tr, params, vpc = setups[dev]
+        return np.concatenate([
+            ev.batch_eval(tr, params, b, vnets[dev], vpc, 0.7, zf)["values"]
+            for b in data().batches(PRED_BATCH, PRED_REF_BATCHES)])
+
+    card_r, cpu_r = res["cuda"], res["cpu"]
+    vals = {dev: values(dev) for dev in setups}
+    # by threshold: the modes kept on one device only, and those of them
+    # farther than PRED_EDGE from it
+    flips, far = {}, {}
+    for th in {0.7, *cpu_r["sweep"]}:
+        f = (vals["cuda"] >= th) != (vals["cpu"] >= th)
+        flips[th] = int(f.sum())
+        far[th] = int((f & (np.abs(vals["cpu"] - th) > PRED_EDGE)).sum())
+    flat = {}
+    for name in ("evaluate", "lengths"):
+        for k, v in cpu_r[name].items():
+            flat[f"{name}.{k}"] = (0.7 if name == "evaluate" else None,
+                                   k, card_r[name][k], v)
+    for th, row in cpu_r["sweep"].items():
+        for k, v in row.items():
+            flat[f"sweep.{th}.{k}"] = (th, k, card_r["sweep"][th][k], v)
+    errs = {n: abs(a - b) / max(abs(b), 1e-6)
+            for n, (_, _, a, b) in flat.items()}
+    excused, bad = [], {}
+    for n, (th, k, a, b) in flat.items():
+        if th is not None and flips[th] and "filtered" in k:
+            excused.append(n)
+        elif th is not None and flips[th] and k == "kept_frac":
+            excused.append(n)
+            if abs(a - b) > 2 * flips[th] / vals["cpu"].size:
+                bad[n] = abs(a - b)
+        elif errs[n] > PRED_EVAL_REL:
+            bad[n] = errs[n]
+    value_err = float(np.abs(vals["cuda"] - vals["cpu"]).max())
+    emit("predictor_eval", reference_batches=PRED_REF_BATCHES,
+         length_batches=PRED_REF_LENGTH_BATCHES,
+         card_seconds=card_r["seconds"], cpu_seconds=cpu_r["seconds"],
+         worst_rel=max(errs.values()), worst_metric=max(errs, key=errs.get),
+         tolerance=PRED_EVAL_REL, value_max_abs_err=value_err,
+         modes=int(vals["cpu"].size),
+         modes_near_0_7=int((np.abs(vals["cpu"] - 0.7) <= PRED_EDGE).sum()),
+         kept_on_one_device_by_threshold=flips, excused=sorted(excused),
+         failing=bad)
+    if bad or any(far.values()):
+        raise SystemExit(f"predictor_eval: the card's metrics disagree with "
+                         f"the CPU's: {bad}, modes kept on one device away "
+                         f"from the threshold {far}")
+    return launches
+
+
+def predictor_paths(card, vp, scenes):
+    """The jrdb preset (246-token local sequences) and the lstm preset at
+    full width: 2 train steps and one predict each, finite, timed."""
+    import torch
+    from emloco_tpu_torch.learning import ValuePoseNet
+    from emloco_tpu_torch.physics import linalg
+    from emloco_tpu_torch.prediction.presets import configs
+    from emloco_tpu_torch.prediction.train import PredictorTrainer
+    linalg.reset_launch_counts()
+    batches = list(scenes.batches(PRED_BATCH, 3))
+    for preset in ("jrdb", "lstm"):
+        mcfg, pcfg = configs(preset)
+        tr = PredictorTrainer(mcfg, pcfg, vnet=ValuePoseNet(device="cuda"),
+                              device="cuda")
+        ts = tr.init(0, vnet_params=vp)
+        ts, _ = tr.train_step(ts, *batches[0])               # warm-up
+        torch.cuda.synchronize()
+        t = time.time()
+        aux = []
+        for b in batches[1:]:
+            ts, a = tr.train_step(ts, *b)
+            aux.append({k: v.item() for k, v in a.items()})
+        dt = time.time() - t
+        pred = tr.predict(ts.params, batches[0].obs, batches[0].padding_mask)
+        finite = (all(math.isfinite(v) for a in aux for v in a.values())
+                  and bool(torch.isfinite(pred).all()))
+        shape = tuple(pred.shape)
+        want = (PRED_BATCH, mcfg.pred_frames, mcfg.nmode, 2)
+        emit("predictor_paths", card=card, preset=preset,
+             model=dataclasses.asdict(mcfg), train=dataclasses.asdict(pcfg),
+             local_tokens=(mcfg.total_frames + mcfg.obs_frames * (
+                 1 + mcfg.use_3dbb + mcfg.num_3dpose
+                 + mcfg.num_2dpose * mcfg.use_2dpose)
+                 if mcfg.arch == "transmotion" else None),
+             steps=len(aux), seconds=dt, steps_per_s=len(aux) / dt,
+             losses=aux, predict_shape=shape, finite=finite)
+        if not (finite and shape == want):
+            raise SystemExit(f"predictor_paths {preset}: finite {finite}, "
+                             f"predict shape {shape} (expected {want})")
+    launches = dict(linalg.LAUNCHES)
+    zero_launches("predictor_paths", launches)
+    return launches
+
+
 def main():
     import numpy as np
     import torch
@@ -2431,6 +2953,18 @@ def main():
     # 27-28. the getup and hand training epochs -----------------------------
     by_path["getup_train"] = getup_train(card)
     by_path["hand_train"] = hand_train(card)
+
+    # 29. policy checkpoints ------------------------------------------------
+    by_path["policy_checkpoint"] = policy_checkpoint(card)
+
+    # 30-33. the trajectory predictor ---------------------------------------
+    trainer, vp, scenes = predictor_setup()
+    ts, batch, by_path["predictor_train"] = predictor_train(
+        card, trainer, vp, scenes)
+    predictor_reference(trainer, ts, batch, vp)
+    by_path["predictor_eval"] = predictor_eval(card, trainer, ts, vp)
+    by_path["predictor_paths"] = predictor_paths(card, vp, scenes)
+    del trainer, ts
 
     # summary ---------------------------------------------------------------
     kernels = []

@@ -17,17 +17,27 @@ learning     running normalization, the AMPSept network's four heads, the
              PPO + AMP agent (amp_agent), the LocoVal function
              (ValuePoseNet) and its trainer (value_train)
 analysis     LocoVal probes: score, rank, sample and optimize trajectories
-utils        checkpoints in the JAX package's pickle format
+prediction   trajectory prediction: metrics, datasets (synthetic scenes,
+             ndjson exports), the TransMotion and LSTM predictors, the
+             trainer with the EmLoco loss, evaluation with the LocoVal
+             filter, the presets of configs/*_predictor.yaml and
+             jta_lstm.yaml
+utils        checkpoints in the JAX package's pickle format, read without
+             the JAX package (policies, valuenets, predictors)
 csrc         the CUDA kernels; build.py compiles them with nvcc at first use
-convert      JAX-package objects (as numpy pytrees) → this package's objects
+convert      JAX-package objects (as numpy pytrees) → this package's
+             objects, and back to the flax layout for the files it writes
 rollout      the env and actor at the bench configuration; the control step;
              the agent and the LocoVal trainer at the bench's training
              configuration
 train        the training entry point: python3 -m emloco_tpu_torch.train
-train_value  the LocoVal training entry point
+             (policy checkpoints with --out, --resume)
+train_value  the LocoVal training entry point (--policy, --resume)
 optimize_traj  trajectory optimization against a valuenet checkpoint
-profile_step where a control step's, a training epoch's or a LocoVal
-             epoch's time goes on the card
+train_predictor, eval_predictor  the predictor's training (EmLoco loss)
+             and evaluation (LocoVal filter) entry points
+profile_step where a control step's, a training epoch's, a LocoVal
+             epoch's or a predictor train step's time goes on the card
 scripts      the Gram-layout probe, port of scripts/gram_kernel_probe.py
 
 Every entry point takes `device=None`, which means CUDA; the CPU runs only

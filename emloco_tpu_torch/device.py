@@ -13,3 +13,16 @@ def resolve(device=None) -> torch.device:
             "emloco_tpu_torch runs on a CUDA device by default and none is "
             "available; pass device='cpu' to run on the CPU")
     return dev
+
+
+def full_float32(dev: torch.device) -> None:
+    """On a CUDA device, the networks' float32 GEMMs and convs in full
+    float32, not TF32 (the physics step sets this for itself)."""
+    if dev.type == "cuda":
+        torch.backends.cuda.matmul.fp32_precision = "ieee"
+        torch.backends.cudnn.conv.fp32_precision = "ieee"
+
+
+def name(dev: torch.device) -> str:
+    """The card's name, or "cpu"."""
+    return torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"

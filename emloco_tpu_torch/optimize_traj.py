@@ -38,9 +38,7 @@ def main(argv=None):
                     help="torch device; default the CUDA card")
     args = ap.parse_args(argv)
     dev = _device.resolve(args.device)
-    if dev.type == "cuda":
-        torch.backends.cuda.matmul.fp32_precision = "ieee"
-        torch.backends.cudnn.conv.fp32_precision = "ieee"
+    _device.full_float32(dev)
     tree, meta = load_pytree(args.valuenet)
     vcfg = (meta or {}).get("config") or {}
     use_pose = bool(vcfg.get("use_pose", False))
@@ -62,7 +60,7 @@ def main(argv=None):
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     dt = time.perf_counter() - t
-    name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    name = _device.name(dev)
     print(json.dumps({"value_before": values[0].mean().item(),
                       "value_after": values[-1].mean().item(),
                       "batch_size": B, "steps": args.steps, "seconds": dt,

@@ -7,6 +7,8 @@
         [env.<field>=<value> ...] [engine.<field>=<value> ...]
     python3 -m emloco_tpu_torch.profile_step --value [--envs 1600]
         [amp.<field>=<value> ...] [env.<field>=<value> ...]
+    python3 -m emloco_tpu_torch.profile_step --predictor [--preset jta]
+        [--steps 3]
 
 Builds the env and actor at the bench configuration (`rollout.build_bench`)
 and times on the host, with a synchronize around each part: observe,
@@ -34,6 +36,12 @@ With `--value` the unit is one LocoVal epoch (`rollout.build_value_bench`),
 broken down the same way into its two parts: collect (the frozen policy's
 32 control steps with the return latching) and update (one AdamW step of
 the valuenet on the epoch's samples).
+
+With `--predictor` the unit is one train step of the trajectory predictor
+at a preset's full width (`prediction.presets`: jta, jrdb or lstm) on a
+batch of 10 synthetic scenes of 4 people, with the EmLoco loss through a
+ValuePoseNet from a fixed seed where the preset uses it: the host time of
+`--steps` steps after a warm-up, then the same steps traced.
 """
 from __future__ import annotations
 
@@ -171,6 +179,31 @@ def _value(args, dev, card):
            trainer.cfg.horizon * envs, card, args.top, num_envs=envs)
 
 
+def _predictor(args, dev, card):
+    """`--steps` train steps of the predictor preset after a warm-up."""
+    from .learning import ValuePoseNet
+    from .prediction.data import SyntheticScenes
+    from .prediction.presets import configs
+    from .prediction.train import PredictorTrainer
+    mcfg, pcfg = configs(args.preset)
+    vnet = ValuePoseNet(generator=torch.Generator(device=dev).manual_seed(0),
+                        device=dev)
+    trainer = PredictorTrainer(mcfg, pcfg, vnet=vnet, device=dev)
+    ts = trainer.init(0, vnet_params=dict(vnet.named_parameters()))
+    batch = SyntheticScenes(num_people=4, seed=0).batch(10)
+    state = [trainer.train_step(ts, *batch)[0]]          # warm-up
+
+    def step():
+        state[0], _ = trainer.train_step(state[0], *batch)
+
+    host_ms, _ = _host_ms(step, args.steps)
+    print(json.dumps({"preset": args.preset, "host_ms_per_step": host_ms,
+                      "steps_per_s": 1e3 / host_ms, "batch": 10,
+                      "card": card}), flush=True)
+    _report(_profile(step, args.steps)[0], args.steps, "step", host_ms,
+            card, args.top)
+
+
 def _host_split(t):
     """(ms since `t` after a synchronize, now)."""
     torch.cuda.synchronize()
@@ -190,6 +223,10 @@ def main(argv=None):
                     help="break down one LocoVal training epoch instead")
     ap.add_argument("--task", choices=TASKS, default="terrain",
                     help="the task of --train")
+    ap.add_argument("--predictor", action="store_true",
+                    help="break down one predictor train step instead")
+    ap.add_argument("--preset", default="jta",
+                    help="the predictor preset of --predictor")
     ap.add_argument("overrides", nargs="*",
                     help="amp.<field>=<value> (--train, --value), "
                          "env.<field>=<value> and engine.<field>=<value>")
@@ -201,10 +238,7 @@ def main(argv=None):
     if args.task != "terrain" and not args.train:
         raise SystemExit("--task needs --train")
     dev = _device.resolve(None)
-    # the networks' float32 GEMMs and convs in full float32, not TF32 (the
-    # physics step sets this for itself)
-    torch.backends.cuda.matmul.fp32_precision = "ieee"
-    torch.backends.cudnn.conv.fp32_precision = "ieee"
+    _device.full_float32(dev)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -213,6 +247,8 @@ def main(argv=None):
         return _train(args, dev, card)
     if args.value:
         return _value(args, dev, card)
+    if args.predictor:
+        return _predictor(args, dev, card)
 
     envs = args.envs or 4096
     r = build_bench(envs, dev, **args.env_fields)

@@ -3,32 +3,41 @@ configuration.
 
     python3 -m emloco_tpu_torch.train [--epochs 10] [--num-envs 1600]
         [--seed 0] [--device cuda] [--task terrain|getup|hand]
+        [--out DIR] [--save-every 200] [--resume PATH]
         [amp.<field>=<value> ...] [env.<field>=<value> ...]
         [engine.<field>=<value> ...]
 
 The counterpart of the JAX package's `train-policy` loop (cli/run.py:94-175)
-without checkpoints, resume, mesh or profiling. It builds
-`rollout.build_train_bench` for the task (the env class of `cli/run.py:81-88`;
-`getup` with self-contact and SMPL-fixture mesh colliders by default; fields
-of AMPConfig, of the task's env config and of its engine may be replaced
-with `amp.<field>=<value>`, `env.<field>=<value>` and
-`engine.<field>=<value>`) and prints one JSON line an epoch: the epoch's
-metrics, its seconds and env-steps/s including the update. For `getup`
-every epoch first applies the fall-bank schedule and the reward schedule at
-its epoch number, as `cli/run.py:148-156` does. Runs on the CUDA card unless
-`--device cpu` is given.
+without mesh or profiling. It builds `rollout.build_train_bench` for the
+task (the env class of `cli/run.py:81-88`; `getup` with self-contact and
+SMPL-fixture mesh colliders by default; fields of AMPConfig, of the task's
+env config and of its engine may be replaced with `amp.<field>=<value>`,
+`env.<field>=<value>` and `engine.<field>=<value>`) and prints one JSON line
+an epoch: the epoch's metrics, its seconds and env-steps/s including the
+update. For `getup` every epoch first applies the fall-bank schedule and the
+reward schedule at its absolute epoch number, as `cli/run.py:148-156` does.
+
+With `--out DIR` it writes `policy_<epoch:08d>.ckpt` there after every
+`--save-every`-th epoch and after the last (`utils.checkpoint.save_policy`:
+params in the flax layout, the three norms, the Adam state, the metadata
+`epoch`). `--resume PATH` starts from a policy file of either package: its
+params and norms, and its value norm and Adam state where it has them;
+epochs are numbered on from the file's (its metadata, else its name), as
+the JAX CLI numbers them. Runs on the CUDA card unless `--device cpu` is
+given.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import json
+import os
 import time
-
-import torch
 
 from . import device as _device
 from .rollout import TASKS, TRAIN_AMP, build_train_bench, parse_overrides
+from .utils.checkpoint import (checkpoint_epoch, load_pytree,
+                               restore_policy, save_policy)
 
 
 def main(argv=None):
@@ -39,26 +48,33 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device; default the CUDA card")
     ap.add_argument("--task", choices=TASKS, default="terrain")
+    ap.add_argument("--out", default=None,
+                    help="directory for policy checkpoints (none without)")
+    ap.add_argument("--save-every", type=int, default=200)
+    ap.add_argument("--resume", default=None,
+                    help="policy checkpoint of either package")
     ap.add_argument("overrides", nargs="*")
     args = ap.parse_args(argv)
     amp_fields, env_fields = parse_overrides(args.overrides, args.task)
     dev = _device.resolve(args.device)
-    if dev.type == "cuda":
-        # the networks' float32 GEMMs and convs in full float32, not TF32
-        # (the physics step sets this for itself)
-        torch.backends.cuda.matmul.fp32_precision = "ieee"
-        torch.backends.cudnn.conv.fp32_precision = "ieee"
+    _device.full_float32(dev)
     agent, ts = build_train_bench(
         args.num_envs, dev, args.seed,
         dataclasses.replace(TRAIN_AMP, **amp_fields), args.task,
         **env_fields)
+    if args.resume:
+        tree, meta = load_pytree(args.resume)
+        ts = restore_policy(ts, tree)
+        ts = ts.replace(epoch=checkpoint_epoch(args.resume, meta) + 1)
     env = agent.env
     steps = agent.cfg.horizon * args.num_envs
-    name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    name = _device.name(dev)
+    last = ts.epoch + args.epochs - 1
     for _ in range(args.epochs):
+        ep = ts.epoch
         t = time.perf_counter()
         if args.task == "getup":
-            ep, upd = ts.epoch, env.cfg.getup_update_epoch
+            upd = env.cfg.getup_update_epoch
             ts = ts.replace(env_state=env.update_getup_schedule(
                 ts.env_state, ep, upd))
             ts = agent.update_getup_reward_schedule(ts, ep, upd)
@@ -69,6 +85,9 @@ def main(argv=None):
                           "env_steps_per_s": steps / dt,
                           "replay_filled": ts.replay_filled,
                           "device": name}), flush=True)
+        if args.out and (ep and ep % args.save_every == 0 or ep == last):
+            save_policy(os.path.join(args.out, f"policy_{ep:08d}.ckpt"), ts,
+                        ep)
     return ts
 
 

@@ -4,11 +4,15 @@ bench's training configuration.
     python3 -m emloco_tpu_torch.train_value [--epochs 10] [--num-envs 1600]
         [--seed 0] [--device cuda] [--nopose] [--novel] [--vru]
         [--games N] [--out output/valuenet] [--save-every 200]
+        [--policy PATH] [--resume PATH]
         [amp.<field>=<value> ...] [env.<field>=<value> ...]
 
-The counterpart of the JAX package's `train-valuenet` (cli/run.py:176-223)
-without a policy checkpoint or resume: the policy is the bench agent's,
-drawn from `--seed`. It builds `rollout.build_value_bench` (the valuenet
+The counterpart of the JAX package's `train-valuenet` (cli/run.py:176-223).
+The frozen policy is the bench agent's, drawn from `--seed`, or with
+`--policy PATH` a policy file's params and obs / AMP norms (either
+package's file). `--resume PATH` starts from a valuenet file's parameters
+(a fresh optimizer, as the JAX CLI) and numbers the epochs on from the
+number in its name. It builds `rollout.build_value_bench` (the valuenet
 without the initial pose with `--nopose`, without the initial velocity
 with `--novel`, on 5 waypoints with `--vru`; fields of AMPConfig and
 EnvConfig may be replaced as in `python3 -m emloco_tpu_torch.train`),
@@ -27,11 +31,11 @@ import json
 import os
 import time
 
-import torch
-
+from . import convert
 from . import device as _device
 from .rollout import TRAIN_AMP, build_value_bench, parse_overrides
-from .utils.checkpoint import save_valuenet
+from .utils.checkpoint import (checkpoint_epoch, load_pytree,
+                               restore_policy, save_valuenet)
 
 
 def main(argv=None):
@@ -48,24 +52,35 @@ def main(argv=None):
                     help="evaluation rollout epochs after training")
     ap.add_argument("--out", default="output/valuenet")
     ap.add_argument("--save-every", type=int, default=200)
+    ap.add_argument("--policy", default=None,
+                    help="policy checkpoint of either package")
+    ap.add_argument("--resume", default=None, help="valuenet checkpoint")
     ap.add_argument("overrides", nargs="*")
     args = ap.parse_args(argv)
     amp_fields, env_fields = parse_overrides(args.overrides)
     dev = _device.resolve(args.device)
-    if dev.type == "cuda":
-        # the networks' float32 GEMMs and convs in full float32, not TF32
-        # (the physics step sets this for itself)
-        torch.backends.cuda.matmul.fp32_precision = "ieee"
-        torch.backends.cudnn.conv.fp32_precision = "ieee"
+    _device.full_float32(dev)
     use = dict(use_pose=not args.nopose, use_vel=not args.novel)
     trainer, vts = build_value_bench(
         args.num_envs, dev, args.seed,
         dataclasses.replace(TRAIN_AMP, **amp_fields), env_fields,
         num_waypoints=5 if args.vru else 13, **use)
+    if args.policy:
+        tree, _ = load_pytree(args.policy)
+        vts = vts.replace(policy=restore_policy(vts.policy, tree,
+                                                full=False))
+    start = 0
+    if args.resume:
+        tree, _ = load_pytree(args.resume)
+        vts = vts.replace(vnet_params={
+            k: v.to(dev) for k, v in convert.valuenet_state_dict(
+                tree).items()})
+        start = checkpoint_epoch(args.resume) + 1
+        vts = vts.replace(epoch=start)
     steps = trainer.cfg.horizon * args.num_envs
-    name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
-    last = args.epochs - 1
-    for ep in range(args.epochs):
+    name = _device.name(dev)
+    last = start + args.epochs - 1
+    for ep in range(start, start + args.epochs):
         t = time.perf_counter()
         vts, metrics = trainer.train_epoch(vts)
         metrics = {k: v.item() for k, v in metrics.items()}

@@ -34,6 +34,15 @@ def test_import_pulls_in_no_jax():
         "import emloco_tpu_torch.learning.value_train, "
         "emloco_tpu_torch.analysis, emloco_tpu_torch.utils.checkpoint, "
         "emloco_tpu_torch.train_value, emloco_tpu_torch.optimize_traj\n"
+        "import emloco_tpu_torch.prediction.metrics, "
+        "emloco_tpu_torch.prediction.data, "
+        "emloco_tpu_torch.prediction.model, "
+        "emloco_tpu_torch.prediction.lstm, "
+        "emloco_tpu_torch.prediction.train, "
+        "emloco_tpu_torch.prediction.evaluate, "
+        "emloco_tpu_torch.prediction.presets, "
+        "emloco_tpu_torch.train_predictor, "
+        "emloco_tpu_torch.eval_predictor\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "print(','.join(bad))\n")
