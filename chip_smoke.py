@@ -253,6 +253,44 @@ Phases, each printed as one JSON line with its elapsed seconds:
  33. predictor_paths — the jrdb preset (246-token local sequences) and the
                 lstm preset: a warm-up and 2 train steps and one predict
                 each, finite, steps/s
+ 34. eqmotion_train — the EqMotion baseline at full width, the compact
+                model (EqMotionConfig(): past 8, future 12, hidden 64, 32
+                channels, 4 layers, 20 modes, 4 categories) and the
+                architecture-exact one (eth_full_config(): nf 64, 64
+                channels, 4 layers, 20 modes, no agent tokens), each on
+                synthetic ETH scenes of 10 × 4 agents with the EmLoco loss
+                at weight 0.1 through a seeded ValuePoseNet(use_pose=False,
+                use_vel=True): a warm-up step, then 20 steps (one epoch of
+                the CLI's defaults); losses finite, parameters moved, the
+                LocoVal parameters bit-equal, the value loss and its
+                gradient at the heads nonzero, none of the engine's kernels
+                launched (as in 35, 36 and 38); steps/s and ms a step
+ 35. eqmotion_reference — one train step of each architecture on the card
+                and on the CPU from the same state and batch: in float64
+                with train_reference's tolerances; in float32, the main
+                path's step, its loss terms within 1e-4 and its gradients
+                and updates printed beside the rows whose WTA winner
+                differs and, for the full model, the reflection-gate
+                products whose sign differs between the devices; predict in
+                float32 within 1e-4 of the largest |output|
+ 36. eqmotion_eval — `evaluate` with the LocoVal filter at 0.7 on the ETH
+                fixture's windows (4 agents), card against CPU within 1e-4,
+                a mode kept on one device only only within 1e-5 of the
+                threshold (counted); then `train_eqmotion --ethucy
+                <fixture> --epochs 2 --valuenet <file>` on the card and its
+                eqmotion.ckpt read back bit-equal
+ 37. eval_policy — `eval_policy --grid --games 1` at the bench's training
+                configuration (1,600 envs): four conditions, a finite mse
+                or no latched episode, factor 32 and resolve 64 launches in
+                each condition's rollouts; then `rollout_with_rewards` for
+                90 steps (the GIF's length) at env 0: frames finite, factor
+                90 and resolve 180 launches, steps/s
+ 38. prediction_tools — collect_vis_data on the JTA fixture at the jta
+                preset's full width, card against CPU within 1e-4;
+                export_scene_dataset of 32 synthetic scenes read back
+                equal; `tune_predictor --trials 2 --epochs 1 --batches 2` at
+                the jta preset, both trials finite, and the command run
+                again resumes after them
 Then the kernels' summary line and, last, the device line. Any failed check
 raises and the script exits non-zero. Without a CUDA device it exits 2 and
 runs nothing.
@@ -395,6 +433,16 @@ PRED_PREDICT_REL = 1e-4
 PRED_EVAL_BATCHES, PRED_EVAL_SEED = 20, 2
 PRED_REF_BATCHES, PRED_REF_LENGTH_BATCHES = 2, 1
 PRED_EVAL_REL, PRED_EDGE = 1e-4, 1e-5
+# the EqMotion phases: the CLI's defaults (batch 10, 20 steps an epoch) on
+# synthetic ETH scenes of 4 agents, the EmLoco loss at the CLI's weight
+# through a LocoVal net (velocity only) from its own seed; the float32
+# step's loss terms held at 1e-4 against the CPU; rollout_with_rewards for
+# the length of save_rollout_gif's GIF; scenes exported as a bank
+EQ_BATCH, EQ_AGENTS, EQ_STEPS, EQ_VALUE_W = 10, 4, 20, 0.1
+EQ_VNET_SEED, EQ_DATA_SEED = 13, 14
+EQ_LOSS32_REL = 1e-4
+GIF_STEPS = 90
+EXPORT_SCENES = 32
 # H100 SXM peaks (NVIDIA data sheet, 700 W): HBM bytes/s; non-tensor-core
 # f32 FLOP/s, the peak of every kernel's bound but gram_diag's; dense bf16
 # tensor-core FLOP/s (float32 sums), the peak of gram_diag's bound on bf16
@@ -2648,6 +2696,447 @@ def predictor_paths(card, vp, scenes):
     return launches
 
 
+def sync(dev):
+    import torch
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def eq_trainer(arch, device, vnet=True):
+    """The compact EqMotion (EqMotionConfig(): past 8, future 12, hidden
+    64, 32 channels, 4 layers, 20 modes) or the architecture-exact one
+    (eth_full_config(): nf 64, 64 channels, 4 layers, 20 modes) on
+    `device`; with `vnet`, the EmLoco loss at EQ_VALUE_W through
+    ValuePoseNet(use_pose=False, use_vel=True)."""
+    from emloco_tpu_torch.learning import ValuePoseNet
+    from emloco_tpu_torch.prediction import eqmotion as E
+    from emloco_tpu_torch.prediction.eqmotion_full import (EqMotionFullEth,
+                                                           eth_full_config)
+    model = (EqMotionFullEth(eth_full_config(), device=device)
+             if arch == "full" else None)
+    return E.EqMotionTrainer(
+        E.EqMotionConfig(),
+        vnet=ValuePoseNet(use_pose=False, use_vel=True, device=device)
+        if vnet else None, valueloss_w=EQ_VALUE_W if vnet else 0.0,
+        model=model, device=device)
+
+
+def eq_vnet():
+    """The frozen LocoVal state_dict (velocity only) from EQ_VNET_SEED, on
+    the CPU."""
+    import torch
+    from emloco_tpu_torch.learning import ValuePoseNet
+    vnet = ValuePoseNet(use_pose=False, use_vel=True,
+                        generator=torch.Generator().manual_seed(EQ_VNET_SEED),
+                        device="cpu")
+    return {k: v.detach().clone() for k, v in vnet.named_parameters()}
+
+
+EQ_HEADS = {"compact": "head.", "full": "core.predict_head."}
+
+
+def eqmotion_train(card, vp, dev="cuda"):
+    """A warm-up step, then one epoch of the CLI's defaults (EQ_STEPS steps
+    of EQ_BATCH synthetic ETH scenes of EQ_AGENTS agents) of each
+    architecture with the EmLoco loss: losses finite, parameters moved, the
+    LocoVal parameters bit-equal, the value loss nonzero and its gradient
+    at the heads nonzero (the step's head gradient less the WTA loss's
+    alone), none of the engine's kernels launched. Returns {arch: (trainer,
+    state after the warm-up, a batch)} and the launch counts."""
+    import torch
+    from emloco_tpu_torch.physics import linalg
+    from emloco_tpu_torch.prediction import eqmotion as E
+    states = {}
+    linalg.reset_launch_counts()
+    for arch in ("compact", "full"):
+        tr = eq_trainer(arch, dev)
+        ts, vpc = tr.init(0, vnet_params=vp)
+        vp0 = {k: v.clone() for k, v in vpc.items()}
+        gen = torch.Generator(device=dev).manual_seed(EQ_DATA_SEED)
+        batches = [E.synthetic_eth_batch(gen, EQ_BATCH, EQ_AGENTS)
+                   for _ in range(EQ_STEPS + 2)]
+        t = time.time()
+        ts, _ = tr.train_step(ts, vpc, *batches[0])          # warm-up
+        sync(dev)
+        warm_s = time.time() - t
+        start = ts
+        t = time.time()
+        aux = []
+        for b in batches[1:EQ_STEPS + 1]:
+            ts, a = tr.train_step(ts, vpc, *b)
+            aux.append(a)
+        sync(dev)
+        dt = time.time() - t
+        aux = [{k: v.item() for k, v in a.items()} for a in aux]
+        moved = any(not torch.equal(ts.params[k], start.params[k])
+                    for k in ts.params)
+        vnet_same = all(torch.equal(vpc[k], vp0[k]) for k in vp0)
+        _, _, g = tr.loss_and_grads(ts.params, vpc, *batches[-1])
+        _, _, g_wta = eq_trainer(arch, dev, vnet=False).loss_and_grads(
+            ts.params, None, *batches[-1])
+        head = max((g[k] - g_wta[k]).abs().max().item() for k in g
+                   if k.startswith(EQ_HEADS[arch]))
+        finite = all(math.isfinite(v) for a in aux for v in a.values())
+        value_nonzero = all(a["value_loss"] > 0 for a in aux)
+        emit("eqmotion_train", card=card, arch=arch,
+             model=dataclasses.asdict(tr.model.cfg),
+             params=sum(v.numel() for v in ts.params.values()),
+             batch=EQ_BATCH, agents=EQ_AGENTS, value_w=EQ_VALUE_W,
+             warmup_seconds=warm_s, steps=EQ_STEPS, seconds=dt,
+             steps_per_s=EQ_STEPS / dt, ms_per_step=dt / EQ_STEPS * 1e3,
+             first=aux[0], last=aux[-1], finite=finite, moved=moved,
+             vnet_bit_equal=vnet_same, value_grad_at_heads=head)
+        if not (finite and moved and vnet_same and value_nonzero
+                and head > 0):
+            raise SystemExit(f"eqmotion_train {arch}: finite {finite}, "
+                             f"moved {moved}, valuenet kept {vnet_same}, "
+                             f"value loss nonzero {value_nonzero}, value "
+                             f"gradient at the heads {head}")
+        states[arch] = (tr, start, batches[-1])
+    launches = dict(linalg.LAUNCHES)
+    zero_launches("eqmotion_train", launches)
+    return states, launches
+
+
+def eq_step(arch, runs_on, ts, batch, vp, dtype, record=False):
+    """One train step of `arch` in `dtype` on each device of `runs_on` from
+    the same state and batch: its loss terms, gradients, updated parameters
+    and eval-mode prediction on the CPU, the WTA winners, and with
+    `record` each layer's reflection-gate `product` (q·k over the
+    coordinates, from the layer_q and layer_k outputs)."""
+    import torch
+    runs = {}
+    for dev in runs_on:
+        tr = eq_trainer(arch, dev)
+
+        def to(x):
+            return cast(x, dev, dtype)
+        p = {k: to(v) for k, v in ts.params.items()}
+        v = {k: to(x) for k, x in vp.items()}
+        b = [to(x) for x in batch]
+        qk = {}
+        hooks = [m.register_forward_hook(
+                     lambda m, i, o, n=n, qk=qk:
+                     qk.__setitem__(n, o.detach()))
+                 for n, m in tr.model.named_modules()
+                 if record and n.endswith(("layer_q", "layer_k"))]
+        t = time.time()
+        try:
+            _, aux, grads = tr.loss_and_grads(p, v, *b)
+            p1, _ = tr.tx.update(grads, tr.tx.init(p), p)
+        finally:
+            for h in hooks:
+                h.remove()
+        pred = tr.predict(p, b[0])
+        sync(dev)
+        seconds = time.time() - t
+        d = pred[:, 0] - b[1][:, 0:1]
+        win = torch.sqrt((d * d).sum(-1) + 1e-12).mean(-1).argmin(-1)
+        product = {n[:-len(".layer_q")]: (qk[n] * qk[n[:-1] + "k"]).sum(2)
+                   .cpu() for n in qk if n.endswith("layer_q")}
+        runs[dev] = dict(seconds=seconds,
+                         terms={k: x.item() for k, x in aux.items()},
+                         grads={k: x.cpu() for k, x in grads.items()},
+                         params={k: x.cpu() for k, x in p1.items()},
+                         pred=pred.cpu(), win=win.cpu(), product=product)
+    return runs
+
+
+def eqmotion_reference(states, vp, card_dev="cuda"):
+    """One train step of each architecture on the card and on the CPU from
+    the same state and batch: in float64 with train_reference's gates (loss
+    terms 1e-4, gradients 1e-4 of each leaf's largest |g|, updates 1e-3 ×
+    lr where the gradient stands clear); in float32, the main path's step,
+    with its loss terms held at 1e-4 and its gradients and updates printed
+    beside the rows whose WTA winner differs between the devices and, for
+    the full model, the reflection-gate products whose sign differs (the
+    gate's kink, where float32 gradients may part); eval-mode predict in
+    float32 within 1e-4 of the largest |output|."""
+    import torch
+    lr = 5e-4
+    for arch, (tr, ts, batch) in states.items():
+        r64 = eq_step(arch, (card_dev, "cpu"), ts, batch, vp, torch.float64)
+        card, cpu = r64[card_dev], r64["cpu"]
+        loss_err = {k: abs(card["terms"][k] - v) / max(abs(v), 1e-30)
+                    for k, v in cpu["terms"].items()}
+        grad_err, upd_err = {}, {}
+        for k, g in cpu["grads"].items():
+            tol = GRAD_REL * max(g.abs().max().item(), 1e-30)
+            grad_err[k] = (card["grads"][k] - g).abs().max().item() / (
+                tol / GRAD_REL)
+            clear = g.abs() >= tol
+            du = (card["params"][k] - cpu["params"][k])[clear]
+            upd_err[k] = du.abs().max().item() / lr if du.numel() else 0.0
+        ok64 = (max(loss_err.values()) <= LOSS_REL
+                and max(grad_err.values()) <= GRAD_REL
+                and max(upd_err.values()) <= UPDATE_LR)
+        r32 = eq_step(arch, (card_dev, "cpu"), ts, batch, vp, torch.float32,
+                      record=arch == "full")
+        c32, p32 = r32[card_dev], r32["cpu"]
+        loss32 = {k: abs(c32["terms"][k] - v) / max(abs(v), 1e-30)
+                  for k, v in p32["terms"].items()}
+        grad32 = {k: (c32["grads"][k] - g).abs().max().item()
+                  / max(g.abs().max().item(), 1e-30)
+                  for k, g in p32["grads"].items()}
+        upd32 = max((c32["params"][k] - v).abs().max().item() / lr
+                    for k, v in p32["params"].items())
+        pred_err = ((c32["pred"] - p32["pred"]).abs().max().item()
+                    / p32["pred"].abs().max().item())
+        win_flips = int((c32["win"] != p32["win"]).sum())
+        gate_flips = {n: int(((c32["product"][n] >= 0)
+                              != (p32["product"][n] >= 0)).sum())
+                      for n in p32["product"]}
+        emit("eqmotion_reference", arch=arch, batch=EQ_BATCH,
+             float64=dict(loss_max_rel=max(loss_err.values()),
+                          grad_max_rel=max(grad_err.values()),
+                          update_max_lr=max(upd_err.values()),
+                          card_seconds=card["seconds"],
+                          cpu_seconds=cpu["seconds"]),
+             float32=dict(terms_card=c32["terms"], terms_cpu=p32["terms"],
+                          loss_max_rel=max(loss32.values()),
+                          grad_max_rel=max(grad32.values()),
+                          grad_worst_leaf=max(grad32, key=grad32.get),
+                          update_max_lr=upd32, predict_max_rel=pred_err,
+                          card_seconds=c32["seconds"],
+                          cpu_seconds=p32["seconds"]),
+             wta_winner_flips=win_flips, wta_rows=int(p32["win"].numel()),
+             gate_sign_flips=gate_flips,
+             gate_products=sum(v.numel() for v in p32["product"].values()),
+             tolerances=dict(loss=LOSS_REL, grad=GRAD_REL, update_lr=UPDATE_LR,
+                             loss32=EQ_LOSS32_REL, predict=PRED_PREDICT_REL))
+        if not (ok64 and max(loss32.values()) <= EQ_LOSS32_REL
+                and pred_err <= PRED_PREDICT_REL):
+            raise SystemExit(
+                f"eqmotion_reference {arch}: float64 loss "
+                f"{max(loss_err.values()):.3g}, gradients "
+                f"{max(grad_err.values()):.3g}, updates "
+                f"{max(upd_err.values()):.3g} lr; float32 loss "
+                f"{max(loss32.values()):.3g}, predict {pred_err:.3g}")
+
+
+def eqmotion_eval(card, states, vp, dev="cuda"):
+    """`evaluate` with the LocoVal filter at 0.7 on the ETH fixture's
+    windows (4 agents) with the compact model after its epoch, on the card
+    and on the CPU: every metric within 1e-4 of its magnitude, a mode kept
+    on one device only only within 1e-5 of the threshold (counted; then the
+    filtered minimum is excused); then `train_eqmotion --ethucy <fixture>
+    --epochs 2 --valuenet <file>` on the card, its eqmotion.ckpt read back
+    bit-equal. Returns the launch counts."""
+    import tempfile
+
+    import torch
+    from emloco_tpu_torch import train_eqmotion
+    from emloco_tpu_torch.physics import linalg
+    from emloco_tpu_torch.prediction import eqmotion as E
+    from emloco_tpu_torch.prediction import metrics as M
+    from emloco_tpu_torch.utils import checkpoint as ckpt
+    fixture = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "tests", "data", "ethucy_fixture.txt")
+    linalg.reset_launch_counts()
+    past, future = E.ethucy_windows(fixture, num_agents=EQ_AGENTS)
+    tr, ts, _ = states["compact"]
+    res, vals = {}, {}
+    for d in (dev, "cpu"):
+        t_ = eq_trainer("compact", d)
+        p = {k: v.to(d) for k, v in ts.params.items()}
+        v = {k: x.to(d) for k, x in vp.items()}
+        t = time.time()
+        res[d] = t_.evaluate(p, past, future, vnet_params=v, threshold=0.7)
+        sync(d)
+        res[d]["seconds"] = time.time() - t
+        pred = t_.predict(p, torch.as_tensor(past, device=d))[:, 0]
+        vals[d] = t_.mode_values(v, past, pred).cpu()
+    keep = {d: M.locoval_filter(None, vals[d], 0.7) for d in vals}
+    flips = keep[dev] != keep["cpu"]
+    far = int((flips & ((vals["cpu"] - 0.7).abs() > PRED_EDGE)).sum())
+    errs = {k: abs(res[dev][k] - v) / max(abs(v), 1e-6)
+            for k, v in res["cpu"].items() if k != "seconds"}
+    excused = ["ade_filtered_min"] if int(flips.sum()) else []
+    bad = {k: e for k, e in errs.items()
+           if e > PRED_EVAL_REL and k not in excused}
+    with tempfile.TemporaryDirectory() as out:
+        vpath = os.path.join(out, "valuenet.ckpt")
+        ckpt.save_valuenet(vpath, vp, dict(use_pose=False, use_vel=True))
+        buf = io.StringIO()
+        t = time.time()
+        with contextlib.redirect_stdout(buf):
+            cli_tr, cli_ts, cli_ev = train_eqmotion.main([
+                "--ethucy", fixture, "--epochs", "2", "--valuenet", vpath,
+                "--out", out, "--device", dev])
+        cli_s = time.time() - t
+        lines = [json.loads(ln) for ln in buf.getvalue().splitlines()]
+        tree, meta = ckpt.load_pytree(os.path.join(out, "eqmotion.ckpt"))
+        back = cli_tr.params_from(tree["params"])
+        same = all(torch.equal(back[k], cli_ts.params[k])
+                   for k in cli_ts.params) and sorted(back) == sorted(
+                       cli_ts.params)
+    finite = all(math.isfinite(v) for ln in lines for v in ln.values()
+                 if isinstance(v, float)) and all(
+        math.isfinite(v) for v in cli_ev.values())
+    launches = dict(linalg.LAUNCHES)
+    emit("eqmotion_eval", card=card, windows=int(past.shape[0]),
+         agents=EQ_AGENTS, threshold=0.7, evaluate_card=res[dev],
+         evaluate_cpu=res["cpu"], worst_rel=max(errs.values()),
+         tolerance=PRED_EVAL_REL, modes=int(vals["cpu"].numel()),
+         kept_on_one_device=int(flips.sum()), kept_away_from_threshold=far,
+         excused=excused, failing=bad, train_eqmotion=lines,
+         train_eqmotion_seconds=cli_s, checkpoint_bit_equal=same,
+         checkpoint_metadata=meta, launches=launches)
+    zero_launches("eqmotion_eval", launches)
+    if bad or far or not (same and finite):
+        raise SystemExit(f"eqmotion_eval: metrics {bad}, modes kept on one "
+                         f"device away from the threshold {far}, checkpoint "
+                         f"bit-equal {same}, finite {finite}")
+    return launches
+
+
+def eval_policy_phase(card):
+    """`eval_policy --grid --games 1` at the bench's training configuration
+    (1,600 envs): four conditions, each with a finite mse or no latched
+    episode, and the factor 32 and resolve 64 times in each condition's
+    rollouts, read by the launch counters around them; then
+    `rollout_with_rewards` for GIF_STEPS steps of env 0 of the last
+    condition's policy: frames finite, factor GIF_STEPS and resolve 2 ×
+    GIF_STEPS launches. Returns the launch counts of both."""
+    import numpy as np
+    import torch
+    from emloco_tpu_torch import eval_policy
+    from emloco_tpu_torch.learning import players
+    from emloco_tpu_torch.learning.value_train import LocoValTrainer
+    from emloco_tpu_torch.physics import linalg
+    collect = LocoValTrainer.collect_predictions
+    per, last = [], {}
+
+    def counted(self, vts, num_epochs=4):
+        linalg.reset_launch_counts()
+        out = collect(self, vts, num_epochs)
+        sync(vts.cum_reward.device)
+        per.append(dict(linalg.LAUNCHES))
+        last.update(trainer=self, vts=out[0])
+        return out
+
+    buf = io.StringIO()
+    t = time.time()
+    LocoValTrainer.collect_predictions = counted
+    try:
+        with contextlib.redirect_stdout(buf):
+            lines = eval_policy.main(["--grid", "--games", "1",
+                                      "--num-envs", str(TRAIN_ENVS)])
+    finally:
+        LocoValTrainer.collect_predictions = collect
+    total_s = time.time() - t
+    want = dict.fromkeys(per[0], 0)
+    want.update({"cholesky_factor_blocked_t": 32,
+                 "cholesky_resolve_blocked_t": 64})
+    grid_ok = (len(lines) == 4 and len(per) == 4
+               and all(c == want for c in per)
+               and all((ln["mse"] is not None and math.isfinite(ln["mse"]))
+                       or ln["latched"] == 0 for ln in lines))
+    for ln, c in zip(lines, per):
+        emit("eval_policy", card=card, **ln, launches=c)
+    grid = {k: sum(c[k] for c in per) for k in per[0]}
+    tr, vts = last["trainer"], last["vts"]
+    linalg.reset_launch_counts()
+    t = time.time()
+    frames, rewards, traj = players.rollout_with_rewards(tr.agent, vts.policy,
+                                                         GIF_STEPS)
+    dt = time.time() - t
+    roll = dict(linalg.LAUNCHES)
+    want_roll = dict.fromkeys(roll, 0)
+    want_roll.update({"cholesky_factor_blocked_t": GIF_STEPS,
+                      "cholesky_resolve_blocked_t": 2 * GIF_STEPS})
+    finite = bool(np.isfinite(frames).all()
+                  and all(np.isfinite(v).all() for v in rewards.values()))
+    emit("eval_policy", card=card, grid_seconds=total_s,
+         rollout_with_rewards=dict(
+             steps=GIF_STEPS, num_envs=TRAIN_ENVS, seconds=dt,
+             steps_per_s=GIF_STEPS / dt, frames_shape=list(frames.shape),
+             finite=finite, mean_total=float(rewards["total"].mean()),
+             traj_verts=int(traj.shape[0]), launches=roll))
+    if not (grid_ok and finite and roll == want_roll):
+        raise SystemExit(f"eval_policy: lines {lines}, launches {per} "
+                         f"(expected {want} each), rollout finite {finite}, "
+                         f"launches {roll} (expected {want_roll})")
+    return grid, roll
+
+
+def prediction_tools(card, vp_pose, dev="cuda"):
+    """collect_vis_data on the JTA fixture at the jta preset's full width,
+    card against CPU within 1e-4 of each array's largest magnitude;
+    export_scene_dataset of 32 synthetic scenes read back equal;
+    `tune_predictor --trials 2 --epochs 1 --batches 2` at the jta preset,
+    both trials finite, then the same command resumes after them. Returns
+    the launch counts."""
+    import tempfile
+
+    import numpy as np
+    from emloco_tpu_torch import tune_predictor
+    from emloco_tpu_torch.learning import ValuePoseNet
+    from emloco_tpu_torch.physics import linalg
+    from emloco_tpu_torch.prediction import export
+    from emloco_tpu_torch.prediction import visualize as V
+    from emloco_tpu_torch.prediction.data import NdjsonScenes, SyntheticScenes
+    from emloco_tpu_torch.prediction.presets import configs
+    from emloco_tpu_torch.prediction.train import PredictorTrainer
+    fixture = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "tests", "data", "jta_all_cues_fixture.ndjson")
+    linalg.reset_launch_counts()
+    mcfg, pcfg = configs("jta")
+    params = PredictorTrainer(mcfg, pcfg, device="cpu").init(0).params
+    vis, secs = {}, {}
+    for d in (dev, "cpu"):
+        tr = PredictorTrainer(mcfg, pcfg, device=d)
+        t = time.time()
+        vis[d] = V.collect_vis_data(
+            tr, {k: v.to(d) for k, v in params.items()},
+            NdjsonScenes(fixture, seed=PRED_EVAL_SEED), PRED_BATCH,
+            PRED_REF_BATCHES, vnet=ValuePoseNet(device=d),
+            vnet_params={k: v.to(d) for k, v in vp_pose.items()},
+            pose_z_flip=pcfg.pose_z_flip)
+        secs[d] = time.time() - t
+    errs = {k: float(np.abs(vis[dev][k] - v).max()
+                     / max(np.abs(v).max(), 1e-30))
+            for k, v in vis["cpu"].items()}
+    with tempfile.TemporaryDirectory() as out:
+        t = time.time()
+        bank = export.export_scene_dataset(
+            SyntheticScenes(num_people=4, seed=0),
+            os.path.join(out, "bank.pkl"), num_scenes=EXPORT_SCENES)
+        trajs, poses, vels = export.load_traj_bank(os.path.join(out,
+                                                                "bank.pkl"))
+        export_s = time.time() - t
+        bank_ok = (np.array_equal(trajs, bank) and np.isfinite(bank).all()
+                   and poses.shape == (len(bank), 24, 3))
+        tune = ["--trials", "2", "--epochs", "1", "--batches", "2",
+                "--out", out]
+        buf = io.StringIO()
+        t = time.time()
+        with contextlib.redirect_stdout(buf):
+            summary, trials = tune_predictor.main(tune)
+            again, resumed = tune_predictor.main(tune)
+        tune_s = time.time() - t
+    launches = dict(linalg.LAUNCHES)
+    tune_ok = (len(trials) == 2 and not resumed
+               and all(math.isfinite(t.get("val_ade", math.nan))
+                       for t in trials) and again["num_trials"] == 2)
+    emit("prediction_tools", card=card, preset="jta",
+         collect_vis_data=dict(batch=PRED_BATCH, batches=PRED_REF_BATCHES,
+                               max_rel=errs, tolerance=PRED_EVAL_REL,
+                               card_seconds=secs[dev],
+                               cpu_seconds=secs["cpu"],
+                               pred_shape=list(vis["cpu"]["pred"].shape)),
+         export=dict(scenes=int(len(bank)), shape=list(bank.shape),
+                     seconds=export_s, reloaded_equal=bool(bank_ok)),
+         tune_predictor=dict(trials=trials, summary=summary,
+                             resumed_trials=len(resumed), seconds=tune_s),
+         launches=launches)
+    zero_launches("prediction_tools", launches)
+    if not (max(errs.values()) <= PRED_EVAL_REL and bank_ok and tune_ok):
+        raise SystemExit(f"prediction_tools: collect_vis_data {errs}, bank "
+                         f"{bank_ok}, tune {trials} / resumed {resumed}")
+    return launches
+
+
 def main():
     import numpy as np
     import torch
@@ -2965,6 +3454,20 @@ def main():
     by_path["predictor_eval"] = predictor_eval(card, trainer, ts, vp)
     by_path["predictor_paths"] = predictor_paths(card, vp, scenes)
     del trainer, ts
+
+    # 34-36. the EqMotion baseline ------------------------------------------
+    eq_vp = eq_vnet()
+    eq_states, by_path["eqmotion_train"] = eqmotion_train(card, eq_vp)
+    eqmotion_reference(eq_states, eq_vp)
+    by_path["eqmotion_eval"] = eqmotion_eval(card, eq_states, eq_vp)
+    del eq_states
+
+    # 37. policy evaluation -------------------------------------------------
+    by_path["eval_policy"], by_path["rollout_with_rewards"] = (
+        eval_policy_phase(card))
+
+    # 38. the prediction tools ----------------------------------------------
+    by_path["prediction_tools"] = prediction_tools(card, vp)
 
     # summary ---------------------------------------------------------------
     kernels = []

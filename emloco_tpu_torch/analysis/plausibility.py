@@ -10,8 +10,8 @@ Counterpart of the reference's plausibl/test_value_mlp.py (:24-297):
     adam(lr) written out, the gradient from torch.autograd.grad.
 
 `params` is ValuePoseNet's state_dict, run through
-torch.func.functional_call (flax's vnet.apply). The animation of an
-optimization (`animate_optimization`, matplotlib) is not ported.
+torch.func.functional_call (flax's vnet.apply). `animate_optimization`
+draws a recorded optimization as a GIF with matplotlib, imported inside it.
 """
 from __future__ import annotations
 
@@ -93,3 +93,42 @@ def optimize_trajectory(vnet: ValuePoseNet, params: dict, traj0,
     if record_trajs:
         return traj, values, torch.stack(snaps + [traj])
     return traj, values
+
+
+def animate_optimization(snapshots, values, out_path: str = "traj_opt.gif",
+                         index: int = 0, fps: int = 10, stride: int = 5):
+    """A GIF of trajectory `index` while it is optimized (reference
+    test_value_mlp.py:276-297): the trajectory every `stride` steps and
+    after the last, its LocoVal value in the title. snapshots (S, B, W, 2)
+    and values (S, B), tensors or arrays, as optimize_trajectory returns
+    them with record_trajs."""
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+    from matplotlib import animation
+
+    snaps = np.asarray(torch.as_tensor(snapshots).cpu())[:, index]
+    vals = np.asarray(torch.as_tensor(values).cpu())[:, index]
+    frames = list(range(0, len(snaps), stride)) + [len(snaps) - 1]
+    lo = snaps.min((0, 1)) - 0.5
+    hi = snaps.max((0, 1)) + 0.5
+    fig, ax = plt.subplots(figsize=(5, 5))
+
+    def draw(i):
+        t = frames[i]
+        ax.cla()
+        ax.plot(snaps[0, :, 0], snaps[0, :, 1], ":", c="gray",
+                label="initial")
+        ax.plot(snaps[t, :, 0], snaps[t, :, 1], "o-", c="tab:blue",
+                label="current")
+        ax.set_xlim(lo[0], hi[0])
+        ax.set_ylim(lo[1], hi[1])
+        ax.set_aspect("equal")
+        ax.set_title(f"step {t}  value={vals[t]:.3f}")
+        ax.legend(loc="upper right", fontsize=8)
+
+    anim = animation.FuncAnimation(fig, draw, frames=len(frames),
+                                   interval=1000 / fps)
+    anim.save(out_path, writer=animation.PillowWriter(fps=fps))
+    plt.close(fig)
+    return out_path

@@ -5,12 +5,14 @@ caller converts its leaves first, e.g. `jax.tree.map(np.asarray, obj)` — and
 reads it by field name, so this module imports neither jax nor emloco_tpu.
 Static fields (a heightfield's cell and origin) come across as they are.
 The inverses (`agent_params`, `valuenet_params`, `transmotion_params`,
-`lstm_params`, `running_norm_fields`, `adam_fields`) write this package's
-state in the flax layout as numpy, for the files it saves.
+`lstm_params`, `eqmotion_params`, `eqmotion_full_params`,
+`running_norm_fields`, `adam_fields`) write this package's state in the
+flax layout as numpy, for the files it saves.
 """
 from __future__ import annotations
 
 import dataclasses
+import re
 import types
 
 import numpy as np
@@ -372,4 +374,130 @@ def lstm_params(state_dict) -> dict:
                                  parts[0] + ".bias"])}
         elif parts[-1] != "bias":
             out[k] = _to_numpy(v)
+    return {"params": out}
+
+
+# ---------------------------------------------------------------------------
+# EqMotion
+# ---------------------------------------------------------------------------
+
+def _linear_to_torch(sd: dict, name: str, layer) -> None:
+    """A flax Dense (kernel (in, out)[, bias]) as nn.Linear entries."""
+    sd[f"{name}.weight"] = torch.as_tensor(
+        np.ascontiguousarray(np.asarray(layer["kernel"]).T))
+    if "bias" in layer:
+        sd[f"{name}.bias"] = torch.as_tensor(np.array(layer["bias"]))
+
+
+def _linear_to_flax(sd: dict, name: str) -> dict:
+    out = {"kernel": np.ascontiguousarray(_to_numpy(sd[f"{name}.weight"]).T)}
+    if f"{name}.bias" in sd:
+        out["bias"] = _to_numpy(sd[f"{name}.bias"])
+    return out
+
+
+def _layers(sd: dict) -> list:
+    """The layer names of a state_dict, in order, without .weight/.bias."""
+    return list(dict.fromkeys(k.rpartition(".")[0] for k in sd
+                              if k.endswith((".weight", ".bias"))))
+
+
+# the compact EqMotion: flax names its layers by call order
+_EQ_TOP = {"Dense_0": "speed_embed", "Dense_1": "angle_embed"}
+_EQ_LAYER = ("edge1", "edge2", "category", "gate", "channel_mix", "node")
+
+
+def eqmotion_state_dict(params) -> dict:
+    """flax EqMotion params → EqMotion's state_dict: `Dense_0` and
+    `Dense_1` are the speed and angle embeddings, each layer's `Dense_0`…
+    `Dense_5` are edge1, edge2, category, gate, channel_mix and node
+    (`gcl_<i>` → `gcl.<i>`), `head_<m>` → `head.<m>`."""
+    p = params.get("params", params)
+    sd = {}
+    for name, layer in p.items():
+        if name.startswith("gcl_"):
+            i = name[len("gcl_"):]
+            for j, dst in enumerate(_EQ_LAYER):
+                _linear_to_torch(sd, f"gcl.{i}.{dst}", layer[f"Dense_{j}"])
+        elif name.startswith("head_"):
+            _linear_to_torch(sd, f"head.{name[len('head_'):]}", layer)
+        else:
+            _linear_to_torch(sd, _EQ_TOP.get(name, name), layer)
+    return sd
+
+
+def eqmotion_params(state_dict) -> dict:
+    """The inverse of eqmotion_state_dict: EqMotion's state_dict → the flax
+    params tree as numpy."""
+    top = {v: k for k, v in _EQ_TOP.items()}
+    out = {}
+    for layer in _layers(state_dict):
+        parts = layer.split(".")
+        dense = _linear_to_flax(state_dict, layer)
+        if parts[0] == "gcl":
+            j = _EQ_LAYER.index(parts[2])
+            out.setdefault(f"gcl_{parts[1]}", {})[f"Dense_{j}"] = dense
+        elif parts[0] == "head":
+            out[f"head_{parts[1]}"] = dense
+        else:
+            out[top.get(layer, layer)] = dense
+    return {"params": out}
+
+
+# the architecture-exact EqMotion: the reference's names, but calc_category's
+# four MLPs, which flax prefixes with cat_
+_FULL_CAT = {"edge_mlp": "cat_edge_mlp", "coord_mlp": "cat_coord_mlp",
+             "node_mlp": "cat_node_mlp", "category_mlp": "cat_head_mlp"}
+_INDEXED = re.compile(r"^(.*?)((?:_\d+)+)$")
+
+
+def _full_sd(p: dict, prefix: str) -> dict:
+    sd = {}
+    cat = {v: k for k, v in _FULL_CAT.items()}
+    for name, v in p.items():
+        if name == "core":
+            sd.update(_full_sd(v, prefix + "core."))
+        elif name == "agent_embed":
+            sd[prefix + name] = torch.as_tensor(np.array(v))
+        elif re.fullmatch(r"gcl_\d+", name):
+            for sub, layer in v.items():
+                m = _INDEXED.match(sub)
+                key = (m.group(1) + m.group(2).replace("_", ".") if m
+                       else sub)
+                _linear_to_torch(sd, f"{prefix}{name}.{key}", layer)
+        else:
+            m = _INDEXED.match(name)
+            key = (cat.get(m.group(1), m.group(1))
+                   + m.group(2).replace("_", ".") if m else name)
+            _linear_to_torch(sd, prefix + key, v)
+    return sd
+
+
+def eqmotion_full_state_dict(params) -> dict:
+    """flax EqMotionFull (or EqMotionFullEth, whose `core` becomes
+    `core.`) params, the layout of the JAX package's
+    transplant_from_torch → the port's state_dict under the reference's
+    names: `cat_edge_mlp_0` → `edge_mlp.0`, `gcl_1/category_mlp_0_2` →
+    `gcl_1.category_mlp.0.2`, `gcl_1/mlp_q_0` → `gcl_1.mlp_q.0`."""
+    return _full_sd(params.get("params", params), "")
+
+
+def eqmotion_full_params(state_dict) -> dict:
+    """The inverse of eqmotion_full_state_dict: the port's state_dict → the
+    flax params tree as numpy; keys under `core.` go under `core`."""
+    core = {k[len("core."):]: v for k, v in state_dict.items()
+            if k.startswith("core.")}
+    if core:
+        return {"params": {"core": eqmotion_full_params(core)["params"]}}
+    out = {}
+    if "agent_embed" in state_dict:
+        out["agent_embed"] = _to_numpy(state_dict["agent_embed"])
+    for layer in _layers(state_dict):
+        head, _, rest = layer.partition(".")
+        dense = _linear_to_flax(state_dict, layer)
+        if re.fullmatch(r"gcl_\d+", head):
+            out.setdefault(head, {})[rest.replace(".", "_")] = dense
+        else:
+            name = _FULL_CAT.get(head, head)
+            out[f"{name}_{rest.replace('.', '_')}" if rest else name] = dense
     return {"params": out}

@@ -9,6 +9,8 @@
         [amp.<field>=<value> ...] [env.<field>=<value> ...]
     python3 -m emloco_tpu_torch.profile_step --predictor [--preset jta]
         [--steps 3]
+    python3 -m emloco_tpu_torch.profile_step --eqmotion [--arch compact]
+        [--steps 3]
 
 Builds the env and actor at the bench configuration (`rollout.build_bench`)
 and times on the host, with a synchronize around each part: observe,
@@ -42,6 +44,12 @@ at a preset's full width (`prediction.presets`: jta, jrdb or lstm) on a
 batch of 10 synthetic scenes of 4 people, with the EmLoco loss through a
 ValuePoseNet from a fixed seed where the preset uses it: the host time of
 `--steps` steps after a warm-up, then the same steps traced.
+
+With `--eqmotion` the unit is one EqMotion train step at full width
+(`--arch compact`: EqMotionConfig(); `--arch full`: eth_full_config()) on
+a batch of 10 synthetic ETH scenes of 4 agents, with the EmLoco loss at
+weight 0.1 through ValuePoseNet(use_pose=False, use_vel=True) from a
+fixed seed, timed and traced the same way.
 """
 from __future__ import annotations
 
@@ -204,6 +212,34 @@ def _predictor(args, dev, card):
             card, args.top)
 
 
+def _eqmotion(args, dev, card):
+    """`--steps` EqMotion train steps at full width after a warm-up."""
+    from .learning import ValuePoseNet
+    from .prediction import eqmotion as E
+    from .prediction.eqmotion_full import EqMotionFullEth, eth_full_config
+    model = (EqMotionFullEth(eth_full_config(), device=dev)
+             if args.arch == "full" else None)
+    vnet = ValuePoseNet(use_pose=False, use_vel=True,
+                        generator=torch.Generator(device=dev).manual_seed(0),
+                        device=dev)
+    trainer = E.EqMotionTrainer(E.EqMotionConfig(), vnet=vnet,
+                                valueloss_w=0.1, model=model, device=dev)
+    ts, vp = trainer.init(0, vnet_params=dict(vnet.named_parameters()))
+    batch = E.synthetic_eth_batch(torch.Generator(device=dev).manual_seed(1),
+                                  10, 4)
+    state = [trainer.train_step(ts, vp, *batch)[0]]      # warm-up
+
+    def step():
+        state[0], _ = trainer.train_step(state[0], vp, *batch)
+
+    host_ms, _ = _host_ms(step, args.steps)
+    print(json.dumps({"eqmotion": args.arch, "host_ms_per_step": host_ms,
+                      "steps_per_s": 1e3 / host_ms, "batch": 10,
+                      "agents": 4, "card": card}), flush=True)
+    _report(_profile(step, args.steps)[0], args.steps, "step", host_ms,
+            card, args.top)
+
+
 def _host_split(t):
     """(ms since `t` after a synchronize, now)."""
     torch.cuda.synchronize()
@@ -227,6 +263,10 @@ def main(argv=None):
                     help="break down one predictor train step instead")
     ap.add_argument("--preset", default="jta",
                     help="the predictor preset of --predictor")
+    ap.add_argument("--eqmotion", action="store_true",
+                    help="break down one EqMotion train step instead")
+    ap.add_argument("--arch", choices=["compact", "full"],
+                    default="compact", help="the model of --eqmotion")
     ap.add_argument("overrides", nargs="*",
                     help="amp.<field>=<value> (--train, --value), "
                          "env.<field>=<value> and engine.<field>=<value>")
@@ -249,6 +289,8 @@ def main(argv=None):
         return _value(args, dev, card)
     if args.predictor:
         return _predictor(args, dev, card)
+    if args.eqmotion:
+        return _eqmotion(args, dev, card)
 
     envs = args.envs or 4096
     r = build_bench(envs, dev, **args.env_fields)

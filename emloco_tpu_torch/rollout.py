@@ -236,20 +236,25 @@ def build_crowd_bench(num_envs: int = 1600, device=None, seed: int = 0
 
 def build_value_bench(num_envs: int = 1600, device=None, seed: int = 0,
                       amp: AMPConfig = TRAIN_AMP,
-                      env_fields: dict | None = None, **vnet_fields
+                      env_fields: dict | None = None,
+                      hard_negatives: bool = True, **vnet_fields
                       ) -> tuple[LocoValTrainer, ValueTrainState]:
     """The LocoVal trainer at the bench's training configuration and its
     initial ValueTrainState: the agent from `seed` (frozen), the valuenet
     and the fresh episodes from `seed + 1`, as `cmd_train_valuenet` seeds
     them; the valuenet at ValuePoseNet's defaults (pose and velocity, 13
     waypoints). `amp`, `env_fields` (EnvConfig fields) and `vnet_fields`
-    (ValuePoseNet arguments) replace parts of the configuration."""
+    (ValuePoseNet arguments) replace parts of the configuration. With
+    `hard_negatives` (training) the real paths are heading-inverted with
+    ValueTrainConfig's probability; without (`cmd_eval_policy`) the env's
+    trajectory configuration stays as it is."""
     dev = _device.resolve(device)
     vcfg = ValueTrainConfig()
     env_cfg = _bench_cfg(num_envs, **(env_fields or {}))
-    traj = dataclasses.replace(
-        env_cfg.traj, heading_inversion_prob=vcfg.heading_inversion_prob)
-    env_cfg = dataclasses.replace(env_cfg, traj=traj)
+    if hard_negatives:
+        env_cfg = dataclasses.replace(env_cfg, traj=dataclasses.replace(
+            env_cfg.traj,
+            heading_inversion_prob=vcfg.heading_inversion_prob))
     agent = AMPAgent(_bench_env(env_cfg, dev,
                                 traj_gen.synthetic_real_bank(device=dev)),
                      amp)

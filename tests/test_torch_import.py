@@ -23,8 +23,17 @@ def _no_gpu_env():
 
 
 def test_import_pulls_in_no_jax():
+    """Every module imports with jax, flax, optax, emloco_tpu and the JAX
+    package's scripts refused by an import hook, and none of them, nor
+    matplotlib (imported inside the plotting functions), is in
+    sys.modules afterwards."""
     code = (
         "import sys\n"
+        "class Refuse:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        f"        if name.split('.')[0] in {FORBIDDEN!r}:\n"
+        "            raise ImportError('refused: ' + name)\n"
+        "sys.meta_path.insert(0, Refuse())\n"
         "import emloco_tpu_torch, emloco_tpu_torch.convert, "
         "emloco_tpu_torch.build\n"
         "import emloco_tpu_torch.envs, emloco_tpu_torch.learning, "
@@ -43,8 +52,18 @@ def test_import_pulls_in_no_jax():
         "emloco_tpu_torch.prediction.presets, "
         "emloco_tpu_torch.train_predictor, "
         "emloco_tpu_torch.eval_predictor\n"
+        "import emloco_tpu_torch.prediction.eqmotion, "
+        "emloco_tpu_torch.prediction.eqmotion_full, "
+        "emloco_tpu_torch.prediction.export, "
+        "emloco_tpu_torch.prediction.tuning, "
+        "emloco_tpu_torch.prediction.visualize, "
+        "emloco_tpu_torch.learning.players, "
+        "emloco_tpu_torch.kinematics.visualization, "
+        "emloco_tpu_torch.train_eqmotion, emloco_tpu_torch.eval_policy, "
+        "emloco_tpu_torch.visualize_pred, "
+        "emloco_tpu_torch.tune_predictor\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        f"{FORBIDDEN!r})\n"
+        f"{FORBIDDEN + ('matplotlib',)!r})\n"
         "print(','.join(bad))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, env=_no_gpu_env(), cwd=ROOT, timeout=300)

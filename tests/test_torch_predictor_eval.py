@@ -131,7 +131,7 @@ def test_entry_points_on_cpu(tmp_path, capsys, monkeypatch):
         res["evaluate"])
     assert len(res["threshold_sweep"]) == 11
     assert len(res["obs_length_sweep"]) == 9
-    with pytest.raises(SystemExit):         # it writes nothing: no --out
+    with pytest.raises(SystemExit):         # --out is read only with --plots
         eval_predictor.main(["--predictor", ckpt, "--out", str(tmp_path)])
     train_predictor.main(["--preset", "lstm", "--epochs", "1", "--ndjson",
                           FIXTURE, "--batch-size", "2", "--batches", "1",
