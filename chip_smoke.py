@@ -291,6 +291,40 @@ Phases, each printed as one JSON line with its elapsed seconds:
                 equal; `tune_predictor --trials 2 --epochs 1 --batches 2` at
                 the jta preset, both trials finite, and the command run
                 again resumes after them
+ 39. cli_world — the system's entry point, `cli.run` (phases 39-44 run it
+                through one helper, `run_cli`, with the launch counts read
+                around each call): configs/pacer_terrain.yaml's world
+                (1,600 envs, mixed 8 × 8 terrain of 8 m tiles, synthetic
+                motions and bank) built by `_build_world` on the card and
+                on the CPU, terrain, spawn table, bank and motion library
+                bit-equal; then its first control step at 8 envs, card
+                against CPU, under phase 5's gates
+ 40. cli_train_policy — `train-policy --config configs/pacer_terrain.yaml
+                epochs=2 save_every=1` at full width: factor 64, resolve
+                128; its checkpoint read back bit-equal; the jsonl row and
+                the tb/ event file equal; then `--resume` one epoch:
+                factor 32, resolve 64, policy_00000002.ckpt with the
+                absolute epoch 2, bit-equal; each epoch's seconds (to a
+                synchronize) and env-steps/s
+ 41. cli_commands — train-valuenet --policy and eval-policy --games 1
+                (each factor 32, resolve 64), train-predictor and
+                eval-predictor at configs/jta_predictor.yaml's width,
+                optimize-traj, train-eqmotion, tune-predictor --trials 2
+                (none of the engine's kernels) and visualize-pred (without
+                matplotlib it must raise for it), once each at small epochs
+                and batches, each writing what the JAX command writes
+ 42. cli_profile — `train-policy --profile epochs=1` at 256 envs and
+                horizon 4: the trace holds the factor kernel's 4 and the
+                resolve's 8 CUDA launches of the traced epoch
+ 43. viewer — a ViewerSession at 1,600 envs: 5 chunks of 4 steps (factor
+                20, resolve 40), the controls, then the ViewerServer on
+                port 0 through urllib (/status, POST /control, the sim loop
+                advancing, /frame.png's error reply without matplotlib, a
+                bad command refused); last_error must stay None
+ 44. native   — the C++ helpers built with g++ there, against the numpy
+                versions: the pacer terrain's walkable mask bit-equal, its
+                spawn table within 1 float32 ulp, a mesh's rasterization,
+                the JTA fixture's scenes equal
 Then the kernels' summary line and, last, the device line. Any failed check
 raises and the script exits non-zero. Without a CUDA device it exits 2 and
 runs nothing.
@@ -3137,6 +3171,479 @@ def prediction_tools(card, vp_pose, dev="cuda"):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# 39-44: the system's entry point, cli/run.py, over the YAML configs
+# ---------------------------------------------------------------------------
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+PACER = os.path.join(_HERE, "configs", "pacer_terrain.yaml")
+JTA_CONFIG = os.path.join(_HERE, "configs", "jta_predictor.yaml")
+VIEWER_CHUNKS, VIEWER_STEPS = 5, 4
+# train-policy --profile at a reduced width: the trace holds every kernel
+# and runtime call of an epoch, so the rollout is cut to 4 control steps
+PROFILE_ARGS = ("env.num_envs=256", "amp.horizon=4", "amp.num_minibatches=2",
+                "amp.mini_epochs=1", "amp.amp_batch_size=256",
+                "amp.amp_replay_size=4096")
+
+
+def run_cli(argv):
+    """cli.run.main(argv) on the card, the one helper of phases 39-44:
+    (its return value, the kernels' launch counts around it, its seconds to
+    a synchronize, its stdout)."""
+    import torch
+    from emloco_tpu_torch.cli import run
+    from emloco_tpu_torch.physics import linalg
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    linalg.reset_launch_counts()
+    t = time.time()
+    with contextlib.redirect_stdout(buf):
+        out = run.main(list(argv))
+    torch.cuda.synchronize()
+    return out, dict(linalg.LAUNCHES), time.time() - t, buf.getvalue()
+
+
+def arrow_launches(phase, launches, factor, resolve):
+    """Fails unless the factor and the resolve launched `factor` and
+    `resolve` times and no other kernel launched."""
+    want = dict.fromkeys(launches, 0)
+    want.update({"cholesky_factor_blocked_t": factor,
+                 "cholesky_resolve_blocked_t": resolve})
+    if launches != want:
+        raise SystemExit(f"{phase}: launch counts {launches}, expected "
+                         f"{want}")
+
+
+def tree_equal(a, b) -> bool:
+    """Tensors, dicts and TensorStructs equal bit for bit, leaf by leaf."""
+    import torch
+    if isinstance(a, torch.Tensor):
+        return (isinstance(b, torch.Tensor) and a.dtype == b.dtype
+                and a.shape == b.shape and torch.equal(a, b.to(a.device)))
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(tree_equal(a[k], b[k])
+                                            for k in a)
+    if dataclasses.is_dataclass(a):
+        return all(tree_equal(getattr(a, f.name), getattr(b, f.name))
+                   for f in dataclasses.fields(a))
+    return a == b
+
+
+def jsonl(path):
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def cli_world(card):
+    """configs/pacer_terrain.yaml's world built by `_build_world` on the
+    card and on the CPU: terrain, spawn table, trajectory bank and motion
+    library bit-equal; then the first control step at 8 envs on it, card
+    against CPU, under phase 5's gates. Returns the terrain's heights."""
+    import numpy as np
+    import torch
+    from emloco_tpu_torch.cli import run
+    from emloco_tpu_torch.utils.config import load_config
+    cfg = load_config(PACER)
+    secs = {}
+    envs = {}
+    for d in ("cuda", "cpu"):
+        t = time.time()
+        envs[d] = run._build_world(cfg, d)
+        sync(d)
+        secs[d] = time.time() - t
+    g, c = envs["cuda"], envs["cpu"]
+    pairs = {k: (getattr(g.terrain, k), getattr(c.terrain, k))
+             for k in ("heights", "corner_tex", "spawnable_xy")}
+    pairs["real_traj_bank"] = (g.real_traj_bank, c.real_traj_bank)
+    for f in dataclasses.fields(g.motion_lib):
+        pairs[f"motion_lib.{f.name}"] = (getattr(g.motion_lib, f.name),
+                                         getattr(c.motion_lib, f.name))
+    equal = {k: bool(a.device.type == "cuda" and tree_equal(b, a.cpu()))
+             for k, (a, b) in pairs.items()}
+    emit("cli_world", card=card, config=os.path.relpath(PACER, _HERE),
+         task=cfg.task, num_envs=cfg.env.num_envs, terrain=cfg.terrain,
+         heights_shape=list(g.terrain.heights.shape),
+         spawn_points=int(g.terrain.spawnable_xy.shape[0]),
+         bank_shape=list(g.real_traj_bank.shape),
+         motions=int(g.motion_lib.num_motions),
+         card_seconds=secs["cuda"], cpu_seconds=secs["cpu"],
+         bit_equal=equal)
+    if not all(equal.values()):
+        raise SystemExit(f"cli_world: card and CPU worlds differ: {equal}")
+    card_vs_cpu("cli_world", cfg.env, g,
+                torch.Generator(device="cuda").manual_seed(4),
+                config=os.path.relpath(PACER, _HERE))
+    heights = np.asarray(c.terrain.heights.numpy())
+    del envs, g, c
+    return heights, cfg.terrain.get("cell", 0.1)
+
+
+def cli_train_policy(card, out):
+    """`train-policy --config configs/pacer_terrain.yaml epochs=2
+    save_every=1` at 1,600 envs: factor 64 and resolve 128 launches; the
+    checkpoint read back bit-equal to the final state; the jsonl row and
+    the tb/ event file (read with read_scalars) equal; then `--resume` one
+    epoch: factor 32 and resolve 64, policy_00000002.ckpt with the metadata
+    epoch 2 (absolute), its state read back bit-equal. Each epoch's seconds
+    (synchronized) and env-steps/s. Returns (policy file, launches)."""
+    import numpy as np
+    import torch
+    from emloco_tpu_torch.learning.amp_agent import AMPAgent
+    from emloco_tpu_torch.utils.checkpoint import load_pytree, restore_policy
+    from emloco_tpu_torch.utils.tracking import read_scalars
+    inner = AMPAgent.train_epoch
+    seconds = []
+
+    def timed(self, ts):
+        torch.cuda.synchronize()
+        t = time.time()
+        res = inner(self, ts)
+        torch.cuda.synchronize()
+        seconds.append(time.time() - t)
+        return res
+
+    def reloaded(path, ts):
+        tree, meta = load_pytree(path)
+        back = restore_policy(ts, tree)
+        same = all(tree_equal(getattr(ts, k), getattr(back, k)) for k in (
+            "params", "obs_norm", "amp_norm", "value_norm", "opt_state"))
+        return same, meta
+
+    base = ["train-policy", "--config", PACER, f"out_dir={out}"]
+    AMPAgent.train_epoch = timed
+    try:
+        ts, launches, secs, _ = run_cli([*base, "epochs=2", "save_every=1"])
+        ck1 = os.path.join(out, "policy_00000001.ckpt")
+        same1, meta1 = reloaded(ck1, ts)
+        rows = jsonl(os.path.join(out, "policy.metrics.jsonl"))
+        (ev,) = os.listdir(os.path.join(out, "tb"))
+        scalars = list(read_scalars(os.path.join(out, "tb", ev)))
+        tb_equal = (len(rows) == 1 and {s for s, _, _ in scalars} == {0}
+                    and len(scalars) == sum(isinstance(v, float)
+                                            for v in rows[0].values())
+                    and all(v == float(np.float32(rows[0][k]))
+                            for _, k, v in scalars))
+        ts2, launches2, secs2, _ = run_cli([*base, "--resume", ck1,
+                                            "epochs=1"])
+        same2, meta2 = reloaded(os.path.join(out, "policy_00000002.ckpt"),
+                                ts2)
+    finally:
+        AMPAgent.train_epoch = inner
+    steps = 32 * 1600
+    finite = all(math.isfinite(v) for v in rows[0].values()
+                 if isinstance(v, float))
+    emit("cli_train_policy", card=card, epochs=2, resumed_epochs=1,
+         num_envs=1600, epoch_seconds=seconds,
+         env_steps_per_s=[steps / s for s in seconds], seconds=secs,
+         resume_seconds=secs2, launches=launches, resume_launches=launches2,
+         files=sorted(os.listdir(out)), checkpoint_bit_equal=[same1, same2],
+         checkpoint_epochs=[meta1.get("epoch"), meta2.get("epoch")],
+         resumed_state_epoch=ts2.epoch, metrics_row=rows[0],
+         tb_scalars=len(scalars), tb_equals_jsonl=tb_equal, finite=finite)
+    arrow_launches("cli_train_policy", launches, 64, 128)
+    arrow_launches("cli_train_policy resume", launches2, 32, 64)
+    if not (same1 and same2 and tb_equal and finite
+            and meta1.get("epoch") == 1 and meta2.get("epoch") == 2
+            and ts2.epoch == 3 and len(seconds) == 3):
+        raise SystemExit("cli_train_policy: checkpoints, logs or resume "
+                         "wrong (see the phase line)")
+    total = {k: launches[k] + launches2[k] for k in launches}
+    return ck1, total
+
+
+def cli_commands(card, out, policy):
+    """The other commands once each on the card, at small epochs and
+    batches, each returning normally and writing what the JAX command
+    writes: train-valuenet --policy (factor 32, resolve 64), eval-policy
+    --policy --valuenet --games 1 (32, 64), train-predictor --config
+    configs/jta_predictor.yaml --valuenet, eval-predictor
+    --sweep-thresholds, optimize-traj, train-eqmotion, tune-predictor
+    --trials 2 (none of the engine's kernels), and visualize-pred on a
+    vis_dict of the trained predictor (without matplotlib it must raise
+    ModuleNotFoundError for it). Returns the launch counts."""
+    import importlib.util
+    import torch
+    from emloco_tpu_torch.prediction import visualize as V
+    from emloco_tpu_torch.prediction.data import SyntheticScenes
+    from emloco_tpu_torch.prediction.train import PredictorTrainer
+    from emloco_tpu_torch.utils.config import load_config
+    d = {k: os.path.join(out, k) for k in ("value", "eval", "pred", "opt",
+                                           "eq", "tune", "vis")}
+    v0 = os.path.join(d["value"], "valuenet_00000000.ckpt")
+    pred = os.path.join(d["pred"], "predictor_best.ckpt")
+    runs = {}
+
+    def run(name, argv, factor=0, resolve=0):
+        res, launches, secs, stdout = run_cli(argv)
+        arrow_launches(f"cli_commands {name}", launches, factor, resolve)
+        runs[name] = dict(seconds=secs, launches=launches,
+                          lines=[json.loads(x) for x in stdout.splitlines()
+                                 if x.startswith("{")][-2:])
+        return res, launches
+
+    _, lv = run("train-valuenet", [
+        "train-valuenet", "--config", PACER, "--policy", policy, "epochs=1",
+        f"out_dir={d['value']}"], 32, 64)
+    lines, le = run("eval-policy", [
+        "eval-policy", "--config", PACER, "--policy", policy, "--valuenet",
+        v0, "--games", "1", f"out_dir={d['eval']}"], 32, 64)
+    pred_cmd = ["--config", JTA_CONFIG, "--batches", "2", "--valuenet", v0]
+    run("train-predictor", ["train-predictor", *pred_cmd, "epochs=1",
+                            f"out_dir={d['pred']}"])
+    ev = run("eval-predictor", ["eval-predictor", *pred_cmd, "--predictor",
+                                pred, "--sweep-thresholds",
+                                f"out_dir={d['pred']}"])[0]
+    opt = run("optimize-traj", ["optimize-traj", "--valuenet", v0,
+                                "--steps", "20", "--batch-size", "64",
+                                f"out_dir={d['opt']}"])[0]
+    run("train-eqmotion", ["train-eqmotion", "--batches", "2", "epochs=1",
+                           f"out_dir={d['eq']}"])
+    (summary, trials) = run("tune-predictor", [
+        "tune-predictor", "--config", JTA_CONFIG, "--trials", "2",
+        "--batches", "2", "epochs=1", f"out_dir={d['tune']}"])[0]
+    # a vis_dict of the trained predictor, as eval-predictor --plots saves
+    cfg = load_config(JTA_CONFIG)
+    tr = PredictorTrainer(cfg.model, cfg.predict, device="cuda")
+    vis = V.collect_vis_data(
+        tr, tr.params_from(tr.load_checkpoint(pred)["params"]),
+        SyntheticScenes(num_people=4, seed=2), 10, 1)
+    os.makedirs(d["vis"], exist_ok=True)
+    vis_path = os.path.join(d["vis"], "vis_dict.pkl")
+    V.save_vis_dict(vis_path, vis)
+    has_mpl = importlib.util.find_spec("matplotlib") is not None
+    try:
+        # (--vis-dicts takes every word after it)
+        run("visualize-pred", ["visualize-pred", f"out_dir={d['vis']}",
+                               "--vis-dicts", vis_path])
+        visualize = "ran"
+    except ModuleNotFoundError as e:
+        if has_mpl or "matplotlib" not in str(e):
+            raise
+        visualize = f"refused: {e}"
+    files = {k: sorted(os.listdir(v)) for k, v in d.items()
+             if os.path.isdir(v)}
+    want = {"value": ["tb", "valuenet.metrics.jsonl",
+                      "valuenet_00000000.ckpt"],
+            "pred": ["predictor.metrics.jsonl", "predictor_best.ckpt", "tb"],
+            "eq": ["eqmotion.ckpt", "eqmotion.metrics.jsonl", "tb"],
+            "tune": ["trials.jsonl"]}
+    finite = (len(lines) == 1 and (lines[0]["mse"] is None
+                                   or math.isfinite(lines[0]["mse"]))
+              and all(math.isfinite(v) for v in ev["evaluate"].values())
+              and math.isfinite(opt["values"][-1].mean().item())
+              and len(trials) == 2
+              and all(math.isfinite(t.get("val_ade", math.nan))
+                      for t in trials))
+    emit("cli_commands", card=card, commands=runs, files=files,
+         visualize_pred=visualize, finite=finite)
+    if not finite or any(files.get(k) != v for k, v in want.items()):
+        raise SystemExit(f"cli_commands: outputs {files} (expected "
+                         f"{want}), finite {finite}")
+    del tr, vis
+    torch.cuda.empty_cache()
+    return {k: lv[k] + le[k] for k in lv}
+
+
+def cli_profile(card, out):
+    """`train-policy --profile epochs=1` at a reduced width (PROFILE_ARGS):
+    the trace written to <out_dir>/trace holds the factor kernel's CUDA
+    launches of the traced epoch (horizon 4: 4 of them). Returns the
+    launch counts (3 epochs: the warm-up, the traced one, the loop's)."""
+    path = os.path.join(out, "trace", "trace.json")
+    _, launches, secs, stdout = run_cli([
+        "train-policy", "--config", PACER, "--profile", "epochs=1",
+        *PROFILE_ARGS, f"out_dir={out}"])
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    factor = [e for e in kernels if "factor_kernel" in e.get("name", "")]
+    resolve = [e for e in kernels if "resolve_kernel" in e.get("name", "")]
+    emit("cli_profile", card=card, args=list(PROFILE_ARGS), seconds=secs,
+         trace_bytes=os.path.getsize(path), events=len(events),
+         kernel_events=len(kernels), factor_kernel_events=len(factor),
+         resolve_kernel_events=len(resolve),
+         factor_kernel_name=factor[0]["name"] if factor else None,
+         launches=launches, printed=stdout.strip().splitlines()[-1:])
+    arrow_launches("cli_profile", launches, 12, 24)
+    if len(factor) != 4 or len(resolve) != 8:
+        raise SystemExit(f"cli_profile: the trace holds {len(factor)} "
+                         f"factor and {len(resolve)} resolve launches, "
+                         "expected 4 and 8")
+    return launches
+
+
+def viewer(card):
+    """A ViewerSession over configs/pacer_terrain.yaml's 1,600 envs: 5
+    chunks of 4 control steps (factor 20, resolve 40), the controls, then
+    the ViewerServer on port 0: /status and POST /control through urllib,
+    the sim loop advancing, /frame.png (the error reply without
+    matplotlib), a bad command refused; the phase fails unless last_error
+    stays None. Returns the launch counts of the 5 chunks."""
+    import importlib.util
+    import urllib.error
+    import urllib.request
+    import torch
+    from emloco_tpu_torch.cli import run
+    from emloco_tpu_torch.envs.viewer_server import (ViewerServer,
+                                                      ViewerSession)
+    from emloco_tpu_torch.physics import linalg
+    from emloco_tpu_torch.utils.config import load_config
+    agent, ts = run._agent(load_config(PACER), torch.device("cuda"))
+    sess = ViewerSession(agent, ts, chunk_steps=VIEWER_STEPS)
+    torch.cuda.synchronize()
+    linalg.reset_launch_counts()
+    t = time.time()
+    for _ in range(VIEWER_CHUNKS):
+        sess.step_chunk()
+    torch.cuda.synchronize()
+    chunk_s = (time.time() - t) / VIEWER_CHUNKS
+    launches = dict(linalg.LAUNCHES)
+    controls = {"pause": sess.control("pause")["paused"]
+                and not sess.step_chunk()}
+    u0 = sess.state.physics.u.clone()
+    sess.control("push", velocity=[-2.0, 1.0])
+    controls["push"] = bool(torch.allclose(
+        (sess.state.physics.u - u0)[0, :2].cpu(), torch.tensor([-2.0, 1.0])))
+    controls["envs"] = [sess.control(c)["env"]
+                        for c in ("prev_env", "next_env")] == [1599, 0]
+    controls["follow"] = sess.control("follow")["follow"] is False
+    controls["reset"] = sess.control("reset")["step"] == 0
+
+    def call(path, payload=None):
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{server.port}{path}",
+            data=None if payload is None else json.dumps(payload).encode(),
+            method="GET" if payload is None else "POST")
+        try:
+            with urllib.request.urlopen(req, timeout=120) as r:
+                return r.status, r.read()
+        except urllib.error.HTTPError as e:
+            return e.code, e.read()
+
+    server = ViewerServer(sess, port=0, fps=20.0).start()
+    try:
+        status0 = json.loads(call("/status")[1])
+        resumed = json.loads(call("/control", {"cmd": "resume"})[1])
+        time.sleep(2.0)
+        paused = json.loads(call("/control", {"cmd": "pause"})[1])
+        frame_code, frame = call("/frame.png")
+        bad_code, _ = call("/control", {"cmd": "bogus"})
+        page_code, page = call("/")
+    finally:
+        server.close()
+    has_mpl = importlib.util.find_spec("matplotlib") is not None
+    frame_ok = (frame[:8] == b"\x89PNG\r\n\x1a\n" if has_mpl else
+                frame_code == 500 and b"matplotlib" in frame)
+    http_ok = (status0["num_envs"] == 1600 and status0["paused"]
+               and not resumed["paused"] and paused["step"] > 0
+               and bad_code == 400 and page_code == 200
+               and b"live viewer" in page)
+    emit("viewer", card=card, num_envs=1600, chunks=VIEWER_CHUNKS,
+         chunk_steps=VIEWER_STEPS, chunk_seconds=chunk_s,
+         env_steps_per_s=1600 * VIEWER_STEPS / chunk_s, launches=launches,
+         controls=controls, status=paused, frame_code=frame_code,
+         frame=frame[:120].decode("latin-1"), http_ok=http_ok,
+         last_error=sess.last_error)
+    arrow_launches("viewer", launches, VIEWER_CHUNKS * VIEWER_STEPS,
+                   2 * VIEWER_CHUNKS * VIEWER_STEPS)
+    if not (all(controls.values()) and http_ok and frame_ok
+            and sess.last_error is None):
+        raise SystemExit(f"viewer: controls {controls}, http {http_ok}, "
+                         f"frame {frame_code}, last_error "
+                         f"{sess.last_error}")
+    del sess, agent, ts
+    return launches
+
+
+def native_helpers(card, heights, cell):
+    """The native C++ helpers built with this machine's g++ and held
+    against the port's numpy versions: the walkable mask of the pacer
+    terrain bit-equal, its spawn table the same cells within 1 float32
+    ulp of the larger term, a mesh's rasterization the same cover within
+    2e-6 m, and the ndjson reader's scenes of the JTA fixture equal to
+    read_ndjson_scenes'. Host times of each."""
+    import numpy as np
+    from emloco_tpu_torch import native
+    from emloco_tpu_torch.physics import mesh_terrain, terrain
+    from emloco_tpu_torch.prediction.data import read_ndjson_scenes
+    t = time.time()
+    native.load_native("terrain_native")
+    native.load_native("ndjson_native")
+    build_s = time.time() - t
+    secs = {}
+
+    def timed(name, fn, *a, **kw):
+        t = time.time()
+        out = fn(*a, **kw)
+        secs[name] = time.time() - t
+        return out
+
+    mask = timed("walkable_mask_native", native.fast_walkable_mask,
+                 heights, cell)
+    mask_p = timed("walkable_mask_numpy", terrain.walkable_mask, heights,
+                   cell)
+    n = int(mask.sum())
+    origin = (-heights.shape[0] * cell / 2, -heights.shape[1] * cell / 2)
+    xy = timed("spawn_table_native", native.fast_spawn_table, mask, cell,
+               origin, max_pts=n)
+    xy_p = timed("spawn_table_numpy", terrain.spawn_table, mask, cell,
+                 origin, max_pts=n)
+    a, b = xy[np.lexsort(xy.T)], xy_p[np.lexsort(xy_p.T)]
+    o = np.asarray(origin, np.float32)
+    spawn_ok = (a.shape == b.shape == (n, 2) and bool(
+        (np.abs(a - b) <= np.spacing(np.maximum(np.abs(b - o),
+                                                np.abs(o)))).all()))
+    g = np.stack(np.meshgrid(np.linspace(-3, 3, 31), np.linspace(-3, 3, 31),
+                             indexing="ij"), -1).reshape(-1, 2)
+    verts = np.concatenate([g, 0.3 * np.sin(g[:, :1] * 1.3)],
+                           1).astype(np.float32)
+    faces = np.asarray([(i * 31 + j, (i + 1) * 31 + j, i * 31 + j + 1)
+                        for i in range(30) for j in range(30)] +
+                       [((i + 1) * 31 + j, (i + 1) * 31 + j + 1,
+                         i * 31 + j + 1)
+                        for i in range(30) for j in range(30)], np.int32)
+    grid = (70, 70, 0.1, (-3.5, -3.5))
+    h, cover = timed("rasterize_native", native.fast_rasterize_trimesh,
+                     verts, faces, *grid)
+    h_p, cover_p = timed("rasterize_numpy", mesh_terrain.rasterize_trimesh_np,
+                         verts, faces, *grid)
+    raster_err = float(np.abs(h[cover] - h_p[cover]).max())
+    fixture = os.path.join(_HERE, "tests", "data",
+                           "jta_all_cues_fixture.ndjson")
+    scenes = timed("ndjson_native", lambda p: native.scenes_to_arrays(
+        *native.read_ndjson_fast(p)), fixture)
+    ref = timed("ndjson_numpy", read_ndjson_scenes, fixture)
+    ndjson_ok = len(scenes) == len(ref) > 0 and all(
+        np.array_equal(x, y) for x, y in zip(scenes, ref))
+    checks = dict(walkable_mask_bit_equal=bool(np.array_equal(mask, mask_p)),
+                  spawn_table_within_ulp=spawn_ok,
+                  rasterize_cover_equal=bool(np.array_equal(cover,
+                                                            cover_p)),
+                  rasterize_within_2um=raster_err <= 2e-6,
+                  ndjson_scenes_equal=ndjson_ok)
+    emit("native", card=card, build_seconds=build_s, seconds=secs,
+         heights_shape=list(heights.shape), walkable=n,
+         rasterize_max_abs_err=raster_err, scenes=len(scenes), **checks)
+    if not all(checks.values()):
+        raise SystemExit(f"native: {checks}")
+
+
+def cli_phases(card):
+    """Phases 39-44 in one temporary output directory; returns the launch
+    counts of the runs that step the engine, by path."""
+    import tempfile
+    heights, cell = cli_world(card)
+    with tempfile.TemporaryDirectory() as out:
+        policy, by_path = cli_train_policy(card, os.path.join(out, "train"))
+        by_path = {"cli_train_policy": by_path}
+        by_path["cli_commands"] = cli_commands(card, out, policy)
+        by_path["cli_profile"] = cli_profile(card,
+                                             os.path.join(out, "profile"))
+    by_path["viewer"] = viewer(card)
+    native_helpers(card, heights, cell)
+    return by_path
+
+
 def main():
     import numpy as np
     import torch
@@ -3468,6 +3975,9 @@ def main():
 
     # 38. the prediction tools ----------------------------------------------
     by_path["prediction_tools"] = prediction_tools(card, vp)
+
+    # 39-44. the entry point over the YAML configs --------------------------
+    by_path.update(cli_phases(card))
 
     # summary ---------------------------------------------------------------
     kernels = []

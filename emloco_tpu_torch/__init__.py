@@ -13,7 +13,8 @@ physics      reduced-coordinate engine (TGS and implicit substeps, env-last
              or batch-major), terrain, the solver kernels' wrappers and
              plain versions
 envs         pedestrian-terrain env: reset, observe, step, the mirror of an
-             observation, the AMP demo fetch
+             observation, the AMP demo fetch; the getup and hand tasks; the
+             trajectory input server and the live viewer over HTTP
 learning     running normalization, the AMPSept network's four heads, the
              PPO + AMP agent (amp_agent), the LocoVal function
              (ValuePoseNet) and its trainer (value_train), the evaluation
@@ -27,7 +28,16 @@ prediction   trajectory prediction: metrics, datasets (synthetic scenes,
              jta_lstm.yaml; the EqMotion baseline (compact and
              architecture-exact), plots, bank export and the hyper-sweep
 utils        checkpoints in the JAX package's pickle format, read without
-             the JAX package (policies, valuenets, predictors)
+             the JAX package (policies, valuenets, predictors); the run
+             configuration over configs/*.yaml with its own YAML reader;
+             metrics logging, TensorBoard event files, torch.profiler
+             traces
+cli          the system's entry point: python3 -m emloco_tpu_torch.cli.run
+             <command> [--config configs/<x>.yaml] [k.sub=v ...], the JAX
+             CLI's ten commands over the config-built world
+native       the JAX package's C++ helpers (terrain masks and spawn
+             tables, mesh rasterization, the ndjson reader), built with g++
+             at first use and loaded with ctypes
 csrc         the CUDA kernels; build.py compiles them with nvcc at first use
 convert      JAX-package objects (as numpy pytrees) → this package's
              objects, and back to the flax layout for the files it writes

@@ -90,6 +90,8 @@ class EnvConfig:
     episode_length: int = 168
     num_traj_samples: int = 15
     traj_sample_timestep: float = 0.4
+    # read by no env step: LocoVal latches at ValueTrainConfig.step_to_pred
+    step_to_pred: int = 144
     sensor_extent: float = 2.0
     sensor_res: int = 32
     sensor_shape: str = "square"

@@ -30,6 +30,9 @@ class TrajConfig:
     init_heading: bool = True
     # fraction of real paths flipped 180° as LocoVal hard negatives
     heading_inversion_prob: float = 0.0
+    # procedural paths straight at the mean speed; at a quarter speed
+    fixed_path: bool = False
+    slow: bool = False
 
     @property
     def dt(self):
@@ -62,6 +65,12 @@ def procedural_verts(gen, n, cfg: TrajConfig, init_pos, root_vel=None):
         s = torch.clamp(s + dspeed[:, i], cfg.speed_min, cfg.speed_max)
         speeds.append(s)
     speed = torch.stack(speeds, dim=1)                    # (n, V-1)
+
+    if cfg.fixed_path:
+        dtheta = torch.zeros_like(dtheta)
+        speed = torch.full_like(speed, (cfg.speed_min + cfg.speed_max) / 2)
+    if cfg.slow:
+        speed = speed / 4
 
     if cfg.adjust_root_vel and root_vel is not None:
         root_speed = torch.linalg.norm(root_vel[:, :2], dim=-1)

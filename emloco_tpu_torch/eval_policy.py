@@ -33,11 +33,10 @@ import time
 
 import torch
 
-from . import convert
 from . import device as _device
 from .envs import EnvConfig
 from .rollout import TRAIN_AMP, build_value_bench, parse_overrides
-from .utils.checkpoint import load_pytree, restore_policy
+from .utils.checkpoint import load_pytree, load_valuenet, restore_policy
 
 GRID = (
     ("real+heading", dict(hybrid_init_prob=0.0, init_heading=True)),
@@ -67,13 +66,11 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.plots:
         import matplotlib  # noqa: F401  (fail before the rollouts)
-        from .learning.players import save_eval_artifacts
     amp_fields, env_fields = parse_overrides(args.overrides)
     dev = _device.resolve(args.device)
     _device.full_float32(dev)
-    name = _device.name(dev)
     policy = load_pytree(args.policy)[0] if args.policy else None
-    vnet_tree = load_pytree(args.valuenet)[0] if args.valuenet else None
+    vnet_params = load_valuenet(args.valuenet, dev) if args.valuenet else None
     traj0 = env_fields.get("traj", EnvConfig().traj)
     results = []
     for cond, traj_fields in (GRID if args.grid else (("default", {}),)):
@@ -87,36 +84,47 @@ def main(argv=None):
         if policy is not None:
             vts = vts.replace(policy=restore_policy(vts.policy, policy,
                                                     full=False))
-        if vnet_tree is not None:
-            vts = vts.replace(vnet_params={
-                k: v.to(dev) for k, v in
-                convert.valuenet_state_dict(vnet_tree).items()})
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        t = time.perf_counter()
-        vts, preds, targets = trainer.collect_predictions(vts, args.games)
-        dt = time.perf_counter() - t
-        mse, corr = trainer.prediction_stats(preds, targets)
-        line = {"condition": cond, **traj_fields, "games": args.games,
-                "num_envs": args.num_envs, "latched": len(preds),
-                "mse": mse if math.isfinite(mse) else None, "corr": corr,
-                "seconds": dt,
-                "env_steps_per_s": (args.games * trainer.cfg.horizon
-                                    * args.num_envs / dt),
-                "device": name}
-        if not len(preds):
-            line["note"] = ("no episodes latched: more --games or shorter "
-                            "episodes")
-        if args.plots:
-            vts, arts = save_eval_artifacts(trainer, vts, args.out,
-                                            name=cond, preds=preds,
-                                            targets=targets)
-            line["artifacts"] = {k: v for k, v in arts.items()
-                                 if isinstance(v, str)}
-        print(json.dumps(line), flush=True)
+        if vnet_params is not None:
+            vts = vts.replace(vnet_params=vnet_params)
+        vts, line = evaluate(trainer, vts, cond, traj_fields, args.games,
+                             args.out if args.plots else None)
         results.append(line)
         del trainer, vts
     return results
+
+
+def evaluate(trainer, vts, cond: str, traj_fields: dict, games: int,
+             plots_out: str | None = None):
+    """One condition of `cmd_eval_policy` (cli/run.py:248-283): `games`
+    read-only rollout epochs, the valuenet's mse and correlation against
+    the latched returns, printed as one JSON line; with `plots_out` the
+    value scatter, histograms and a rollout GIF there. Returns (vts, the
+    line)."""
+    dev = vts.cum_reward.device
+    num_envs = vts.cum_reward.shape[0]
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t = time.perf_counter()
+    vts, preds, targets = trainer.collect_predictions(vts, games)
+    dt = time.perf_counter() - t
+    mse, corr = trainer.prediction_stats(preds, targets)
+    line = {"condition": cond, **traj_fields, "games": games,
+            "num_envs": num_envs, "latched": len(preds),
+            "mse": mse if math.isfinite(mse) else None, "corr": corr,
+            "seconds": dt,
+            "env_steps_per_s": games * trainer.cfg.horizon * num_envs / dt,
+            "device": _device.name(dev)}
+    if not len(preds):
+        line["note"] = ("no episodes latched: more --games or shorter "
+                        "episodes")
+    if plots_out is not None:
+        from .learning.players import save_eval_artifacts
+        vts, arts = save_eval_artifacts(trainer, vts, plots_out, name=cond,
+                                        preds=preds, targets=targets)
+        line["artifacts"] = {k: v for k, v in arts.items()
+                             if isinstance(v, str)}
+    print(json.dumps(line), flush=True)
+    return vts, line
 
 
 if __name__ == "__main__":

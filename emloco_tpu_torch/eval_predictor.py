@@ -63,9 +63,16 @@ def main(argv=None):
     mcfg, pcfg = configs(args.preset, args.overrides)
     dev = _device.resolve(args.device)
     _device.full_float32(dev)
+    return run(args, mcfg, pcfg, dataset(args, 2), dev)
+
+
+def run(args, mcfg, pcfg, ds, dev):
+    """`cmd_eval_predictor` (cli/run.py:427-486) on the scenes `ds`:
+    args.predictor, args.valuenet, args.batch_size, args.batches,
+    args.threshold, args.sweep_thresholds, args.all_frames, args.plots and
+    args.out as the flags say. Returns the printed results."""
     name = _device.name(dev)
     trainer = PredictorTrainer(mcfg, pcfg, device=dev)
-    ds = dataset(args, 2)
     params = trainer.params_from(
         trainer.load_checkpoint(args.predictor)["params"])
     vnet, vp = valuenet(args, dev)

@@ -149,6 +149,31 @@ def synthetic_walk_motions(
     return _build(tree, motions, betas_list, fps_list, dev)
 
 
+def load_reference_pkl(path: str, tree=None, max_motions=None,
+                       device=None) -> MotionLib:
+    """The reference's AMASS-converted motion pickle (a dict of motions,
+    each a dict with pose_aa (F, 72) axis-angle, root_trans_offset (F, 3),
+    beta (up to 16) and fps), read with pickle (`load_data_pickle`; a
+    joblib file raises) and built as the JAX package's loader builds it."""
+    from ..utils.checkpoint import load_data_pickle
+    dev = _device.resolve(device)
+    if tree is None:
+        tree = bm.canonical_skeleton()
+    data = load_data_pickle(path)
+    motions, betas_list, fps_list = [], [], []
+    for i, (name, m) in enumerate(data.items()):
+        if max_motions is not None and i >= max_motions:
+            break
+        pose_aa = np.asarray(m["pose_aa"], np.float32).reshape(-1, 24, 3)
+        local_rot = quat.exp_map_to_quat(torch.from_numpy(pose_aa)).numpy()
+        root_pos = np.asarray(m["root_trans_offset"], np.float32)
+        motions.append((local_rot, root_pos))
+        beta = np.asarray(m.get("beta", np.zeros(16)), np.float32)[:16]
+        betas_list.append(np.pad(beta, (0, 16 - len(beta))))
+        fps_list.append(float(m.get("fps", 30.0)))
+    return _build(tree, motions, betas_list, fps_list, dev)
+
+
 def sample_motions(lib: MotionLib, gen: torch.Generator, n: int,
                    weights=None) -> torch.Tensor:
     """Weighted motion sampling with replacement."""

@@ -45,6 +45,14 @@ def main(argv=None):
     args = ap.parse_args(argv)
     dev = _device.resolve(args.device)
     _device.full_float32(dev)
+    return run(args, dev)
+
+
+def run(args, dev):
+    """`cmd_optimize_traj` (cli/run.py:556-584): args.valuenet,
+    args.batch_size, args.steps, args.seed, args.gif and args.out as the
+    flags say. Returns the trajectories before and after, the values and
+    the seconds."""
     tree, meta = load_pytree(args.valuenet)
     vcfg = (meta or {}).get("config") or {}
     use_pose = bool(vcfg.get("use_pose", False))

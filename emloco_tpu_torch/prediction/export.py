@@ -84,8 +84,8 @@ def load_traj_bank(path: str):
     None). Also accepts the reference's format (dict of per-scene arrays or a
     raw array). Returned init poses are in the raw dataset frame (see
     export_traj_bank) — z-flip before feeding a ValuePoseNet."""
-    with open(path, "rb") as f:
-        blob = pickle.load(f)
+    from ..utils.checkpoint import load_data_pickle
+    blob = load_data_pickle(path)
     if isinstance(blob, dict) and "trajs" in blob:
         return (blob["trajs"], blob.get("init_pose"), blob.get("init_vel"))
     if isinstance(blob, dict):

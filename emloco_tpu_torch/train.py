@@ -40,6 +40,33 @@ from .utils.checkpoint import (checkpoint_epoch, load_pytree,
                                restore_policy, save_policy)
 
 
+def run_epochs(agent, ts, start: int, epochs: int, on_epoch=None,
+               out: str | None = None, save_every: int = 200):
+    """The loop of `cmd_train_policy` (cli/run.py:146-172): epochs
+    `start` … `start + epochs − 1` (absolute), each first applying the
+    getup env's fall-bank and reward schedules at its number where the env
+    has them, then `train_epoch`; `on_epoch(ep, ts, metrics, seconds)` gets
+    the metrics as floats and the epoch's seconds; with `out`,
+    `policy_<ep:08d>.ckpt` after every `save_every`-th epoch and the
+    last. Returns the TrainState."""
+    env = agent.env
+    last = start + epochs - 1
+    for ep in range(start, start + epochs):
+        t = time.perf_counter()
+        if hasattr(env, "update_getup_schedule"):
+            upd = env.cfg.getup_update_epoch
+            ts = ts.replace(env_state=env.update_getup_schedule(
+                ts.env_state, ep, upd))
+            ts = agent.update_getup_reward_schedule(ts, ep, upd)
+        ts, metrics = agent.train_epoch(ts)
+        metrics = {k: v.item() for k, v in metrics.items()}
+        if on_epoch is not None:
+            on_epoch(ep, ts, metrics, time.perf_counter() - t)
+        if out and (ep and ep % save_every == 0 or ep == last):
+            save_policy(os.path.join(out, f"policy_{ep:08d}.ckpt"), ts, ep)
+    return ts
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--epochs", type=int, default=10)
@@ -66,29 +93,17 @@ def main(argv=None):
         tree, meta = load_pytree(args.resume)
         ts = restore_policy(ts, tree)
         ts = ts.replace(epoch=checkpoint_epoch(args.resume, meta) + 1)
-    env = agent.env
     steps = agent.cfg.horizon * args.num_envs
     name = _device.name(dev)
-    last = ts.epoch + args.epochs - 1
-    for _ in range(args.epochs):
-        ep = ts.epoch
-        t = time.perf_counter()
-        if args.task == "getup":
-            upd = env.cfg.getup_update_epoch
-            ts = ts.replace(env_state=env.update_getup_schedule(
-                ts.env_state, ep, upd))
-            ts = agent.update_getup_reward_schedule(ts, ep, upd)
-        ts, metrics = agent.train_epoch(ts)
-        metrics = {k: v.item() for k, v in metrics.items()}
-        dt = time.perf_counter() - t
+
+    def report(ep, ts, metrics, dt):
         print(json.dumps({"epoch": ts.epoch, **metrics, "seconds": dt,
                           "env_steps_per_s": steps / dt,
                           "replay_filled": ts.replay_filled,
                           "device": name}), flush=True)
-        if args.out and (ep and ep % args.save_every == 0 or ep == last):
-            save_policy(os.path.join(args.out, f"policy_{ep:08d}.ckpt"), ts,
-                        ep)
-    return ts
+
+    return run_epochs(agent, ts, ts.epoch, args.epochs, report, args.out,
+                      args.save_every)
 
 
 if __name__ == "__main__":

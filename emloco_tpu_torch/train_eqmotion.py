@@ -93,6 +93,17 @@ def main(argv=None):
     cfg = config(args.overrides)
     dev = _device.resolve(args.device)
     _device.full_float32(dev)
+    return run(args, cfg, dev)
+
+
+def run(args, cfg: EqMotionConfig, dev, on_epoch=None):
+    """`cmd_train_eqmotion` (cli/run.py:341-424) at the configuration
+    `cfg`: args.ethucy, args.ethucy_val, args.arch, args.channels,
+    args.valuenet, args.valueloss_w, args.value_loss_mode,
+    args.apply_decay, args.threshold, args.epochs, args.batch_size,
+    args.batches, args.seed and args.out as the flags say;
+    `on_epoch(ep, metrics)` after each epoch. Returns (trainer, ts, the
+    evaluation)."""
     name = _device.name(dev)
     vnet, vp = None, None
     if args.valuenet:
@@ -143,6 +154,8 @@ def main(argv=None):
         print(json.dumps({"epoch": ep, **m, "seconds": dt,
                           "steps_per_s": steps / dt, "device": name}),
               flush=True)
+        if on_epoch is not None:
+            on_epoch(ep, m)
     if args.ethucy:
         ev_in = (ev_past, ev_future)
     else:

@@ -29,13 +29,12 @@ import json
 import os
 import time
 
-from . import convert
 from . import device as _device
 from .learning.networks import ValuePoseNet
 from .prediction.data import NdjsonScenes, SyntheticScenes
 from .prediction.presets import PRESETS, configs
 from .prediction.train import PredictorTrainer
-from .utils.checkpoint import load_pytree
+from .utils.checkpoint import load_valuenet
 
 
 def arguments(ap: argparse.ArgumentParser):
@@ -66,10 +65,8 @@ def valuenet(args, dev):
     `--valuenet`, or (None, None)."""
     if not args.valuenet:
         return None, None
-    tree, _ = load_pytree(args.valuenet)
-    params = {k: v.to(dev)
-              for k, v in convert.valuenet_state_dict(tree).items()}
-    return ValuePoseNet(use_pose=True, use_vel=True, device=dev), params
+    return (ValuePoseNet(use_pose=True, use_vel=True, device=dev),
+            load_valuenet(args.valuenet, dev))
 
 
 def main(argv=None):
@@ -83,10 +80,17 @@ def main(argv=None):
     mcfg, pcfg = configs(args.preset, args.overrides)
     dev = _device.resolve(args.device)
     _device.full_float32(dev)
+    return run(args, mcfg, pcfg, dataset(args), dataset(args, 1), dev)
+
+
+def run(args, mcfg, pcfg, ds, eval_ds, dev):
+    """`cmd_train_predictor` (cli/run.py:297-338) on the scenes `ds` and
+    `eval_ds`: args.valuenet, args.seed, args.batch_size, args.batches,
+    args.epochs, args.resume and args.out as the flags say. Returns (ts,
+    history, best params)."""
     name = _device.name(dev)
     vnet, vp = valuenet(args, dev)
     trainer = PredictorTrainer(mcfg, pcfg, vnet=vnet, device=dev)
-    ds, eval_ds = dataset(args), dataset(args, 1)
     batch = ds.batch(args.batch_size)
     ts = trainer.init(args.seed, batch, vnet_params=vp)
     if args.resume:

@@ -31,10 +31,9 @@ import json
 import os
 import time
 
-from . import convert
 from . import device as _device
 from .rollout import TRAIN_AMP, build_value_bench, parse_overrides
-from .utils.checkpoint import (checkpoint_epoch, load_pytree,
+from .utils.checkpoint import (checkpoint_epoch, load_pytree, load_valuenet,
                                restore_policy, save_valuenet)
 
 
@@ -71,32 +70,45 @@ def main(argv=None):
                                                 full=False))
     start = 0
     if args.resume:
-        tree, _ = load_pytree(args.resume)
-        vts = vts.replace(vnet_params={
-            k: v.to(dev) for k, v in convert.valuenet_state_dict(
-                tree).items()})
+        vts = vts.replace(vnet_params=load_valuenet(args.resume, dev))
         start = checkpoint_epoch(args.resume) + 1
         vts = vts.replace(epoch=start)
     steps = trainer.cfg.horizon * args.num_envs
     name = _device.name(dev)
-    last = start + args.epochs - 1
-    for ep in range(start, start + args.epochs):
-        t = time.perf_counter()
-        vts, metrics = trainer.train_epoch(vts)
-        metrics = {k: v.item() for k, v in metrics.items()}
-        dt = time.perf_counter() - t
+
+    def report(ep, vts, metrics, dt):
         print(json.dumps({"epoch": vts.epoch, **metrics, "seconds": dt,
                           "env_steps_per_s": steps / dt, "device": name}),
               flush=True)
-        if ep and ep % args.save_every == 0 or ep == last:
-            save_valuenet(os.path.join(args.out, f"valuenet_{ep:08d}.ckpt"),
-                          vts.vnet_params, use)
+
+    vts = run_epochs(trainer, vts, start, args.epochs, use, args.out,
+                     args.save_every, report)
     if args.games:
         vts, preds, targets = trainer.collect_predictions(vts, args.games)
         mse, corr = trainer.prediction_stats(preds, targets)
         print(json.dumps({"games": args.games, "latched": len(preds),
                           "mse": mse, "corr": corr, "device": name}),
               flush=True)
+    return vts
+
+
+def run_epochs(trainer, vts, start: int, epochs: int, use: dict, out: str,
+               save_every: int, on_epoch=None):
+    """The loop of `cmd_train_valuenet` (cli/run.py:213-222): epochs
+    `start` … `start + epochs − 1`, `on_epoch(ep, vts, metrics, seconds)`
+    with the metrics as floats, `valuenet_<ep:08d>.ckpt` in `out` (the
+    metadata config `use`) after every `save_every`-th epoch and the last.
+    Returns the ValueTrainState."""
+    last = start + epochs - 1
+    for ep in range(start, start + epochs):
+        t = time.perf_counter()
+        vts, metrics = trainer.train_epoch(vts)
+        metrics = {k: v.item() for k, v in metrics.items()}
+        if on_epoch is not None:
+            on_epoch(ep, vts, metrics, time.perf_counter() - t)
+        if ep and ep % save_every == 0 or ep == last:
+            save_valuenet(os.path.join(out, f"valuenet_{ep:08d}.ckpt"),
+                          vts.vnet_params, use)
     return vts
 
 

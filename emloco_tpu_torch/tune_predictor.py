@@ -40,9 +40,17 @@ def main(argv=None):
     mcfg, pcfg = configs(args.preset, args.overrides)
     dev = _device.resolve(args.device)
     _device.full_float32(dev)
+    return run(args, mcfg, pcfg, dataset(args), dataset(args, 1), dev)
+
+
+def run(args, mcfg, pcfg, ds, eval_ds, dev):
+    """`cmd_tune_predictor` (cli/run.py:489-512) on the scenes `ds` and
+    `eval_ds`: args.valuenet, args.epochs, args.batch_size, args.batches,
+    args.seed, args.trials and args.out as the flags say. Returns (the
+    summary, this run's trials); exits non-zero when one of them raised."""
     vnet, vp = valuenet(args, dev)
     objective = predictor_objective(
-        {"model": mcfg, "predict": pcfg}, dataset(args), dataset(args, 1),
+        {"model": mcfg, "predict": pcfg}, ds, eval_ds,
         epochs=max(1, args.epochs), batch_size=args.batch_size,
         batches_per_epoch=args.batches, vnet=vnet, vnet_params=vp,
         seed=args.seed, device=dev)

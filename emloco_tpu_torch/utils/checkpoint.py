@@ -119,10 +119,44 @@ def load_pickle(path: str):
         return Unpickler(f).load()
 
 
+# leading bytes of the compressed files joblib writes (zlib, gzip, bz2, xz,
+# lzma, lz4)
+_COMPRESSED = (b"\x78", b"\x1f\x8b", b"BZh", b"\xfd7zXZ", b"\x5d\x00\x00",
+               b"\x04\x22\x4d\x18")
+
+
+def load_data_pickle(path: str):
+    """A data file written with `pickle` (a motion pickle, a trajectory
+    bank), read with `Unpickler`. A joblib file, compressed or not, raises
+    ValueError: the port reads no joblib (re-save it with pickle.dump)."""
+    with open(path, "rb") as f:
+        head = f.read(6)
+    if head.startswith(_COMPRESSED):
+        raise ValueError(f"{path} is compressed (a joblib dump?); the port "
+                         "reads plain pickle files only: re-save it with "
+                         "pickle.dump")
+    try:
+        return load_pickle(path)
+    except pickle.UnpicklingError as e:
+        if "joblib" in str(e):
+            raise ValueError(f"{path} is a joblib file; the port reads plain "
+                             "pickle files only: re-save it with "
+                             "pickle.dump") from e
+        raise
+
+
 def load_pytree(path: str):
     """(tree of numpy arrays, metadata) from a file either package wrote."""
     blob = load_pickle(path)
     return blob["tree"], blob.get("metadata", {})
+
+
+def load_valuenet(path: str, device) -> dict:
+    """A valuenet file of either package as ValuePoseNet's state_dict on
+    `device`."""
+    tree, _ = load_pytree(path)
+    return {k: v.to(device)
+            for k, v in convert.valuenet_state_dict(tree).items()}
 
 
 def save_valuenet(path: str, vnet_params: dict,

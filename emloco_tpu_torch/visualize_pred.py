@@ -43,23 +43,29 @@ def main(argv=None):
                     help="scenes in the comparison grid")
     ap.add_argument("--out", default="output/visualize_pred")
     args = ap.parse_args(argv)
-    vis = load(args.vis_dicts)
-    os.makedirs(args.out, exist_ok=True)
+    return run(args.vis_dicts, args.games, args.out)
+
+
+def run(vis_dicts, games: int, out: str) -> dict:
+    """`cmd_visualize_pred` (cli/run.py:515-553): the plots of the files
+    `vis_dicts` in `out`; prints and returns their paths."""
+    vis = load(vis_dicts)
+    os.makedirs(out, exist_ok=True)
     n = min(v["pred"].shape[0] for v in vis.values())
     paths = {"comparison": V.plot_prediction_comparison(
-        vis, list(range(min(args.games, n))),
-        os.path.join(args.out, "pred_comparison.png"), value_threshold=0.7)}
+        vis, list(range(min(games, n))),
+        os.path.join(out, "pred_comparison.png"), value_threshold=0.7)}
     for name, v in vis.items():
         if "values" in v:
             paths[f"values_{name}"] = V.plot_value_histogram(
                 {name: v["values"]},
-                os.path.join(args.out, f"values_{name.replace('/', '_')}"
+                os.path.join(out, f"values_{name.replace('/', '_')}"
                              ".png"))
     if len(vis) > 1:
         ours = list(vis)[-1]
         paths["ours"] = ours
         paths["metric_diff"] = V.plot_metric_diff_histograms(
-            vis, ours, os.path.join(args.out, "metric_diff_hist.png"))
+            vis, ours, os.path.join(out, "metric_diff_hist.png"))
     print(json.dumps(paths), flush=True)
     return paths
 

@@ -27,6 +27,10 @@ from emloco_tpu_torch import train, train_value
 from emloco_tpu_torch.utils import checkpoint as ckpt
 from test_torch_train import _agents, jworld  # noqa: F401
 
+# one torch thread per process: the test workers share the cores, and a
+# worker that spawned a thread per core would oversubscribe them
+torch.set_num_threads(1)
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "emloco_tpu")
 SMALL = ["--num-envs", "2", "--device", "cpu", "amp.horizon=2",

@@ -28,6 +28,10 @@ from emloco_tpu_torch.physics import linalg
 from emloco_tpu_torch.physics import reduced as TR
 from test_torch_physics import TOL, rel_close, world  # noqa: F401
 
+# one torch thread per process: the test workers share the cores, and a
+# worker that spawned a thread per core would oversubscribe them
+torch.set_num_threads(1)
+
 CONFIGS = {
     "self_contact": dict(self_contact=True),
     "mesh": dict(mesh_contacts=True),

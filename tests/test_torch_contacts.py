@@ -38,6 +38,10 @@ from emloco_tpu_torch.physics import EngineConfig
 from emloco_tpu_torch.physics import reduced as TR
 from emloco_tpu_torch.physics import terrain as TT
 
+# one torch thread per process: the test workers share the cores, and a
+# worker that spawned a thread per core would oversubscribe them
+torch.set_num_threads(1)
+
 FIXTURE = os.path.join(os.path.dirname(__file__), "data", "smpl_fixture.npz")
 TABLES = ("capsule", "mesh", "self")
 

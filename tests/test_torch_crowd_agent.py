@@ -39,6 +39,10 @@ from emloco_tpu_torch.learning.amp_agent import (AMPAgent, AMPConfig,
                                                  build_net)
 from test_torch_crowd_env import jx, to_jax_state
 
+# one torch thread per process: the test workers share the cores, and a
+# worker that spawned a thread per core would oversubscribe them
+torch.set_num_threads(1)
+
 N = 4
 CROWD = dict(num_envs=N, sensor_res=8, episode_length=48,
              num_amp_obs_steps=3, group_obs=True, group_size=4,

@@ -45,6 +45,10 @@ from emloco_tpu_torch.envs import pedestrian_terrain as pt
 from emloco_tpu_torch.kinematics import motion_lib as tml
 from emloco_tpu_torch.physics import EngineConfig
 
+# one torch thread per process: the test workers share the cores, and a
+# worker that spawned a thread per core would oversubscribe them
+torch.set_num_threads(1)
+
 N = 8
 SMALL = dict(num_envs=N, sensor_res=8, episode_length=48,
              num_amp_obs_steps=3)

@@ -22,6 +22,10 @@ from emloco_tpu_torch.physics import (EngineConfig, build_model,
                                       default_tree, flat_terrain,
                                       joint_state, kinematic_state, step)
 
+# one torch thread per process: the test workers share the cores, and a
+# worker that spawned a thread per core would oversubscribe them
+torch.set_num_threads(1)
+
 TREE = default_tree()
 CFG = EngineConfig(n_substeps=4)
 GRAM_CFG = EngineConfig(n_substeps=4, gram_kernel=True)

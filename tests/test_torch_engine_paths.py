@@ -40,6 +40,10 @@ from emloco_tpu_torch.physics import reduced as TR
 from emloco_tpu_torch.rollout import build_bench
 from test_torch_physics import TOL, rel_close, world  # noqa: F401
 
+# one torch thread per process: the test workers share the cores, and a
+# worker that spawned a thread per core would oversubscribe them
+torch.set_num_threads(1)
+
 CONFIGS = {
     "implicit": dict(tgs_step=False),
     "one_substep": dict(n_substeps=1),

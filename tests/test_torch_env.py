@@ -31,6 +31,10 @@ from emloco_tpu_torch.learning import AMPSeptValueNet, RunningNorm
 from emloco_tpu_torch.physics import body_frame_state, generate_mixed_terrain
 from emloco_tpu_torch.rollout import build_bench
 
+# one torch thread per process: the test workers share the cores, and a
+# worker that spawned a thread per core would oversubscribe them
+torch.set_num_threads(1)
+
 N = 8
 SMALL = dict(num_envs=N, sensor_res=16, episode_length=48,
              num_amp_obs_steps=5)

@@ -45,6 +45,10 @@ from emloco_tpu_torch.kinematics import motion_lib as tml
 from emloco_tpu_torch.learning.amp_agent import AMPAgent, AMPConfig
 from emloco_tpu_torch.physics import EngineConfig
 
+# one torch thread per process: the test workers share the cores, and a
+# worker that spawned a thread per core would oversubscribe them
+torch.set_num_threads(1)
+
 N = 4
 SMALL = dict(num_envs=N, sensor_res=4, episode_length=48,
              num_amp_obs_steps=3)

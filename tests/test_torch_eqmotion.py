@@ -37,6 +37,10 @@ from emloco_tpu_torch.learning.networks import ValuePoseNet
 from emloco_tpu_torch.prediction import eqmotion as TE
 from emloco_tpu_torch.utils import checkpoint as ckpt
 
+# one torch thread per process: the test workers share the cores, and a
+# worker that spawned a thread per core would oversubscribe them
+torch.set_num_threads(1)
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 ETH = str(ROOT / "tests" / "data" / "ethucy_fixture.txt")
 SMALL = dict(hidden_nf=16, hid_channel=8, n_layers=2, nmode=3)

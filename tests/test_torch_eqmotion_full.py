@@ -26,6 +26,10 @@ from emloco_tpu_torch import convert
 from emloco_tpu_torch.prediction import eqmotion as TE
 from emloco_tpu_torch.prediction import eqmotion_full as TF
 
+# one torch thread per process: the test workers share the cores, and a
+# worker that spawned a thread per core would oversubscribe them
+torch.set_num_threads(1)
+
 REL = 1e-5
 # gradients: 1e-4 of each leaf's largest |g|, the predictor's train-step
 # tolerance (tests/test_torch_predictor_train.py); float32 roundings differ

@@ -37,6 +37,10 @@ from emloco_tpu_torch.ops import quat as tq
 from emloco_tpu_torch.physics import EngineConfig, flat_terrain, linalg
 from emloco_tpu_torch.physics import reduced as TR
 
+# one torch thread per process: the test workers share the cores, and a
+# worker that spawned a thread per core would oversubscribe them
+torch.set_num_threads(1)
+
 C = TR.NU
 STAGED = C + (-C) % 16                    # to_env_last's staging rows, 80
 

@@ -41,6 +41,10 @@ except ModuleNotFoundError:      # only the card test can run without jax
 from emloco_tpu_torch.physics import linalg
 from emloco_tpu_torch.scripts import gram_kernel_probe as probe
 
+# one torch thread per process: the test workers share the cores, and a
+# worker that spawned a thread per core would oversubscribe them
+torch.set_num_threads(1)
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 JAX_PROBE = ROOT / "scripts" / "gram_kernel_probe.py"
 M, C = probe.M, probe.C

@@ -1,6 +1,8 @@
 """The port stands alone: it imports torch and numpy, never jax, flax,
-emloco_tpu or the JAX package's scripts, and its chip smoke script refuses
-to run without a card."""
+emloco_tpu, the JAX package's scripts, pyyaml or joblib (the card's machine
+has neither), and its chip smoke script refuses to run without a card. Two
+card tests (requires_cuda) run the entry point's train-policy at a small
+width and the native helpers' build there."""
 import ast
 import os
 import pathlib
@@ -12,7 +14,8 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "emloco_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "emloco_tpu", "scripts")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "emloco_tpu", "scripts",
+             "yaml", "joblib")
 
 
 def _no_gpu_env():
@@ -23,9 +26,10 @@ def _no_gpu_env():
 
 
 def test_import_pulls_in_no_jax():
-    """Every module imports with jax, flax, optax, emloco_tpu and the JAX
-    package's scripts refused by an import hook, and none of them, nor
-    matplotlib (imported inside the plotting functions), is in
+    """Every module imports with jax, flax, optax, emloco_tpu, the JAX
+    package's scripts, pyyaml and joblib refused by an import hook, the
+    configuration of configs/pacer_terrain.yaml loads, and none of them,
+    nor matplotlib (imported inside the plotting functions), is in
     sys.modules afterwards."""
     code = (
         "import sys\n"
@@ -62,6 +66,14 @@ def test_import_pulls_in_no_jax():
         "emloco_tpu_torch.train_eqmotion, emloco_tpu_torch.eval_policy, "
         "emloco_tpu_torch.visualize_pred, "
         "emloco_tpu_torch.tune_predictor\n"
+        "import emloco_tpu_torch.cli.run, emloco_tpu_torch.utils.config, "
+        "emloco_tpu_torch.utils.logging, emloco_tpu_torch.utils.tracking, "
+        "emloco_tpu_torch.utils.profiling, emloco_tpu_torch.native, "
+        "emloco_tpu_torch.envs.traj_server, "
+        "emloco_tpu_torch.envs.viewer_server\n"
+        "from emloco_tpu_torch.utils.config import load_config\n"
+        "cfg = load_config('configs/pacer_terrain.yaml', ['amp.lr=1.0e-5'])\n"
+        "assert cfg.env.num_envs == 1600 and cfg.amp.lr == 1e-5\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN + ('matplotlib',)!r})\n"
         "print(','.join(bad))\n")
@@ -107,3 +119,50 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc"):
         build.nvcc_path()
+
+
+@pytest.mark.requires_cuda
+def test_cli_train_policy_on_card(tmp_path):
+    """`cli.run train-policy` over configs/pacer_terrain.yaml at 64 envs for
+    one epoch on the card: the factor 32 and the resolve 64 times, a
+    finite metrics row and the checkpoint."""
+    import json
+
+    import torch
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from emloco_tpu_torch.cli import run
+    from emloco_tpu_torch.physics import linalg
+    from emloco_tpu_torch.utils.checkpoint import load_pytree
+    linalg.reset_launch_counts()
+    run.main(["train-policy", "--config",
+              str(ROOT / "configs" / "pacer_terrain.yaml"), "epochs=1",
+              "env.num_envs=64", "amp.num_minibatches=2",
+              "amp.amp_replay_size=4096", "terrain.num_tiles=2",
+              f"out_dir={tmp_path}"])
+    assert linalg.LAUNCHES["cholesky_factor_blocked_t"] == 32
+    assert linalg.LAUNCHES["cholesky_resolve_blocked_t"] == 64
+    (row,) = [json.loads(x) for x in open(tmp_path / "policy.metrics.jsonl")]
+    assert all(v == v for v in row.values())          # no NaN
+    assert load_pytree(str(tmp_path / "policy_00000000.ckpt"))[1] == {
+        "epoch": 0}
+
+
+@pytest.mark.requires_cuda
+def test_native_build_on_card():
+    """The native helpers build on the card's machine and read the JTA
+    fixture as the plain reader does."""
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from emloco_tpu_torch import native
+    from emloco_tpu_torch.prediction.data import read_ndjson_scenes
+    path = str(ROOT / "tests" / "data" / "jta_all_cues_fixture.ndjson")
+    scenes = native.scenes_to_arrays(*native.read_ndjson_fast(path))
+    ref = read_ndjson_scenes(path)
+    assert len(scenes) == len(ref) > 0
+    for a, b in zip(scenes, ref):
+        np.testing.assert_array_equal(a, b)
+    h = np.random.RandomState(0).rand(32, 32).astype(np.float32)
+    assert native.fast_walkable_mask(h, 0.1).shape == (32, 32)

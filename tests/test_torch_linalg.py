@@ -34,6 +34,10 @@ except ModuleNotFoundError:      # only the card tests can run without jax
 from emloco_tpu_torch.physics import linalg
 from emloco_tpu_torch.physics import reduced as TR
 
+# one torch thread per process: the test workers share the cores, and a
+# worker that spawned a thread per core would oversubscribe them
+torch.set_num_threads(1)
+
 ARROW = (TR._ARROW_CHUNKS, TR._ARROW_LIMBS, TR._ARROW_S)
 RTOL = 1e-5
 PATTERN = linalg.arrow_pattern(TR._ARROW_LIMBS, TR._ARROW_S, TR.NU)

@@ -22,6 +22,10 @@ from emloco_tpu_torch.physics import (height_at, load_mesh, mesh_heightfield,
                                       mesh_terrain_from_file)
 from emloco_tpu_torch.physics import mesh_terrain as TM
 
+# one torch thread per process: the test workers share the cores, and a
+# worker that spawned a thread per core would oversubscribe them
+torch.set_num_threads(1)
+
 
 def _mesh():
     """A 4 × 4 m ground sloping to 0.8 m, a 1 × 1 m platform at 1 m, and a

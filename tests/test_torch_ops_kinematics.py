@@ -30,6 +30,10 @@ from emloco_tpu_torch.learning import RunningNorm
 from emloco_tpu_torch.ops import quat as tq
 from emloco_tpu_torch.physics import terrain as tterrain
 
+# one torch thread per process: the test workers share the cores, and a
+# worker that spawned a thread per core would oversubscribe them
+torch.set_num_threads(1)
+
 FLOAT32_TOL = dict(rtol=2e-6, atol=2e-6)
 
 

@@ -25,6 +25,10 @@ from emloco_tpu_torch import convert
 from emloco_tpu_torch.physics import EngineConfig
 from emloco_tpu_torch.physics import reduced as TR
 
+# one torch thread per process: the test workers share the cores, and a
+# worker that spawned a thread per core would oversubscribe them
+torch.set_num_threads(1)
+
 N = 6
 TOL = {False: dict(rel=1e-4, pos=1e-5), True: dict(rel=2.0 ** -8, pos=1e-4)}
 

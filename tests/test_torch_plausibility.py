@@ -31,6 +31,10 @@ from emloco_tpu_torch.analysis import plausibility as pl
 from emloco_tpu_torch.learning import ValuePoseNet
 from emloco_tpu_torch.utils import checkpoint as ckpt
 
+# one torch thread per process: the test workers share the cores, and a
+# worker that spawned a thread per core would oversubscribe them
+torch.set_num_threads(1)
+
 TOL, CKPT_TOL = 1e-5, 1e-6
 B, W, STEPS = 16, 13, 20
 

@@ -46,6 +46,10 @@ from emloco_tpu_torch.learning.value_train import (LocoValTrainer,
 from emloco_tpu_torch.physics import EngineConfig, flat_terrain
 from emloco_tpu_torch.utils.checkpoint import save_valuenet
 
+# one torch thread per process: the test workers share the cores, and a
+# worker that spawned a thread per core would oversubscribe them
+torch.set_num_threads(1)
+
 SMALL = dict(num_envs=4, sensor_res=8, episode_length=12,
              num_amp_obs_steps=3)
 # one substep a control step (both packages) shortens the JAX rollout's

@@ -35,6 +35,10 @@ from emloco_tpu_torch.utils.checkpoint import load_pytree, save_valuenet
 from test_torch_predictor_train import (FIXTURE, N, ROOT, SMALL, TRAIN,
                                         start, vnets)  # noqa: F401
 
+# one torch thread per process: the test workers share the cores, and a
+# worker that spawned a thread per core would oversubscribe them
+torch.set_num_threads(1)
+
 ETH = str(ROOT / "tests" / "data" / "ethucy_fixture.txt")
 REL = 1e-5
 TINY = ["model.nhid=16", "model.nhead=2", "model.dim_ff=32",

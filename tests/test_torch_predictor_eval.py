@@ -28,6 +28,10 @@ from emloco_tpu_torch.utils.checkpoint import save_valuenet
 from test_torch_predictor_train import (FIXTURE, N, SMALL, TRAIN, jax_state,
                                         scenes, start, vnets)  # noqa: F401
 
+# one torch thread per process: the test workers share the cores, and a
+# worker that spawned a thread per core would oversubscribe them
+torch.set_num_threads(1)
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 EVAL_REL, PREDICT_REL = 1e-5, 1e-5
 

@@ -47,6 +47,10 @@ from emloco_tpu_torch.prediction.train import (PredictorTrainer,
                                                PredictTrainConfig,
                                                TrainDraws)
 
+# one torch thread per process: the test workers share the cores, and a
+# worker that spawned a thread per core would oversubscribe them
+torch.set_num_threads(1)
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FIXTURE = str(ROOT / "tests" / "data" / "jta_all_cues_fixture.ndjson")
 SMALL = dict(nhid=16, nhead=2, dim_ff=32, nlayers_local=2, nlayers_global=1,

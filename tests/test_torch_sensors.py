@@ -22,6 +22,10 @@ from emloco_tpu.physics import generate_mixed_terrain as jgen
 from emloco_tpu_torch import convert
 from emloco_tpu_torch.envs import observations as tobs
 
+# one torch thread per process: the test workers share the cores, and a
+# worker that spawned a thread per core would oversubscribe them
+torch.set_num_threads(1)
+
 REL = 1e-5
 SHAPES = ("square", "fov", "square_fov")
 

@@ -32,6 +32,10 @@ from test_torch_linalg import (ARROW, PATTERN, _jax_lhs_moving,
                                _jax_lhs_rest_pose, _off_pattern,
                                _random_arrow_spd, assert_rel_close)
 
+# one torch thread per process: the test workers share the cores, and a
+# worker that spawned a thread per core would oversubscribe them
+torch.set_num_threads(1)
+
 CASES = ("rest_pose", "moving", "random_spd")
 E = 4                                   # envs per case
 M = TR.NU

@@ -68,6 +68,10 @@ from emloco_tpu_torch.learning.value_train import (AdamW, LocoValTrainer,
                                                    ValueTrainState)
 from emloco_tpu_torch.struct import TensorStruct
 
+# one torch thread per process: the test workers share the cores, and a
+# worker that spawned a thread per core would oversubscribe them
+torch.set_num_threads(1)
+
 N = 4
 SMALL = dict(num_envs=N, sensor_res=8, episode_length=48,
              num_amp_obs_steps=3)
