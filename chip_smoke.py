@@ -150,8 +150,8 @@ Phases, each printed as one JSON line with its elapsed seconds:
  20. crowd_train — rollout.build_crowd_bench at 1,600 envs (groups of 100,
                 the velocity map with the people stamped in, the crowd
                 observation through the pointnet, the conv encoder over
-                the 32×32×3 image): a warm-up epoch, then 2 timed epochs
-                part by part with the launch counts read around each
+                the 32×32×3 image): a warm-up epoch, then 1 timed epoch
+                part by part with the launch counts read around it
                 (factor 32, resolve 64); metrics and parameters finite,
                 the discriminator reward below its cap and its loss above
                 1e-3; peak memory
@@ -166,7 +166,7 @@ Phases, each printed as one JSON line with its elapsed seconds:
                 configuration, card against CPU (the CPU run takes the
                 card's observation of the state), within 1e-5
  22. bf16_train — the training epoch with `hidden_bf16` at the bench's
-                training configuration: warm-up, 2 timed epochs as in
+                training configuration: warm-up, 1 timed epoch as in
                 crowd_train; then every head on 2,560 of the epoch's rows
                 on the card against the CPU within 2^-6 of its largest
                 output
@@ -325,6 +325,42 @@ Phases, each printed as one JSON line with its elapsed seconds:
                 versions: the pacer terrain's walkable mask bit-equal, its
                 spawn table within 1 float32 ulp, a mesh's rasterization,
                 the JTA fixture's scenes equal
+ 45. kinematics_variants — the SMPL forward (`kinematics.smpl.
+                get_joints_verts`) for 1,600 bodies at SMPL's published
+                sizes (6,890 vertices, 10 betas, 207 pose-blendshape
+                features, 24 joints; the values from a seed: no model file
+                is in the repository) on the card, its seconds, the first
+                64 bodies against the CPU within 1e-5 of the largest |v|;
+                `retarget_motion` onto a 14-joint skeleton, card against
+                CPU within 1e-5; a BVH and a synthetic AMASS sequence
+                (`bvh.load_bvh`, `curation.amass_to_motion`) filtered,
+                flip-augmented and saved as a motion pickle, read by
+                `load_reference_pkl` on the card and on the CPU (within
+                1e-5 of each field's magnitude)
+ 46. mesh_reference — configs/pacer_terrain.yaml's world split over 2 ranks
+                in one process (the step needs no collective): each rank's
+                reset the rows of the one-rank reset, and one control step
+                of the two ranks against the one-rank step within phase 5's
+                2⁻⁸ (the sensor points within 1e-4 m of a cell edge
+                excused and counted, as in sensor_paths); then the first
+                minibatch of a one-rank epoch at 1,600
+                envs taken by each rank (`minibatches` under the mesh): the
+                ranks' loss terms and gradients summed against the one-rank
+                update's within train_reference's tolerances, and the update
+                from the summed gradients within 1e-3 × lr of the one-rank
+                update
+ 47. cli_mesh — `train-policy --config configs/pacer_terrain.yaml --mesh 2
+                epochs=2 save_every=1` (1,600 envs, 800 a rank, each rank a
+                process on the card; gloo when the ranks outnumber the
+                cards): each rank's backend and device map, seconds an
+                epoch, factor 64 and resolve 128 launches; the ranks'
+                parameters bit-equal to each other and to the last
+                checkpoint (policy_00000001.ckpt, epoch 1); then `--resume`
+                it for one epoch (factor 32, resolve 64 a rank,
+                policy_00000002.ckpt at the absolute epoch 2, bit-equal);
+                then `train-predictor --config configs/jta_predictor.yaml
+                --mesh 2 --batches 8` (batch 10, 5 a rank), its best
+                parameters bit-equal to its checkpoint, steps/s
 Then the kernels' summary line and, last, the device line. Any failed check
 raises and the script exits non-zero. Without a CUDA device it exits 2 and
 runs nothing.
@@ -436,7 +472,7 @@ OPT_REF_BATCH, OPT_REF_STEPS, OPT_REF_TOL = 64, 20, 1e-4
 # be excused (it may read the other side on the other device)
 SENSOR_REF_ENVS, EDGE_M = 8, 1e-4
 # timed epochs of the crowd and bf16 training configurations after a warm-up
-CROWD_EPOCHS = 2
+CROWD_EPOCHS = 1
 # bfloat16 heads on the card against the CPU, relative to each head's
 # largest |output|: each bf16 layer rounds to 8 bits, its sums in other
 # orders on the two devices
@@ -1174,7 +1210,7 @@ def first_update(agent, pools, before):
     params, opt, rng_state = before
     gen = torch.Generator(device="cuda")
     gen.set_state(rng_state)
-    mb, demo, replay, masks = next(agent.minibatches(pools, gen))
+    mb, demo, replay, masks, _ = next(agent.minibatches(pools, gen))
     return params, opt, mb, demo, replay, masks
 
 
@@ -1575,7 +1611,7 @@ def near_edges(env, state):
 
     px, py = obs._rotate_grid_xy(heading, grid, head[:, :2])
     near = near_cell(px, py)
-    cg = torch.as_tensor(obs.make_sensor_grid(0.15, 3))
+    cg = torch.as_tensor(obs.make_sensor_grid(0.15, 3), device=grid.device)
     cpx, cpy = obs._rotate_grid_xy(heading, cg, root[:, :2])
     near |= near_cell(cpx, cpy).any(-1, keepdim=True)
     if cfg.group_obs and cfg.velocity_map:
@@ -1587,6 +1623,33 @@ def near_edges(env, state):
         near |= (((dx - 0.25).abs() < EDGE_M)
                  | ((dy - 0.5).abs() < EDGE_M)).any(-1)
     return near
+
+
+def obs_errors(cfg, o_g, o_c, near):
+    """The observation `o_g` against the reference `o_c`, block by block
+    (self, trajectory, sensor, crowd), each block's largest difference
+    over its largest |reference|, save the sensor points `near` an edge
+    (near_edges): (errors by block, the excused entries that differ by
+    more than STEP_RTOL)."""
+    import torch
+    sd, S = cfg.self_obs_dim, 2 * cfg.num_traj_samples
+    P, C = cfg.num_sensor_points, 3 if cfg.velocity_map else 1
+    blocks = {"self": (0, sd), "traj": (sd, sd + S),
+              "sensor": (sd + S, sd + S + P * C)}
+    if cfg.group_obs:
+        blocks["crowd"] = (sd + S + P * C, cfg.obs_dim)
+    excused = torch.zeros_like(o_c, dtype=torch.bool)
+    excused[:, sd + S:sd + S + P * C] = near.repeat_interleave(C, -1)
+    errs, listed = {}, []
+    for blk, (a, b) in blocks.items():
+        g, c, ex = o_g[:, a:b], o_c[:, a:b], excused[:, a:b]
+        scale = max(c.abs().max().item(), 1e-6)
+        diff = (g - c).abs()
+        errs[blk] = (diff * ~ex).max().item() / scale
+        for e, j in ((diff > STEP_RTOL * scale) & ex).nonzero().tolist():
+            listed.append(dict(env=e, entry=a + j, card=o_g[e, a + j].item(),
+                               cpu=o_c[e, a + j].item()))
+    return errs, listed
 
 
 def sensor_reference(r, name, card):
@@ -1608,24 +1671,7 @@ def sensor_reference(r, name, card):
     st_c = st.to(cpu).replace(rng=torch.Generator().manual_seed(5))
     o_c = env_c.observe(st_c)
     near = near_edges(env_c, st_c)                       # (N, P)
-    cfg = small
-    sd, S = cfg.self_obs_dim, 2 * cfg.num_traj_samples
-    P, C = cfg.num_sensor_points, 3 if cfg.velocity_map else 1
-    blocks = {"self": (0, sd), "traj": (sd, sd + S),
-              "sensor": (sd + S, sd + S + P * C)}
-    if cfg.group_obs:
-        blocks["crowd"] = (sd + S + P * C, cfg.obs_dim)
-    excused = torch.zeros_like(o_c, dtype=torch.bool)
-    excused[:, sd + S:sd + S + P * C] = near.repeat_interleave(C, -1)
-    errs, listed = {}, []
-    for blk, (a, b) in blocks.items():
-        g, c, ex = o_g[:, a:b], o_c[:, a:b], excused[:, a:b]
-        scale = max(c.abs().max().item(), 1e-6)
-        diff = (g - c).abs()
-        errs[blk] = (diff * ~ex).max().item() / scale
-        for e, j in ((diff > STEP_RTOL * scale) & ex).nonzero().tolist():
-            listed.append(dict(env=e, entry=a + j, card=o_g[e, a + j].item(),
-                               cpu=o_c[e, a + j].item()))
+    errs, listed = obs_errors(small, o_g, o_c, near)
     emit("sensor_paths", path=name, reference_envs=SENSOR_REF_ENVS,
          max_rel_err=errs, tolerance_rel=STEP_RTOL, edge_m=EDGE_M,
          points_near_edges=int(near.sum()), differing_near_edges=listed,
@@ -3644,6 +3690,462 @@ def cli_phases(card):
     return by_path
 
 
+# ---------------------------------------------------------------------------
+# 45-47: the SMPL body model, retargeting and the importers; data
+# parallelism over ranks (parallel/mesh.py, cli.run --mesh)
+# ---------------------------------------------------------------------------
+
+# SMPL's published sizes (basicModel: 6,890 vertices, 10 shape components,
+# 23 × 9 pose-blendshape features, 24 joints), bodies on the card and the
+# CPU's subset; vertices and joints within SMPL_REL of their largest |v|
+# (float32 sums of 24 skinning terms and 207 blendshape features in other
+# orders on the two devices)
+SMPL_V, SMPL_BETAS, SMPL_BODIES, SMPL_CPU_BODIES = 6890, 10, 1600, 64
+SMPL_SEED, SMPL_REL = 15, 1e-5
+MESH_RANKS = 2
+# a run of the entry point over ranks gets this long before it fails; the
+# predictor's steps an epoch over the ranks
+MESH_TIMEOUT_S = 600
+MESH_PRED_STEPS = 8
+# a two-joint-chain BVH, 30 frames at 30 fps, in centimetres, y-up
+BVH_JOINTS = ("Hips", "LeftUpLeg", "LeftLeg", "LeftFoot", "RightUpLeg",
+              "RightLeg", "RightFoot", "Spine", "Neck", "Head")
+
+
+def smoke_bvh(frames=30):
+    """A BVH text of BVH_JOINTS (the hips and both legs in a chain each,
+    the spine to the head) with a swinging gait from a fixed formula."""
+    import numpy as np
+    parents = {"LeftUpLeg": "Hips", "LeftLeg": "LeftUpLeg",
+               "LeftFoot": "LeftLeg", "RightUpLeg": "Hips",
+               "RightLeg": "RightUpLeg", "RightFoot": "RightLeg",
+               "Spine": "Hips", "Neck": "Spine", "Head": "Neck"}
+    offs = {"Hips": (0, 0, 0), "LeftUpLeg": (9, -6, 0),
+            "LeftLeg": (0, -42, 0), "LeftFoot": (0, -40, 0),
+            "RightUpLeg": (-9, -6, 0), "RightLeg": (0, -42, 0),
+            "RightFoot": (0, -40, 0), "Spine": (0, 12, 0),
+            "Neck": (0, 40, 0), "Head": (0, 10, 0)}
+    children = {j: [c for c in BVH_JOINTS if parents.get(c) == j]
+                for j in BVH_JOINTS}
+
+    def block(j, depth):
+        pad = "  " * depth
+        head = "ROOT" if j == "Hips" else "JOINT"
+        ch = ("CHANNELS 6 Xposition Yposition Zposition Zrotation "
+              "Xrotation Yrotation" if j == "Hips"
+              else "CHANNELS 3 Zrotation Xrotation Yrotation")
+        out = [f"{pad}{head} {j}", f"{pad}{{",
+               f"{pad}  OFFSET {' '.join(str(float(v)) for v in offs[j])}",
+               f"{pad}  {ch}"]
+        for c in children[j]:
+            out += block(c, depth + 1)
+        if not children[j]:
+            out += [f"{pad}  End Site", f"{pad}  {{",
+                    f"{pad}    OFFSET 0.0 -5.0 0.0", f"{pad}  }}"]
+        return out + [f"{pad}}}"]
+
+    t = np.arange(frames) / 30.0
+    rows = []
+    for k in range(frames):
+        ph = 2 * np.pi * 1.2 * t[k]
+        vals = [100.0 * t[k], 93.0 + 2 * np.cos(2 * ph), 0.0, 0.0, 0.0, 0.0]
+        for j in BVH_JOINTS[1:]:
+            swing = {"LeftUpLeg": 25 * np.sin(ph),
+                     "RightUpLeg": -25 * np.sin(ph),
+                     "LeftLeg": 20 * (1 - np.cos(ph)),
+                     "RightLeg": 20 * (1 + np.cos(ph))}.get(j, 3 * np.sin(ph))
+            vals += [0.0, swing, 0.0]
+        rows.append(" ".join(f"{v:.4f}" for v in vals))
+    return "\n".join(["HIERARCHY", *block("Hips", 0), "MOTION",
+                      f"Frames: {frames}", "Frame Time: 0.0333333", *rows])
+
+
+def smpl_model(seed=SMPL_SEED):
+    """An SMPLModel at SMPL's published sizes with values from `seed`:
+    vertices scattered about the rest joints, each skinned to its owner
+    joint and three others (weights summing to 1), the regressor each
+    joint's owned vertices' mean, small shape and pose blendshapes."""
+    import numpy as np
+    import torch
+    from emloco_tpu_torch.kinematics import body_model as bm
+    from emloco_tpu_torch.kinematics.skeleton import forward_kinematics
+    from emloco_tpu_torch.kinematics.smpl import SMPLModel
+    from emloco_tpu_torch.ops import quat
+    rng = np.random.RandomState(seed)
+    V, J = SMPL_V, bm.NUM_BODIES
+    _, gpos = forward_kinematics(bm.canonical_skeleton(),
+                                 quat.identity_like((1, J)),
+                                 torch.zeros((1, 3)))
+    owner = rng.randint(0, J, V)
+    v_template = (gpos[0].numpy()[owner]
+                  + rng.randn(V, 3) * 0.05).astype(np.float32)
+    w = np.zeros((V, J), np.float32)
+    w[np.arange(V), owner] = 1.0
+    for _ in range(3):
+        w[np.arange(V), rng.randint(0, J, V)] += rng.uniform(0, 0.3, V)
+    w /= w.sum(1, keepdims=True)
+    jreg = np.zeros((J, V), np.float32)
+    for j in range(J):
+        idx = np.nonzero(owner == j)[0]
+        jreg[j, idx] = 1.0 / len(idx)
+    return SMPLModel(
+        v_template=v_template,
+        shapedirs=(rng.randn(V, 3, SMPL_BETAS) * 0.01).astype(np.float32),
+        posedirs=(rng.randn(V, 3, (J - 1) * 9) * 0.001).astype(np.float32),
+        j_regressor=jreg, lbs_weights=w, parents=bm.PARENTS)
+
+
+def kinematics_variants(card):
+    """Phase 45: SMPL at full size (card, and the CPU on a subset),
+    retargeting, and the importers curated into a motion pickle that
+    load_reference_pkl reads on the card."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from emloco_tpu_torch.kinematics import body_model as bm
+    from emloco_tpu_torch.kinematics import bvh, curation
+    from emloco_tpu_torch.kinematics import motion_lib as ml
+    from emloco_tpu_torch.kinematics.retarget import retarget_motion
+    from emloco_tpu_torch.kinematics.skeleton import SkeletonTree
+    from emloco_tpu_torch.kinematics.smpl import get_joints_verts
+    model = smpl_model()
+    rng = np.random.RandomState(SMPL_SEED + 1)
+    B = SMPL_BODIES
+    pose = torch.as_tensor(rng.uniform(-0.5, 0.5, (B, 72)), dtype=torch.float32)
+    betas = torch.as_tensor(rng.randn(B, SMPL_BETAS), dtype=torch.float32)
+    trans = torch.as_tensor(rng.randn(B, 3) * 0.5, dtype=torch.float32)
+    g = [x.cuda() for x in (pose, betas, trans)]
+    get_joints_verts(model, *(x[:8] for x in g))             # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    secs = []
+    for _ in range(2):
+        t = time.time()
+        verts, joints = get_joints_verts(model, *g)
+        torch.cuda.synchronize()
+        secs.append(time.time() - t)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    n = SMPL_CPU_BODIES
+    v_c, j_c = get_joints_verts(model, pose[:n], betas[:n], trans[:n])
+    verr = rel_err(verts[:n].cpu(), v_c)[1]
+    jerr = rel_err(joints[:n].cpu(), j_c)[1]
+    finite = bool(torch.isfinite(verts).all() and torch.isfinite(joints).all())
+    shapes = [list(verts.shape), list(joints.shape)]
+    del verts, joints, g
+    torch.cuda.empty_cache()
+
+    # retargeting onto a 14-joint skeleton of the canonical one's names
+    src = bm.canonical_skeleton()
+    keep = ["Pelvis", "L_Hip", "L_Knee", "L_Ankle", "R_Hip", "R_Knee",
+            "R_Ankle", "Torso", "Spine", "Chest", "Neck", "Head",
+            "L_Shoulder", "R_Shoulder"]
+    idx = [src.index(k) for k in keep]
+    par = []
+    for j in idx:
+        p = int(src.parents[j])
+        while p >= 0 and p not in idx:
+            p = int(src.parents[p])
+        par.append(-1 if p < 0 else idx.index(p))
+    tgt = SkeletonTree(names=tuple(keep), parents=np.array(par),
+                       local_translation=src.local_translation[idx] * 1.1)
+    lib = ml.synthetic_walk_motions(speeds=(1.2,), duration=2.0,
+                                    device="cpu")
+    ms = ml.get_motion_state(lib, torch.zeros((60,), dtype=torch.long),
+                             torch.linspace(0.0, 1.9, 60))
+    jmap = {k: k for k in keep if k not in ("L_Knee", "R_Knee", "Chest")}
+    R = torch.tensor([0.0, 0.0, 0.38268343, 0.92387953])
+    out = {}
+    for d in ("cuda", "cpu"):
+        out[d] = retarget_motion(src, tgt, jmap, ms["local_rot"].to(d),
+                                 ms["root_pos"].to(d),
+                                 rotation_to_target=R.to(d), scale=0.9)
+    rerr = max(rel_err(a.cpu(), b)[1] for a, b in zip(out["cuda"],
+                                                       out["cpu"]))
+
+    # the importers into a motion pickle
+    raw = {"poses": (rng.uniform(-0.3, 0.3, (120, 156))).astype(np.float32),
+           "trans": (np.cumsum(rng.uniform(0.0, 0.02, (120, 3)), 0)
+                     + [0.0, 0.9, 0.0]).astype(np.float32),
+           "betas": rng.randn(10).astype(np.float32),
+           "mocap_framerate": np.array(60.0)}
+    motions = {"bvh_walk": bvh.load_bvh(smoke_bvh()),
+               "amass_seq": curation.amass_to_motion(raw)}
+    curated = curation.augment_with_flips(
+        curation.filter_motions(motions, min_seconds=0.5))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "motions.pkl")
+        curation.save_motion_dict(curated, path)
+        libs = {d: ml.load_reference_pkl(path, device=d)
+                for d in ("cuda", "cpu")}
+    lib_err = {f.name: rel_err(getattr(libs["cuda"], f.name).cpu().double(),
+                               getattr(libs["cpu"], f.name).double())[1]
+               for f in dataclasses.fields(libs["cpu"])
+               if getattr(libs["cpu"], f.name).is_floating_point()}
+    lib_finite = all(bool(torch.isfinite(getattr(libs["cuda"], k)).all())
+                     for k in lib_err)
+    emit("kinematics_variants", card=card, smpl=dict(
+        bodies=B, vertices=SMPL_V, betas=SMPL_BETAS,
+        pose_features=(bm.NUM_BODIES - 1) * 9, shapes=shapes, seconds=secs,
+        peak_gb=peak, cpu_bodies=n, verts_rel_err=verr,
+        joints_rel_err=jerr, finite=finite, tolerance_rel=SMPL_REL),
+         retarget=dict(frames=60, target_joints=len(keep),
+                       max_rel_err=rerr), motions=sorted(curated),
+         motion_lib=dict(num_motions=int(libs["cuda"].num_motions),
+                         frames=int(libs["cuda"].num_frames.sum()),
+                         max_rel_err=max(lib_err.values()),
+                         finite=lib_finite))
+    if not (finite and lib_finite and verr <= SMPL_REL and jerr <= SMPL_REL
+            and rerr <= SMPL_REL and max(lib_err.values()) <= SMPL_REL
+            and int(libs["cuda"].num_motions) == 4):
+        raise SystemExit("kinematics_variants: the card disagrees with the "
+                         "CPU (see the phase line)")
+
+
+def mesh_reference(card):
+    """Phase 46: configs/pacer_terrain.yaml's world over MESH_RANKS ranks in
+    this process against the one-rank world: the reset rows and one
+    control step (STEP_RTOL), then one minibatch's update split over the
+    ranks against the one-rank update (train_reference's tolerances)."""
+    import torch
+    from emloco_tpu_torch.cli import run
+    from emloco_tpu_torch.learning.amp_agent import AMPAgent
+    from emloco_tpu_torch.parallel import mesh as pmesh
+    from emloco_tpu_torch.utils.config import load_config
+    cfg = load_config(PACER)
+    dev = torch.device("cuda")
+    N, R = cfg.env.num_envs, MESH_RANKS
+    meshes = [pmesh.Mesh(r, R, dev) for r in range(R)]
+    env1 = run._build_world(cfg, dev)
+    envs = [run._build_world(cfg, dev, mesh=m) for m in meshes]
+    st1 = env1.reset(torch.Generator(device=dev).manual_seed(5))
+    sts = [e.reset(torch.Generator(device=dev).manual_seed(5)) for e in envs]
+    cat = torch.cat
+    reset_err = {k: rel_err(cat([getattr(s.physics, k) for s in sts]),
+                            getattr(st1.physics, k))[1]
+                 for k in ("root_pos", "body_x", "u")}
+    reset_err["traj_verts"] = rel_err(cat([s.traj_verts for s in sts]),
+                                      st1.traj_verts)[1]
+    act = 0.3 * torch.randn((N, cfg.env.num_actions),
+                            generator=torch.Generator(device=dev)
+                            .manual_seed(6), device=dev)
+    st1, out1 = env1.step(st1, act)
+    n = N // R
+    steps = [e.step(s, act[r * n:(r + 1) * n])
+             for r, (e, s) in enumerate(zip(envs, sts))]
+    done = cat([o.done for _, o in steps])
+    keep = ~(done | out1.done)
+    step_err = {}
+    for name, get in (("u", lambda s, o: s.physics.u),
+                      ("body_x", lambda s, o: s.physics.body_x),
+                      ("reward", lambda s, o: o.reward)):
+        step_err[name] = rel_err(cat([get(s, o) for s, o in steps])[keep],
+                                 get(st1, out1)[keep])[1]
+    # the observation block by block, save the sensor points within EDGE_M
+    # of a cell edge (a body a few ulps away reads the other side)
+    near = near_edges(env1, st1)[keep]
+    obs_err, listed = obs_errors(cfg.env, cat([o.obs for _, o in steps])[
+        keep], out1.obs[keep], near)
+    step_err.update({f"obs_{k}": v for k, v in obs_err.items()})
+    del envs, sts, steps
+
+    # one minibatch of a one-rank epoch, taken by each rank
+    agent1 = AMPAgent(env1, cfg.amp)
+    ts = agent1.init(cfg.seed)
+    ts, batch, last = agent1.rollout(ts)
+    ts, pools = agent1.prepare(ts, batch, last)
+    before = ts.rng.get_state()
+    T, amp = cfg.amp.horizon, cfg.amp
+
+    def first(agent, pools_):
+        gen = torch.Generator(device=dev)
+        gen.set_state(before)
+        return next(agent.minibatches(pools_, gen))
+
+    mb1, demo1, replay1, masks1, _ = first(agent1, pools)
+    total1, terms1, g1 = agent1._loss_and_grads(ts.params, mb1, demo1,
+                                                 replay1, masks1)
+    terms1["total"] = total1
+    gsum, tsum, rows = None, None, []
+    for m in meshes:
+        env_r = run._build_world(cfg, dev, mesh=m)
+        agent_r = AMPAgent(env_r, cfg.amp)
+        part = {k: v.reshape((T, N) + v.shape[1:])[:, m.block(N)]
+                .reshape((T * n,) + v.shape[1:])
+                for k, v in pools["data"].items()}
+        pools_r = dict(pools, data=part,
+                       demo=pools["demo"][:, m.part(amp.amp_batch_size)],
+                       replay=pools["replay"][:, m.part(pools["half"])])
+        mb, demo, replay, masks, split = first(agent_r, pools_r)
+        total, terms, g = agent_r._loss_and_grads(ts.params, mb, demo,
+                                                  replay, masks, split)
+        terms["total"] = total
+        rows.append(int(mb["adv"].shape[0]))
+        gsum = g if gsum is None else {k: gsum[k] + g[k] for k in g}
+        tsum = (terms if tsum is None
+                else {k: tsum[k] + terms[k] for k in terms})
+        del env_r, agent_r, pools_r
+    lr = amp.lr
+    term_err = {k: abs(tsum[k].item() - v.item()) / max(abs(v.item()), 1e-6)
+                for k, v in terms1.items()}
+    grad_err = {k: ((gsum[k] - g).abs().max()
+                    / g.abs().max().clamp(min=1e-12)).item()
+                for k, g in g1.items()}
+    p1, _, _ = agent1._apply_grads(ts.params, ts.opt_state, g1)
+    pr, _, _ = agent1._apply_grads(ts.params, ts.opt_state, gsum)
+    update_err = {}
+    for k, g in g1.items():
+        clear = g.abs() >= GRAD_REL * g.abs().max().clamp(min=1e-12)
+        d = (pr[k].double() - p1[k].double())[clear]
+        update_err[k] = d.abs().max().item() / lr if d.numel() else 0.0
+    worst = dict(reset_rel=max(reset_err.values()),
+                 step_rel=max(step_err.values()),
+                 loss_rel=max(term_err.values()),
+                 grad_rel=max(grad_err.values()),
+                 update_lr=max(update_err.values()))
+    emit("mesh_reference", card=card, ranks=R, num_envs=N,
+         envs_compared=int(keep.sum()), reset_rel_err=reset_err,
+         step_rel_err=step_err, edge_m=EDGE_M,
+         points_near_edges=int(near.sum()),
+         differing_near_edges=listed[:16], minibatch_rows=int(mb1["adv"].shape[0]),
+         rank_rows=rows, terms_one_rank={k: v.item()
+                                         for k, v in terms1.items()},
+         terms_ranks_summed={k: v.item() for k, v in tsum.items()},
+         worst=worst, tolerance=dict(reset_rel=STEP_RTOL,
+                                     step_rel=STEP_RTOL, loss_rel=LOSS_REL,
+                                     grad_rel=GRAD_REL,
+                                     update_lr=UPDATE_LR))
+    if not (sum(rows) == int(mb1["adv"].shape[0])
+            and worst["reset_rel"] <= STEP_RTOL
+            and worst["step_rel"] <= STEP_RTOL
+            and worst["loss_rel"] <= LOSS_REL
+            and worst["grad_rel"] <= GRAD_REL
+            and worst["update_lr"] <= UPDATE_LR):
+        raise SystemExit(f"mesh_reference: the ranks disagree with the "
+                         f"one-rank run: {worst}")
+    del env1, agent1, ts, pools
+    torch.cuda.empty_cache()
+
+
+def run_mesh(argv):
+    """`python3 -m emloco_tpu_torch.cli.run <argv>` as a child process (its
+    ranks are processes of their own): (exit code, its JSON lines, seconds,
+    the end of its stderr). Fails when it does not end in MESH_TIMEOUT_S."""
+    t = time.time()
+    p = subprocess.run([sys.executable, "-m", "emloco_tpu_torch.cli.run",
+                        *argv], cwd=_HERE, capture_output=True, text=True,
+                       timeout=MESH_TIMEOUT_S)
+    lines = [json.loads(x) for x in p.stdout.splitlines()
+             if x.startswith("{")]
+    return p.returncode, lines, time.time() - t, p.stderr[-3000:]
+
+
+def rank_lines(phase, code, lines, err, want_launches=None):
+    """The ranks' first lines, epoch lines and last lines of a run; fails
+    on a non-zero exit, a missing rank or (where given) launch counts other
+    than `want_launches` (factor, resolve) on each rank."""
+    if code != 0:
+        raise SystemExit(f"{phase}: exit code {code}:\n{err}")
+    first = sorted((x for x in lines if "backend" in x),
+                   key=lambda x: x["rank"])
+    last = sorted((x for x in lines if "launches" in x),
+                  key=lambda x: x["rank"])
+    epochs = [x for x in lines if "epoch" in x and "rank" in x]
+    if [x["rank"] for x in first] != list(range(MESH_RANKS)) or \
+            [x["rank"] for x in last] != list(range(MESH_RANKS)):
+        raise SystemExit(f"{phase}: ranks reported {first} {last}")
+    if want_launches is not None:
+        for x in last:
+            arrow_launches(f"{phase} rank {x['rank']}", x["launches"],
+                           *want_launches)
+    return first, epochs, last
+
+
+def cli_mesh(card, out):
+    """Phase 47: train-policy over MESH_RANKS ranks, its resume, and
+    train-predictor over MESH_RANKS ranks. Returns the launch counts summed
+    over the ranks of every run."""
+    import torch
+    from emloco_tpu_torch import convert
+    from emloco_tpu_torch.cli.run import params_digest
+    from emloco_tpu_torch.utils.checkpoint import load_pickle, load_pytree
+    base = ["train-policy", "--config", PACER, "--mesh", str(MESH_RANKS),
+            f"out_dir={out}"]
+    code, lines, secs, err = run_mesh([*base, "epochs=2", "save_every=1"])
+    first, epochs, last = rank_lines("cli_mesh", code, lines, err, (64, 128))
+    ck1 = os.path.join(out, "policy_00000001.ckpt")
+    tree, meta1 = load_pytree(ck1)
+    digest1 = params_digest(convert.agent_state_dict(tree["params"]))
+    rows = jsonl(os.path.join(out, "policy.metrics.jsonl"))
+    code2, lines2, secs2, err2 = run_mesh([*base, "--resume", ck1,
+                                           "epochs=1"])
+    _, epochs2, last2 = rank_lines("cli_mesh resume", code2, lines2, err2,
+                                   (32, 64))
+    tree2, meta2 = load_pytree(os.path.join(out, "policy_00000002.ckpt"))
+    digest2 = params_digest(convert.agent_state_dict(tree2["params"]))
+    pout = os.path.join(out, "predictor")
+    code3, lines3, secs3, err3 = run_mesh([
+        "train-predictor", "--config", JTA_CONFIG, "--mesh",
+        str(MESH_RANKS), "epochs=1", "--batches", str(MESH_PRED_STEPS),
+        f"out_dir={pout}"])
+    _, _, last3 = rank_lines("cli_mesh train-predictor", code3, lines3, err3,
+                             (0, 0))
+    blob = load_pickle(os.path.join(pout, "predictor_best.ckpt"))
+    digest3 = params_digest(convert.transmotion_state_dict(blob["params"]))
+    entry = next(x for x in lines3 if "steps_per_s" in x)
+    prow = jsonl(os.path.join(pout, "predictor.metrics.jsonl"))
+    backend = "nccl" if torch.cuda.device_count() >= MESH_RANKS else "gloo"
+    checks = dict(
+        backend=all(x["backend"] == backend for x in first),
+        ranks_equal=[len({x["params_sha256"] for x in r}) == 1
+                     for r in (last, last2, last3)],
+        checkpoint_bit_equal=[digest1 == last[0]["params_sha256"],
+                              digest2 == last2[0]["params_sha256"],
+                              digest3 == last3[0]["params_sha256"]],
+        checkpoint_epochs=[meta1.get("epoch"), meta2.get("epoch")],
+        epochs=sorted({x["epoch"] for x in epochs}),
+        resumed_epochs=sorted({x["epoch"] for x in epochs2}),
+        metrics_rows=[rows[0].get("mesh_backend"),
+                      prow[0].get("mesh_backend")],
+        finite=all(math.isfinite(v) for v in [*rows[0].values(),
+                                              *prow[0].values()]
+                   if isinstance(v, float)))
+    emit("cli_mesh", card=card, ranks=MESH_RANKS, num_envs=1600,
+         rank_devices=first[0]["devices"], backends=[x["backend"]
+                                                     for x in first],
+         epoch_seconds={r: [x["seconds"] for x in epochs if x["rank"] == r]
+                        for r in range(MESH_RANKS)},
+         resume_epoch_seconds=[x["seconds"] for x in epochs2],
+         seconds=[secs, secs2, secs3],
+         launches=[x["launches"] for x in last],
+         resume_launches=[x["launches"] for x in last2],
+         predictor=dict(batch=PRED_BATCH, per_rank=PRED_BATCH // MESH_RANKS,
+                        steps=MESH_PRED_STEPS,
+                        steps_per_s=entry["steps_per_s"],
+                        train_seconds=entry["train_seconds"],
+                        traj_loss=entry["traj_loss"]),
+         checks=checks)
+    if not (checks["backend"] and all(checks["ranks_equal"])
+            and all(checks["checkpoint_bit_equal"])
+            and checks["checkpoint_epochs"] == [1, 2]
+            and checks["epochs"] == [0, 1]
+            and checks["resumed_epochs"] == [2]
+            and checks["metrics_rows"] == [backend, backend]
+            and checks["finite"]):
+        raise SystemExit(f"cli_mesh: {checks}")
+    return {k: sum(x["launches"][k] for x in (*last, *last2, *last3))
+            for k in last[0]["launches"]}
+
+
+def mesh_phases(card):
+    """Phases 45-47; returns the launch counts of the ranks' runs."""
+    import tempfile
+    kinematics_variants(card)
+    mesh_reference(card)
+    with tempfile.TemporaryDirectory() as out:
+        return {"cli_mesh": cli_mesh(card, out)}
+
+
 def main():
     import numpy as np
     import torch
@@ -3978,6 +4480,9 @@ def main():
 
     # 39-44. the entry point over the YAML configs --------------------------
     by_path.update(cli_phases(card))
+
+    # 45-47. SMPL, retargeting, the importers; data parallelism over ranks --
+    by_path.update(mesh_phases(card))
 
     # summary ---------------------------------------------------------------
     kernels = []

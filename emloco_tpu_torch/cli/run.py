@@ -25,20 +25,38 @@ command then runs the loop of the port's tool of the same name (`train`,
 writing into `out_dir`; the training commands also write the JAX CLI's
 `<name>.metrics.jsonl` and `tb/` event files (`utils.logging`).
 `train-policy --profile` runs one epoch, then one more inside a
-`torch.profiler` trace written to `<out_dir>/trace`. `--mesh N` with N > 1
-(data parallelism over N cards) is not ported yet and raises.
+`torch.profiler` trace written to `<out_dir>/trace`.
+
+`--mesh N` (N > 1) runs `train-policy` over N ranks of the env axis and
+`train-predictor` over N ranks of the batch axis (parallel/mesh.py), as
+the JAX CLI shards them (cli/run.py:126-133, :326-332): N processes, rank r
+on `cuda:(r mod cards)` (on the CPU with `--device cpu`), joined by NCCL
+when every rank has a card of its own and by gloo (over the CUDA tensors,
+which stay on the card) when the ranks outnumber the cards. Each rank
+prints a JSON line with its backend and the rank-to-device map first and
+one with its kernels' launch counts last; rank 0 writes the checkpoints
+and logs (whose rows name the backend and the map) while the others wait.
+A failing rank stops the others and the command exits non-zero. Every
+other command, and `--profile`, refuses `--mesh`.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import os
+import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
 from .. import device as _device
+from ..parallel import mesh as pmesh
+
+# the commands that run over a mesh of N ranks, and the axis each splits
+MESH_AXES = {"train-policy": "env", "train-predictor": "batch"}
+
 
 def draw_betas(num_envs: int, seed: int) -> np.ndarray:
     """Body shapes N(0, 0.3²) (num_envs, 16) from a CPU torch.Generator
@@ -56,9 +74,10 @@ def load_real_traj_bank(path: str, device) -> torch.Tensor:
                            device=device)
 
 
-def _build_world(cfg, device=None, betas=None):
+def _build_world(cfg, device=None, betas=None, mesh=None):
     """The env of `cfg` (cli/run.py:36-91) on `device`; `betas` (N, 16) in
-    place of draw_betas(N, cfg.seed) where given."""
+    place of draw_betas(N, cfg.seed) where given; under an env-axis `mesh`
+    this rank's block of the envs."""
     from ..envs import PedestrianTerrainEnv, traj_gen
     from ..envs.getup import PedestrianTerrainGetupEnv
     from ..envs.hand_task import PedestrianTerrainHandEnv
@@ -103,35 +122,45 @@ def _build_world(cfg, device=None, betas=None):
                "hand": PedestrianTerrainHandEnv}.get(cfg.task,
                                                      PedestrianTerrainEnv)
     return env_cls(cfg.env, terrain, lib, real_traj_bank=bank,
-                   params=params, device=dev)
+                   params=params, device=dev, mesh=mesh)
 
 
-def _agent(cfg, dev, policy=None):
+def _agent(cfg, dev, policy=None, mesh=None):
     """(agent, TrainState from cfg.seed) on the world of `cfg`, with the
     params and obs / AMP norms of the policy file `policy` where given."""
     from ..learning.amp_agent import AMPAgent
     from ..utils.checkpoint import load_pytree, restore_policy
-    agent = AMPAgent(_build_world(cfg, dev), cfg.amp)
+    agent = AMPAgent(_build_world(cfg, dev, mesh=mesh), cfg.amp)
     ts = agent.init(cfg.seed)
     if policy:
         ts = restore_policy(ts, load_pytree(policy)[0], full=False)
     return agent, ts
 
 
-def cmd_train_policy(cfg, args, dev):
+def _mesh_fields(mesh):
+    """The metrics rows' record of the mesh: its backend and the device of
+    each rank."""
+    if mesh is None:
+        return {}
+    return {"mesh_backend": torch.distributed.get_backend(mesh.group),
+            "mesh_devices": " ".join(mesh.devices)}
+
+
+def cmd_train_policy(cfg, args, dev, mesh=None):
     from ..train import run_epochs
     from ..utils.checkpoint import (checkpoint_epoch, load_pytree,
                                     restore_policy)
-    from ..utils.logging import MetricsLogger
+    from ..utils.logging import MetricsLogger, print_json
 
-    agent, ts = _agent(cfg, dev)
+    agent, ts = _agent(cfg, dev, mesh=mesh)
+    main_rank = mesh is None or mesh.rank == 0
     start_ep = 0
     if args.resume:
         tree, meta = load_pytree(args.resume)
         ts = restore_policy(ts, tree)
         start_ep = checkpoint_epoch(args.resume, meta) + 1
         ts = ts.replace(epoch=start_ep)
-    logger = MetricsLogger(cfg.out_dir, "policy")
+    logger = MetricsLogger(cfg.out_dir, "policy") if main_rank else None
     if args.profile:
         from ..utils.profiling import trace
         ts, _ = agent.train_epoch(ts)              # warm-up, not traced
@@ -142,14 +171,18 @@ def cmd_train_policy(cfg, args, dev):
     t0 = time.perf_counter()
 
     def log(ep, ts, metrics, dt):
-        if ep % 10 == 0:
+        if mesh is not None:
+            print_json({"rank": mesh.rank, "epoch": ep, "seconds": dt})
+        if ep % 10 == 0 and main_rank:
             metrics = dict(metrics, step_fps=steps_per_epoch * (
-                ep - start_ep + 1) / (time.perf_counter() - t0))
+                ep - start_ep + 1) / (time.perf_counter() - t0),
+                           **_mesh_fields(mesh))
             logger.log(ep, metrics)
 
     ts = run_epochs(agent, ts, start_ep, cfg.epochs, log, cfg.out_dir,
                     cfg.save_every)
-    logger.close()
+    if main_rank:
+        logger.close()
     return ts
 
 
@@ -238,18 +271,19 @@ def _tool_args(cfg, args, **kw):
                                  **kw})
 
 
-def cmd_train_predictor(cfg, args, dev):
+def cmd_train_predictor(cfg, args, dev, mesh=None):
     from .. import train_predictor
     from ..utils.logging import MetricsLogger
 
     ts, history, best = train_predictor.run(
         _tool_args(cfg, args), cfg.model, cfg.predict, _pred_dataset(cfg),
-        _pred_dataset(cfg, seed_offset=1), dev)
-    logger = MetricsLogger(cfg.out_dir, "predictor")
-    for h in history:
-        h = dict(h)
-        logger.log(h.pop("epoch"), h)
-    logger.close()
+        _pred_dataset(cfg, seed_offset=1), dev, mesh=mesh)
+    if mesh is None or mesh.rank == 0:
+        logger = MetricsLogger(cfg.out_dir, "predictor")
+        for h in history:
+            h = dict(h, **_mesh_fields(mesh))
+            logger.log(h.pop("epoch"), h)
+        logger.close()
     return ts, history, best
 
 
@@ -360,8 +394,8 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--vis-dicts", nargs="*", default=[])
     p.add_argument("--gif", action="store_true")
     p.add_argument("--mesh", type=int, default=1,
-                   help="data parallelism over N cards (N > 1 raises: not "
-                        "ported yet)")
+                   help="train-policy, train-predictor: data parallelism "
+                        "over N ranks, rank r on cuda:(r mod cards)")
     p.add_argument("--profile", action="store_true",
                    help="train-policy: write a one-epoch torch.profiler "
                         "trace")
@@ -395,9 +429,7 @@ def parser() -> argparse.ArgumentParser:
     return p
 
 
-def main(argv=None):
-    from ..utils.config import load_config
-
+def _parse(argv):
     p = parser()
     # argparse stops collecting positionals once an optional appears between
     # them; accept key=value overrides anywhere on the line
@@ -406,12 +438,129 @@ def main(argv=None):
     bad = [u for u in args.overrides if "=" not in u or u.startswith("-")]
     if bad:
         p.error(f"unrecognized arguments: {' '.join(bad)}")
-    if args.mesh > 1:
-        raise NotImplementedError(
-            f"--mesh {args.mesh}: data parallelism over several cards is "
-            "parallel/mesh.py (ROADMAP A8), not ported yet")
+    return args
+
+
+def params_digest(params: dict) -> str:
+    """sha256 of a parameter dict's names and bytes on the host, in name
+    order: equal digests are bit-equal parameters."""
+    import hashlib
+    h = hashlib.sha256()
+    for k in sorted(params):
+        h.update(k.encode())
+        h.update(params[k].detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def rank_device(rank: int, device=None) -> torch.device:
+    """Rank `rank`'s device: the CPU where `device` asks for it, else
+    `cuda:(rank mod cards)`."""
+    dev = _device.resolve(device)
+    if dev.type != "cuda":
+        return dev
+    return torch.device("cuda", rank % torch.cuda.device_count())
+
+
+def _rank_main(rank: int, world: int, argv, init_url: str, threads: int):
+    """One rank of `launch`: joins the group, then `run_rank(argv)`."""
+    torch.set_num_threads(threads)
+    dev = rank_device(rank, _parse(argv).device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    pmesh.distributed_init(init_url, world, rank,
+                           pmesh.backend_for(world, dev))
+    try:
+        run_rank(argv)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def run_rank(argv):
+    """The command of `argv` on this process's rank of the initialized
+    default group: prints the rank's backend and device map first and its
+    launch counts and parameter digest last."""
+    from ..physics import linalg
+    from ..utils.config import load_config
+    from ..utils.logging import print_json
+
+    rank, world = torch.distributed.get_rank(), \
+        torch.distributed.get_world_size()
+    args = _parse(argv)
+    dev = rank_device(rank, args.device)
+    devices = tuple(str(rank_device(r, args.device)) for r in range(world))
+    mesh = dataclasses.replace(
+        pmesh.make_mesh(world, MESH_AXES[args.command], dev),
+        devices=devices)
+    print_json({"rank": rank, "world": world,
+                "backend": torch.distributed.get_backend(),
+                "device": str(dev), "devices": list(devices)})
+    cfg = load_config(args.config, args.overrides)
+    _device.full_float32(dev)
+    res = HANDLERS[args.command](cfg, args, dev, mesh=mesh)
+    # train-policy's final parameters; train-predictor's best, which its
+    # checkpoint holds
+    params = res.params if args.command == "train-policy" else res[2]
+    print_json({"rank": rank, "launches": dict(linalg.LAUNCHES),
+                "params_sha256": params_digest(params)})
+
+
+def launch(world: int, argv, threads: int | None = None, target=None):
+    """Runs `target(rank, world, argv, init_url, threads)` (the command of
+    `argv`: `_rank_main`) on `world` ranks, each a spawned process, joined
+    through a file store in a temporary directory. When a rank fails the
+    others are stopped and SystemExit is raised."""
+    import importlib
+    import multiprocessing as mp
+
+    threads = threads or max(1, torch.get_num_threads() // world)
+    ctx = mp.get_context("spawn")
+    # by its module's name, also when this module runs as __main__
+    target = target or importlib.import_module(".run",
+                                               __package__)._rank_main
+    with tempfile.TemporaryDirectory() as tmp:
+        url = "file://" + os.path.join(tmp, "store")
+        procs = [ctx.Process(target=target,
+                             args=(r, world, list(argv), url, threads))
+                 for r in range(world)]
+        for p in procs:
+            p.start()
+        failed = None
+        try:
+            while failed is None and any(p.is_alive() for p in procs):
+                for r, p in enumerate(procs):
+                    p.join(timeout=0.2)
+                    if p.exitcode not in (None, 0):
+                        failed = (r, p.exitcode)
+                        break
+            failed = failed or next(((r, p.exitcode)
+                                     for r, p in enumerate(procs)
+                                     if p.exitcode != 0), None)
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.terminate()
+                p.join()
+    if failed is not None:
+        raise SystemExit(f"--mesh {world}: rank {failed[0]} exited with "
+                         f"code {failed[1]}")
+
+
+def main(argv=None):
+    from ..utils.config import load_config
+
+    argv = sys.argv[1:] if argv is None else list(argv)
+    args = _parse(argv)
+    if args.mesh > 1 and (args.command not in MESH_AXES or args.profile):
+        raise SystemExit(
+            f"--mesh {args.mesh}: only train-policy (env axis) and "
+            f"train-predictor (batch axis) run over a mesh, and not with "
+            f"--profile; {args.command}{' --profile' * args.profile} does "
+            f"not")
     cfg = load_config(args.config, args.overrides)
     os.makedirs(cfg.out_dir, exist_ok=True)
+    if args.mesh > 1:
+        _device.resolve(args.device)          # no card: refuse here
+        return launch(args.mesh, argv)
     dev = _device.resolve(args.device)
     _device.full_float32(dev)
     return HANDLERS[args.command](cfg, args, dev)

@@ -27,6 +27,7 @@ import torch
 
 from ..kinematics import body_model as bm
 from ..ops import quat
+from ..parallel import mesh as pmesh
 from ..physics import height_at, kinematic_state, step as physics_step
 from .pedestrian_terrain import (EnvConfig, EnvState, PedestrianTerrainEnv,
                                  _select)
@@ -52,19 +53,22 @@ class GetupEnvState(EnvState):
 def fall_bank_draw(env: PedestrianTerrainEnv, gen: torch.Generator, n: int):
     """The fall bank's draws, in this order: the standard normal (n, 4) that
     normalizes to the root orientations, the spawn points (n, 2) from the
-    terrain's table, the actions (n, 23, 3) uniform in [-0.5, 0.5)."""
-    dev = env.device
-    rot = torch.randn((n, 4), generator=gen, device=dev)
+    terrain's table, the actions (n, 23, 3) uniform in [-0.5, 0.5); n is
+    the env's own rows of the whole env axis's draws under a mesh."""
+    dev, mesh = env.device, env.mesh
+    rot = pmesh.draw_rows(torch.randn, (n, 4), mesh, generator=gen,
+                          device=dev)
     xy = env._sample_spawn(gen, n)
-    act = torch.rand((n, bm.NUM_JOINTS, 3), generator=gen, device=dev) - 0.5
+    act = pmesh.draw_rows(torch.rand, (n, bm.NUM_JOINTS, 3), mesh,
+                          generator=gen, device=dev) - 0.5
     return rot, xy, act
 
 
-def getup_reset_draw(gen: torch.Generator, n: int, device):
+def getup_reset_draw(gen: torch.Generator, n: int, device, mesh=None):
     """The auto-reset's two uniforms (n,) each: the fall-bank coin, then the
-    recovery-episode coin."""
-    return (torch.rand((n,), generator=gen, device=device),
-            torch.rand((n,), generator=gen, device=device))
+    recovery-episode coin (`mesh`: parallel.mesh.draw_rows)."""
+    return tuple(pmesh.draw_rows(torch.rand, (n,), mesh, generator=gen,
+                                 device=device) for _ in range(2))
 
 
 class PedestrianTerrainGetupEnv(PedestrianTerrainEnv):
@@ -93,8 +97,7 @@ class PedestrianTerrainGetupEnv(PedestrianTerrainEnv):
                 device=self.device))
 
     def _generate_fall_states(self, gen: torch.Generator):
-        return self._fall_states(*fall_bank_draw(self, gen,
-                                                 self.cfg.num_envs))
+        return self._fall_states(*fall_bank_draw(self, gen, self.num_envs))
 
     @torch.no_grad()
     def _fall_states(self, rot, spawn_xy, actions):
@@ -114,9 +117,9 @@ class PedestrianTerrainGetupEnv(PedestrianTerrainEnv):
                               self.tree)
         return st
 
-    def reset(self, generator: torch.Generator) -> GetupEnvState:
-        base = super().reset(generator)
-        n = self.cfg.num_envs
+    def _reset(self, generator: torch.Generator) -> GetupEnvState:
+        base = super()._reset(generator)
+        n = self.num_envs
         return GetupEnvState(
             **{f.name: getattr(base, f.name)
                for f in dataclasses.fields(base)},
@@ -129,8 +132,8 @@ class PedestrianTerrainGetupEnv(PedestrianTerrainEnv):
 
     def _auto_reset(self, state: GetupEnvState, done):
         new_state = super()._auto_reset(state, done)
-        u_fall, u_rec = getup_reset_draw(state.rng, self.cfg.num_envs,
-                                         self.device)
+        u_fall, u_rec = getup_reset_draw(state.rng, self.num_envs,
+                                         self.device, self.mesh)
         return self._getup_reset(state, new_state, done, u_fall, u_rec)
 
     def _getup_reset(self, state: GetupEnvState, new_state: GetupEnvState,

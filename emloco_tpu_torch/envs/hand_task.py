@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from ..kinematics import body_model as bm
+from ..parallel import mesh as pmesh
 from ..physics import body_frame_state
 from . import traj_gen
 from .pedestrian_terrain import EnvState, PedestrianTerrainEnv
@@ -29,9 +30,12 @@ class HandEnvState(EnvState):
     hand_targets: Optional[torch.Tensor] = None   # (N, 2) relative heights
 
 
-def hand_target_draw(gen: torch.Generator, n: int, device) -> torch.Tensor:
-    """Fresh hand targets (n, 2), uniform in [0, 1)."""
-    return torch.rand((n, 2), generator=gen, device=device)
+def hand_target_draw(gen: torch.Generator, n: int, device,
+                     mesh=None) -> torch.Tensor:
+    """Fresh hand targets (n, 2), uniform in [0, 1) (`mesh`:
+    parallel.mesh.draw_rows)."""
+    return pmesh.draw_rows(torch.rand, (n, 2), mesh, generator=gen,
+                           device=device)
 
 
 class PedestrianTerrainHandEnv(PedestrianTerrainEnv):
@@ -40,13 +44,13 @@ class PedestrianTerrainHandEnv(PedestrianTerrainEnv):
     def _task_extra_dim(self):
         return 2
 
-    def reset(self, generator: torch.Generator) -> HandEnvState:
-        base = super().reset(generator)
+    def _reset(self, generator: torch.Generator) -> HandEnvState:
+        base = super()._reset(generator)
         return HandEnvState(
             **{f.name: getattr(base, f.name)
                for f in dataclasses.fields(base)},
-            hand_targets=hand_target_draw(generator, self.cfg.num_envs,
-                                          self.device))
+            hand_targets=hand_target_draw(generator, self.num_envs,
+                                          self.device, self.mesh))
 
     def _task_obs(self, state: HandEnvState):
         base = super()._task_obs(state)
@@ -60,7 +64,8 @@ class PedestrianTerrainHandEnv(PedestrianTerrainEnv):
 
     def _auto_reset(self, state: HandEnvState, done):
         new_state = super()._auto_reset(state, done)
-        fresh = hand_target_draw(state.rng, self.cfg.num_envs, self.device)
+        fresh = hand_target_draw(state.rng, self.num_envs, self.device,
+                                 self.mesh)
         return new_state.replace(hand_targets=torch.where(
             done[:, None], fresh, state.hand_targets))
 

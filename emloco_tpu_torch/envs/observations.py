@@ -218,6 +218,18 @@ def heightmap_obs(terrain: Heightfield, sensor_pos, sensor_rot, center_xy,
 GROUP_JOINTS = np.array([0, 1, 5, 9, 3, 7, 16, 21, 18, 23])
 
 
+def check_group_shards(num_envs: int, group_size: int, ranks: int):
+    """The crowd observation sees the other envs of an env's group, so an
+    env axis split over `ranks` must split on group boundaries: raises
+    ValueError unless each rank's num_envs / ranks envs are whole groups."""
+    per = num_envs // ranks
+    if num_envs % ranks or per % group_size:
+        raise ValueError(
+            f"group_obs over a {ranks}-rank mesh needs each rank's envs to "
+            f"be whole groups: num_envs={num_envs} / {ranks} ranks = "
+            f"{num_envs / ranks:g} envs a rank, group_size={group_size}")
+
+
 def _nearest_in_group(xy, group_size: int, k: int):
     """Each env's k nearest others in its group of `group_size` consecutive
     envs, nearest first: (distances (N, k), flat env indices (N, k)). The
@@ -394,4 +406,4 @@ def flip_actions(actions: torch.Tensor) -> torch.Tensor:
     a = actions.reshape(actions.shape[0], bm.NUM_JOINTS, 3)
     a = a[:, torch.as_tensor(MIRROR_ACTION, device=a.device)]
     a = a * torch.tensor([-1.0, 1.0, -1.0], device=a.device)
-    return a.reshape(actions.shape[0], -1)
+    return a.reshape(actions.shape)

@@ -35,6 +35,7 @@ function of its own (`action_noise_draw`, `push_draw`, `projectile_draw`,
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import math
 from typing import Optional
@@ -46,6 +47,7 @@ from .. import device as _device
 from ..kinematics import body_model as bm
 from ..kinematics import motion_lib as ml
 from ..ops import quat
+from ..parallel import mesh as pmesh
 from ..physics import (
     EngineConfig,
     Heightfield,
@@ -218,26 +220,36 @@ def _select(done, a, b):
     return torch.where(done.reshape((-1,) + (1,) * (a.dim() - 1)), a, b)
 
 
-def action_noise_draw(gen: torch.Generator, shape, device) -> torch.Tensor:
-    """The standard normal behind the action noise."""
-    return torch.randn(shape, generator=gen, device=device)
+def action_noise_draw(gen: torch.Generator, shape, device,
+                      mesh=None) -> torch.Tensor:
+    """The standard normal behind the action noise (`mesh`: this rank's
+    rows of the whole env axis's draw, `parallel.mesh.draw_rows`, as in
+    every draw below)."""
+    return pmesh.draw_rows(torch.randn, shape, mesh, generator=gen,
+                           device=device)
 
 
-def push_draw(gen: torch.Generator, n: int, device) -> torch.Tensor:
+def push_draw(gen: torch.Generator, n: int, device,
+              mesh=None) -> torch.Tensor:
     """The standard normal (n, 3) behind the root pushes."""
-    return torch.randn((n, 3), generator=gen, device=device)
+    return pmesh.draw_rows(torch.randn, (n, 3), mesh, generator=gen,
+                           device=device)
 
 
-def projectile_draw(gen: torch.Generator, n: int, device):
+def projectile_draw(gen: torch.Generator, n: int, device, mesh=None):
     """The draws behind the projectile hits: the body hit (n,) and the
     standard normal (n, 3) behind the impulse direction."""
-    body = torch.randint(0, bm.NUM_BODIES, (n,), generator=gen, device=device)
-    return body, torch.randn((n, 3), generator=gen, device=device)
+    body = pmesh.draw_rows(torch.randint, (n,), mesh, 0, bm.NUM_BODIES,
+                           generator=gen, device=device)
+    return body, pmesh.draw_rows(torch.randn, (n, 3), mesh, generator=gen,
+                                 device=device)
 
 
-def obs_noise_draw(gen: torch.Generator, shape, device) -> torch.Tensor:
+def obs_noise_draw(gen: torch.Generator, shape, device,
+                   mesh=None) -> torch.Tensor:
     """The standard normal behind the observation noise."""
-    return torch.randn(shape, generator=gen, device=device)
+    return pmesh.draw_rows(torch.randn, shape, mesh, generator=gen,
+                           device=device)
 
 
 def push_kick(u, hit, raw, push_vel: float):
@@ -268,22 +280,43 @@ def projectile_kick(u, hit, body, raw_dir, impulse: float, body_x, mass_tot):
 
 
 class PedestrianTerrainEnv:
-    """Holds the static members (model, terrain, motion library, config)."""
+    """Holds the static members (model, terrain, motion library, config).
+
+    With a `mesh` (parallel.mesh.Mesh) of R ranks the env holds this rank's
+    block of cfg.num_envs envs (`num_envs` = cfg.num_envs / R): `params`
+    are the bodies of all cfg.num_envs envs, of which it keeps its rows;
+    its first state is its part of the whole env axis's reset (`reset`),
+    every draw over the env axis in a step is made for all envs and the
+    rank keeps its rows, and the per-motion hard-negative counts are summed
+    over the ranks, so the R ranks step the one-rank env's rows."""
 
     def __init__(self, cfg: EnvConfig, terrain: Heightfield,
                  motion_lib: ml.MotionLib,
                  real_traj_bank: Optional[torch.Tensor] = None,
-                 params: Optional[bm.BodyParams] = None, device=None):
+                 params: Optional[bm.BodyParams] = None, device=None,
+                 mesh: Optional[pmesh.Mesh] = None):
         self.device = dev = _device.resolve(device)
         self.cfg = cfg
+        self.mesh = mesh
+        ranks = 1 if mesh is None else mesh.size
+        if cfg.num_envs % ranks:
+            raise ValueError(f"num_envs={cfg.num_envs} is not divisible by "
+                             f"the {ranks}-rank mesh")
+        if cfg.group_obs:
+            obs.check_group_shards(cfg.num_envs, cfg.obs_group_size, ranks)
+        self.num_envs = cfg.num_envs // ranks
         self.terrain = terrain.to(dev)
         self.motion_lib = motion_lib.to(dev)
         self.tree = default_tree()
         if params is None:
             params = bm.build_body_params(
                 np.zeros((cfg.num_envs, 16), np.float32), device=dev)
-        self.params = params.to(dev)
-        self.model = build_model(self.params)
+        # every env's bodies: the whole env axis's reset (`reset`) needs them
+        self._all_params = params if ranks > 1 else None
+        if ranks > 1:
+            rows = mesh.block(cfg.num_envs)
+            params = params.map_tensors(lambda t: t[rows])
+        self._bind_params(params)
         self.real_traj_bank = (None if real_traj_bank is None
                                else real_traj_bank.to(dev))
         grid = obs.SENSOR_GRIDS[cfg.sensor_shape](cfg.sensor_extent,
@@ -303,6 +336,26 @@ class PedestrianTerrainEnv:
         for knee in ("L_Knee", "R_Knee"):
             scale[bm.BODY_NAMES.index(knee) - 1, 1] = 5.0
         self.pd_action_scale = torch.as_tensor(scale, device=dev)
+        frozen = []
+        if cfg.freeze_toe:
+            frozen += [bm.BODY_NAMES.index("L_Toe") - 1,
+                       bm.BODY_NAMES.index("R_Toe") - 1]
+        if cfg.freeze_hand:
+            frozen += [bm.BODY_NAMES.index("L_Hand") - 1,
+                       bm.BODY_NAMES.index("R_Hand") - 1]
+        mask = np.ones((bm.NUM_JOINTS, 1), np.float32)
+        mask[frozen] = 0.0
+        self.action_mask = torch.as_tensor(mask, device=dev)
+        self._contact_ids = torch.as_tensor(obs.CONTACT_BODY_IDS, device=dev)
+        self._key_ids = torch.as_tensor(obs.KEY_BODY_IDS, device=dev)
+        self._head = self.tree.index("Head")
+
+    def _bind_params(self, params: bm.BodyParams):
+        """The env's bodies (one row an env) and what is derived from them:
+        the physics model, the limb weights and the shape observations."""
+        cfg = self.cfg
+        self.params = params.to(self.device)
+        self.model = build_model(self.params)
         # limb weight obs: per-group mass fractions + scaled group mass
         mass = self.params.mass
         groups = [
@@ -319,20 +372,7 @@ class PedestrianTerrainEnv:
         self._obs_betas = self.params.betas if cfg.has_shape_obs else None
         self._obs_limbw = (self.limb_weights if cfg.has_limb_weight_obs
                            else None)
-        frozen = []
-        if cfg.freeze_toe:
-            frozen += [bm.BODY_NAMES.index("L_Toe") - 1,
-                       bm.BODY_NAMES.index("R_Toe") - 1]
-        if cfg.freeze_hand:
-            frozen += [bm.BODY_NAMES.index("L_Hand") - 1,
-                       bm.BODY_NAMES.index("R_Hand") - 1]
-        mask = np.ones((bm.NUM_JOINTS, 1), np.float32)
-        mask[frozen] = 0.0
-        self.action_mask = torch.as_tensor(mask, device=dev)
-        self._contact_ids = torch.as_tensor(obs.CONTACT_BODY_IDS, device=dev)
-        self._key_ids = torch.as_tensor(obs.KEY_BODY_IDS, device=dev)
-        self._head = self.tree.index("Head")
-        self._mass_tot = self.params.mass.sum(-1, keepdim=True)
+        self._mass_tot = mass.sum(-1, keepdim=True)
 
     @property
     def _task_extra_dim(self):
@@ -360,16 +400,21 @@ class PedestrianTerrainEnv:
         dev = self.device
         table = self.terrain.spawnable_xy
         if not cfg.group_obs:
-            return table[torch.randint(0, table.shape[0], (n,),
-                                       generator=gen, device=dev)]
-        G = min(cfg.group_size, n)
+            return table[pmesh.draw_rows(torch.randint, (n,), self.mesh, 0,
+                                         table.shape[0], generator=gen,
+                                         device=dev)]
+        # the rank's groups are its block of the groups (the shards fall on
+        # group boundaries)
+        G = cfg.obs_group_size
         ng = -(-n // G)
-        centers = table[torch.randint(0, table.shape[0], (ng,),
-                                      generator=gen, device=dev)]
+        centers = table[pmesh.draw_rows(torch.randint, (ng,), self.mesh, 0,
+                                        table.shape[0], generator=gen,
+                                        device=dev)]
         H, W = self.terrain.shape
         cell = self.terrain.cell
         spread = min(cfg.group_spawn_spread, 0.25 * (min(H, W) - 1) * cell)
-        jit = (torch.rand((ng, G, 2), generator=gen, device=dev)
+        jit = (pmesh.draw_rows(torch.rand, (ng, G, 2), self.mesh,
+                               generator=gen, device=dev)
                * (2 * spread) - spread)
         xy = (centers[:, None] + jit).reshape(ng * G, 2)[:n]
         origin = torch.tensor(self.terrain.origin, device=dev)
@@ -386,8 +431,8 @@ class PedestrianTerrainEnv:
         cfg = self.cfg
         dev = self.device
         mids = ml.sample_motions(self.motion_lib, gen, n,
-                                 weights=motion_weights)
-        t = ml.sample_time(self.motion_lib, gen, mids)
+                                 weights=motion_weights, mesh=self.mesh)
+        t = ml.sample_time(self.motion_lib, gen, mids, mesh=self.mesh)
         ms = ml.get_motion_state(self.motion_lib, mids, t)
 
         spawn_xy = self._sample_spawn(gen, n)
@@ -397,7 +442,8 @@ class PedestrianTerrainEnv:
         root_vel = ms["root_vel"]
         root_ang_vel = ms["root_ang_vel"]
         if cfg.random_heading:
-            yaw = (torch.rand((n,), generator=gen, device=dev)
+            yaw = (pmesh.draw_rows(torch.rand, (n,), self.mesh,
+                                   generator=gen, device=dev)
                    * (2 * math.pi) - math.pi)
             ez = torch.zeros((n, 3), device=dev)
             ez[:, 2] = 1.0
@@ -411,7 +457,8 @@ class PedestrianTerrainEnv:
             [spawn_xy, (ms["root_pos"][:, 2] + ground_h)[:, None]], -1)
 
         # default pose with probability 1 − ref_state_init_prob
-        use_ref = (torch.rand((n,), generator=gen, device=dev)
+        use_ref = (pmesh.draw_rows(torch.rand, (n,), self.mesh,
+                                   generator=gen, device=dev)
                    < cfg.ref_state_init_prob)
         ident = quat.identity_like((n, bm.NUM_BODIES), device=dev)
         local_rot = _select(use_ref, ms["local_rot"], ident)
@@ -433,7 +480,7 @@ class PedestrianTerrainEnv:
             root_vel=root_vel, root_ang_vel=root_ang_vel, dof_vel=dof_vel)
         verts, inverted = traj_gen.sample_traj(
             gen, cfg.traj, root_pos, root_vel=root_vel,
-            real_bank=self.real_traj_bank)
+            real_bank=self.real_traj_bank, mesh=self.mesh)
         return physics, verts, inverted, mids.to(torch.int32)
 
     def _capture_locoval_inputs(self, physics: PhysicsState, verts):
@@ -449,8 +496,22 @@ class PedestrianTerrainEnv:
         return wp, pose, physics.body_v[:, 0, :2]
 
     def reset(self, generator: torch.Generator) -> EnvState:
+        """Every env's first state (`_reset`). Under a mesh, this rank's
+        part (parallel.mesh.shard_env_axis) of the whole env axis's reset,
+        as the JAX CLI places agent.init's state (cli/run.py:126-133): a
+        copy of the env over all cfg.num_envs bodies resets them, drawing
+        from `generator` as the one-rank env does."""
+        if self.mesh is None or self.mesh.size == 1:
+            return self._reset(generator)
+        whole = copy.copy(self)
+        whole.mesh, whole.num_envs = None, self.cfg.num_envs
+        whole._bind_params(self._all_params)
+        return pmesh.shard_env_axis(whole._reset(generator), self.mesh,
+                                    self.cfg.num_envs)
+
+    def _reset(self, generator: torch.Generator) -> EnvState:
         cfg = self.cfg
-        n = cfg.num_envs
+        n = self.num_envs
         dev = self.device
         physics, verts, inverted, mids = self._reset_states(generator, n)
         wp, pose, vel = self._capture_locoval_inputs(physics, verts)
@@ -494,7 +555,8 @@ class PedestrianTerrainEnv:
         ranges = torch.tensor([dr.mass_range, dr.kp_range, dr.kd_range,
                                dr.friction_range, dr.rest_offset_range],
                               device=self.device)
-        u = torch.rand((n, NUM_DR_PROPS), generator=gen, device=self.device)
+        u = pmesh.draw_rows(torch.rand, (n, NUM_DR_PROPS), self.mesh,
+                            generator=gen, device=self.device)
         raw = ranges[:, 0] + u * (ranges[:, 1] - ranges[:, 0])
         neutral = self._neutral_dr_scales(n)
         return neutral + ramp * (raw - neutral)
@@ -656,7 +718,7 @@ class PedestrianTerrainEnv:
         gen = state.rng
         if cfg.action_noise_std > 0:
             actions = actions + cfg.action_noise_std * action_noise_draw(
-                gen, actions.shape, actions.device)
+                gen, actions.shape, actions.device, self.mesh)
         a = actions.reshape(-1, bm.NUM_JOINTS, 3)
         pd_target = a * self.pd_action_scale[None] * self.action_mask[None]
         physics = physics_step(self._dr_model(state), self.terrain,
@@ -706,7 +768,7 @@ class PedestrianTerrainEnv:
         obs_out = self.observe(new_state)
         if cfg.obs_noise_std > 0:
             obs_out = obs_out + cfg.obs_noise_std * obs_noise_draw(
-                gen, obs_out.shape, obs_out.device)
+                gen, obs_out.shape, obs_out.device, self.mesh)
 
         def clean(x):
             return torch.nan_to_num(x, nan=0.0, posinf=0.0, neginf=0.0)
@@ -717,7 +779,7 @@ class PedestrianTerrainEnv:
             done=done,
             terminated=terminated,
             # the pre-reset window: the transition the policy produced
-            amp_obs=clean(hist.reshape(cfg.num_envs, -1)),
+            amp_obs=clean(hist.reshape(self.num_envs, -1)),
             reward_raw=clean(reward_raw),
         )
         return new_state, out
@@ -725,7 +787,7 @@ class PedestrianTerrainEnv:
     def _termination_allowed(self, state: EnvState):
         """(N,) bool: the envs whose early termination counts this step
         (a variant's grace period clears it); all here."""
-        return torch.ones((self.cfg.num_envs,), dtype=torch.bool,
+        return torch.ones((self.num_envs,), dtype=torch.bool,
                           device=self.device)
 
     def _perturb(self, physics, progress, gen: torch.Generator):
@@ -733,16 +795,16 @@ class PedestrianTerrainEnv:
         (before the step) ends a push interval, then projectile hits on
         those ending a projectile interval."""
         cfg = self.cfg
-        n = cfg.num_envs
+        n = self.num_envs
         if cfg.push_interval > 0:
             hit = progress % cfg.push_interval == cfg.push_interval - 1
             physics = physics.replace(u=push_kick(
-                physics.u, hit, push_draw(gen, n, self.device),
+                physics.u, hit, push_draw(gen, n, self.device, self.mesh),
                 cfg.push_vel))
         if cfg.projectile_interval > 0:
             hit = (progress % cfg.projectile_interval
                    == cfg.projectile_interval - 1)
-            body, raw = projectile_draw(gen, n, self.device)
+            body, raw = projectile_draw(gen, n, self.device, self.mesh)
             physics = physics.replace(u=projectile_kick(
                 physics.u, hit, body, raw, cfg.projectile_impulse,
                 physics.body_x, self._mass_tot))
@@ -772,7 +834,7 @@ class PedestrianTerrainEnv:
     def _auto_reset(self, state: EnvState, done):
         """Fresh states for every env, selected where `done`."""
         cfg = self.cfg
-        n = cfg.num_envs
+        n = self.num_envs
         physics_new, verts_new, inv_new, mids_new = self._reset_states(
             state.rng, n, motion_weights=state.motion_weights)
         wp, pose, vel = self._capture_locoval_inputs(physics_new, verts_new)
@@ -785,16 +847,20 @@ class PedestrianTerrainEnv:
             dr_last = torch.where(due, state.dr_clock, dr_last)
 
         # hard-negative bookkeeping: each finishing episode counts one
-        # sample of its motion, an early termination one failure (integer
-        # counts in float32, exact below 2^24)
+        # sample of its motion, an early termination one failure, summed
+        # over the ranks (integer counts in float32, exact below 2^24)
         hn = {}
         if cfg.hard_negative:
             d = done.float()
             mid = state.cur_mid
+            zero = torch.zeros_like(state.motion_sampled)
+            new = pmesh.all_reduce_sum(torch.stack([
+                zero.index_add(0, mid, d),
+                zero.index_add(0, mid, d * state.terminate_buf.float())]),
+                self.mesh)
             hn = dict(
-                motion_sampled=state.motion_sampled.index_add(0, mid, d),
-                motion_term=state.motion_term.index_add(
-                    0, mid, d * state.terminate_buf.float()),
+                motion_sampled=state.motion_sampled + new[0],
+                motion_term=state.motion_term + new[1],
                 cur_mid=torch.where(done, mids_new, mid))
 
         physics = dataclasses.replace(physics_new, **{

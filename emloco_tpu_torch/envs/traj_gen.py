@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from .. import device as _device
+from ..parallel import mesh as pmesh
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,26 +40,30 @@ class TrajConfig:
         return self.episode_dur / (self.num_verts - 1)
 
 
-def _uniform(gen, shape, device):
-    return torch.rand(shape, generator=gen, device=device)
+def _uniform(gen, shape, device, mesh=None):
+    """Uniform draws; with `mesh`, shape[0] is this rank's envs and the draw
+    the whole env axis's (parallel.mesh.draw_rows)."""
+    return pmesh.draw_rows(torch.rand, shape, mesh, generator=gen,
+                           device=device)
 
 
-def procedural_verts(gen, n, cfg: TrajConfig, init_pos, root_vel=None):
+def procedural_verts(gen, n, cfg: TrajConfig, init_pos, root_vel=None,
+                     mesh=None):
     """Random-walk trajectories; init_pos (n,3) → verts (n, V, 3) with
-    verts[:, 0, :2] = init xy."""
+    verts[:, 0, :2] = init xy (`mesh` as in _uniform)."""
     dev = init_pos.device
     V = cfg.num_verts
-    dtheta = (2 * _uniform(gen, (n, V - 1), dev) - 1) * cfg.dtheta_max \
-        * cfg.dt
-    sharp = _uniform(gen, (n, V - 1), dev) < cfg.sharp_turn_prob
-    dtheta_sharp = math.pi * (2 * _uniform(gen, (n, V - 1), dev) - 1)
+    dtheta = (2 * _uniform(gen, (n, V - 1), dev, mesh) - 1) \
+        * cfg.dtheta_max * cfg.dt
+    sharp = _uniform(gen, (n, V - 1), dev, mesh) < cfg.sharp_turn_prob
+    dtheta_sharp = math.pi * (2 * _uniform(gen, (n, V - 1), dev, mesh) - 1)
     dtheta = torch.where(sharp, dtheta_sharp, dtheta)
-    dtheta[:, 0] = math.pi * (2 * _uniform(gen, (n,), dev) - 1)
+    dtheta[:, 0] = math.pi * (2 * _uniform(gen, (n,), dev, mesh) - 1)
 
-    dspeed = (2 * _uniform(gen, (n, V - 1), dev) - 1) * cfg.accel_max \
-        * cfg.dt
-    speed0 = (_uniform(gen, (n,), dev) * (cfg.speed_max - cfg.speed_min)
-              + cfg.speed_min)
+    dspeed = (2 * _uniform(gen, (n, V - 1), dev, mesh) - 1) \
+        * cfg.accel_max * cfg.dt
+    speed0 = (_uniform(gen, (n,), dev, mesh)
+              * (cfg.speed_max - cfg.speed_min) + cfg.speed_min)
     speeds = [speed0]
     s = speed0
     for i in range(1, V - 1):
@@ -108,31 +113,32 @@ def align_real_paths(paths, init_pos, root_vel=None, init_heading=True,
 
 
 def sample_traj(gen, cfg: TrajConfig, init_pos, root_vel=None,
-                real_bank=None):
+                real_bank=None, mesh=None):
     """Full reset: procedural or real-bank trajectory per env. Returns
-    (verts (n,V,3), inverted (n,) bool)."""
+    (verts (n,V,3), inverted (n,) bool); `mesh` as in _uniform."""
     n = init_pos.shape[0]
     dev = init_pos.device
-    verts = procedural_verts(gen, n, cfg, init_pos, root_vel)
+    verts = procedural_verts(gen, n, cfg, init_pos, root_vel, mesh)
     inverted = torch.zeros((n,), dtype=torch.bool, device=dev)
     if real_bank is None and cfg.heading_inversion_prob > 0.0:
         raise ValueError("heading_inversion_prob > 0 requires a real "
                          "trajectory bank")
     if real_bank is not None:
-        idx = torch.randint(0, real_bank.shape[0], (n,), generator=gen,
-                            device=dev)
+        idx = pmesh.draw_rows(torch.randint, (n,), mesh, 0,
+                              real_bank.shape[0], generator=gen, device=dev)
         picked = real_bank[idx]
         do_inv = cfg.init_heading and root_vel is not None
         if cfg.heading_inversion_prob > 0.0 and not do_inv:
             raise ValueError("heading_inversion_prob > 0 requires "
                              "traj.init_heading=True and a root velocity")
-        inv = (_uniform(gen, (n,), dev) < cfg.heading_inversion_prob) \
-            & do_inv
+        inv = (_uniform(gen, (n,), dev, mesh)
+               < cfg.heading_inversion_prob) & do_inv
         aligned = align_real_paths(picked, init_pos, root_vel,
                                    cfg.init_heading, invert=inv)
         aligned3 = torch.cat([aligned, torch.zeros_like(aligned[..., :1])],
                              -1)
-        use_real = _uniform(gen, (n,), dev) >= cfg.hybrid_init_prob
+        use_real = (_uniform(gen, (n,), dev, mesh)
+                    >= cfg.hybrid_init_prob)
         verts = torch.where(use_real[:, None, None], aligned3, verts)
         inverted = use_real & inv
     return verts, inverted

@@ -14,6 +14,7 @@ import torch
 
 from .. import device as _device
 from ..ops import quat
+from ..parallel.mesh import draw_rows
 from ..struct import TensorStruct
 from . import body_model as bm
 from .skeleton import forward_kinematics
@@ -175,10 +176,12 @@ def load_reference_pkl(path: str, tree=None, max_motions=None,
 
 
 def sample_motions(lib: MotionLib, gen: torch.Generator, n: int,
-                   weights=None) -> torch.Tensor:
-    """Weighted motion sampling with replacement."""
+                   weights=None, mesh=None) -> torch.Tensor:
+    """Weighted motion sampling with replacement (`mesh`: n is this rank's
+    rows of the whole env axis's draw, parallel.mesh.draw_rows)."""
     p = lib.weights if weights is None else weights
-    return torch.multinomial(p, n, replacement=True, generator=gen)
+    return draw_rows(lambda shape: torch.multinomial(
+        p, shape[0], replacement=True, generator=gen), (n,), mesh)
 
 
 def hard_negative_update(succ_rate, sampled, terminated, temp: float = 0.2):
@@ -197,10 +200,11 @@ def hard_negative_update(succ_rate, sampled, terminated, temp: float = 0.2):
 
 
 def sample_time(lib: MotionLib, gen: torch.Generator, motion_ids,
-                truncate_time=0.0):
-    """Uniform phase sampling."""
+                truncate_time=0.0, mesh=None):
+    """Uniform phase sampling (`mesh` as in sample_motions)."""
     dur = lib.durations[motion_ids] - truncate_time
-    u = torch.rand(motion_ids.shape, generator=gen, device=dur.device)
+    u = draw_rows(torch.rand, motion_ids.shape, mesh, generator=gen,
+                  device=dur.device)
     return u * torch.clamp(dur, min=0.0)
 
 

@@ -54,9 +54,10 @@ from torch.func import functional_call
 from ..envs import observations as obs_mod
 from ..envs.pedestrian_terrain import (GROUP_OBS_DIM, EnvConfig, EnvState,
                                        PedestrianTerrainEnv)
+from ..parallel import mesh as pmesh
 from ..struct import TensorStruct
 from .networks import AMPSeptCNNNet, AMPSeptValueNet
-from .running_norm import RunningNorm
+from .running_norm import RunningNorm, moments
 
 NETWORKS = ("sept", "sept_cnn")
 
@@ -188,6 +189,23 @@ class ClipAdam:
 
 
 @dataclasses.dataclass(frozen=True)
+class MinibatchSplit:
+    """A rank's part of a minibatch under a mesh (without one, all of
+    it): its first `rollout` rows
+    are rollout rows of the discriminator's agent batch, and each loss term
+    is the sum over its rows divided by the whole minibatch's count of that
+    term's rows (`mb` rows, `agent` discriminator agent rows, `demo` demo
+    rows); the terms of the parameters alone (the logit and weight-decay
+    penalties) count on the rank with `param_terms` only."""
+
+    rollout: int
+    mb: int
+    agent: int
+    demo: int
+    param_terms: bool
+
+
+@dataclasses.dataclass(frozen=True)
 class TrainState(TensorStruct):
     params: dict                   # network parameters by state_dict name
     opt_state: AdamState
@@ -206,11 +224,23 @@ class TrainState(TensorStruct):
 
 class AMPAgent:
     """Holds the env, the network's structure and the optimizer; the
-    parameters, optimizer state, norms and env state travel in TrainState."""
+    parameters, optimizer state, norms and env state travel in TrainState.
+
+    Under the env's mesh (`env.mesh`, R ranks) each rank steps its block of
+    the envs, and the epoch is the one-rank epoch's computation: the action
+    noise, the replay insert's permutation, the replay and demo draws, the
+    minibatch permutations and the dropout masks are drawn whole from the
+    replicated generator; the norms and the advantage normalization take
+    every rank's rows; the replay ring is written with every rank's rows;
+    each minibatch's rows, and the replay and demo blocks split by index,
+    are spread over the ranks, each loss term summed over a rank's rows and
+    divided by the whole minibatch's count; the gradients are summed over
+    the ranks before the clip, and the metrics reduced."""
 
     def __init__(self, env: PedestrianTerrainEnv,
                  cfg: AMPConfig = AMPConfig()):
         self.env = env
+        self.mesh = env.mesh
         self.cfg = cfg
         ecfg = env.cfg
         self.amp_dim = ecfg.num_amp_obs_steps * ecfg.amp_obs_per_step
@@ -267,8 +297,8 @@ class AMPAgent:
     def _policy(self, params, obs_norm, obs, gen):
         o = obs_norm.normalize(obs) if self.cfg.normalize_input else obs
         mu, sigma = self._apply(params, "actor", o)
-        a = mu + sigma * torch.randn(mu.shape, generator=gen,
-                                     device=mu.device)
+        a = mu + sigma * pmesh.draw_rows(torch.randn, mu.shape, self.mesh,
+                                         generator=gen, device=mu.device)
         return a, mu, sigma, self._logp(mu, sigma, a), o
 
     @staticmethod
@@ -288,7 +318,7 @@ class AMPAgent:
         """`horizon` control steps → (ts with the new env state, the (T, N,
         …) batch, the last obs)."""
         cfg, env = self.cfg, self.env
-        T, N, dev = cfg.horizon, env.cfg.num_envs, env.device
+        T, N, dev = cfg.horizon, env.num_envs, env.device
         A = env.cfg.num_actions
 
         def buf(*shape, dtype=torch.float32):
@@ -369,12 +399,24 @@ class AMPAgent:
     # losses
     # ------------------------------------------------------------------
 
-    def _loss_and_grads(self, params, mb, demo_amp, replay_amp, masks):
+    def _loss_and_grads(self, params, mb, demo_amp, replay_amp, masks,
+                        split: MinibatchSplit | None = None):
         """(total loss, loss terms, gradient by parameter) of one minibatch.
-        `masks` are the (rollout, replay, demo) dropout masks, or None."""
+        `masks` are the (rollout, replay, demo) dropout masks, or None;
+        `split` a rank's part of the minibatch under a mesh, where the terms
+        are its partial sums (None: all of it, each term the mean of its
+        rows)."""
         cfg = self.cfg
-        half = replay_amp.shape[0]
-        amp_rollout = mb["amp_n"][:half]
+        if split is None:
+            rows, half = mb["adv"].shape[0], replay_amp.shape[0]
+            split = MinibatchSplit(rollout=half, mb=rows,
+                                   agent=min(half, rows) + half,
+                                   demo=demo_amp.shape[0], param_terms=True)
+        n_roll, pt, den = split.rollout, float(split.param_terms), split
+
+        def red(x, n):
+            return x.sum() / n
+        amp_rollout = mb["amp_n"][:n_roll]
         if masks is not None:
             # constants w.r.t. the gradient, on the normalized features
             amp_rollout = amp_rollout * masks[0]
@@ -389,44 +431,44 @@ class AMPAgent:
             surr1 = ratio * mb["adv"]
             surr2 = torch.clamp(ratio, 1 - cfg.e_clip,
                                 1 + cfg.e_clip) * mb["adv"]
-            a_loss = -torch.minimum(surr1, surr2).mean()
+            a_loss = -red(torch.minimum(surr1, surr2), den.mb)
 
             v = self._apply(p, "critic", mb["obs_n"])
-            c_loss = 0.5 * torch.mean((v - mb["ret_n"]) ** 2)
+            c_loss = 0.5 * red((v - mb["ret_n"]) ** 2, den.mb)
 
-            b_loss = torch.mean(torch.sum(
+            b_loss = red(torch.sum(
                 torch.clamp(mu - 1.1, min=0) ** 2
-                + torch.clamp(mu + 1.1, max=0) ** 2, -1))
+                + torch.clamp(mu + 1.1, max=0) ** 2, -1), den.mb)
 
             # discriminator: agent (rollout ∪ replay, half each) vs demo
             agent_logit = self._apply(p, "disc", torch.cat([amp_rollout,
                                                             replay_amp]))
             demo_in = demo_amp.detach().requires_grad_()
             demo_logit = self._apply(p, "disc", demo_in)
-            d_loss = 0.5 * (F.softplus(agent_logit).mean()
-                            + F.softplus(-demo_logit).mean())
+            d_loss = 0.5 * (red(F.softplus(agent_logit), den.agent)
+                            + red(F.softplus(-demo_logit), den.demo))
             logit_reg = torch.sum(p["disc_logits.weight"] ** 2)
             # R1 penalty: its gradient is itself differentiated
             grad, = torch.autograd.grad(demo_logit.sum(), demo_in,
                                         create_graph=True)
-            grad_pen = torch.mean(torch.sum(grad ** 2, -1))
+            grad_pen = red(torch.sum(grad ** 2, -1), den.demo)
             w_decay = sum(torch.sum(w ** 2) for k, w in p.items()
                           if k.startswith("disc_mlp.")
                           and k.endswith(".weight")) + logit_reg
-            disc_total = (d_loss + cfg.disc_logit_reg * logit_reg
+            disc_total = (d_loss + cfg.disc_logit_reg * logit_reg * pt
                           + cfg.disc_grad_penalty * grad_pen
-                          + cfg.disc_weight_decay * w_decay)
+                          + cfg.disc_weight_decay * w_decay * pt)
 
             tv = self._apply(p, "task_value", mb["obs_n"])
-            tv_loss = torch.mean((tv - mb["ret_01"]) ** 2)
+            tv_loss = red((tv - mb["ret_01"]) ** 2, den.mb)
 
             total = (cfg.actor_coef * a_loss + cfg.critic_coef * c_loss
                      + cfg.bounds_coef * b_loss + cfg.disc_coef * disc_total
                      + cfg.tv_coef * tv_loss)
             if cfg.motion_sym_loss:
                 mu_f, _ = self._apply(p, "actor", mb["flip_obs_n"])
-                sym = torch.mean(torch.sum(
-                    (mu - obs_mod.flip_actions(mu_f)) ** 2, -1))
+                sym = red(torch.sum(
+                    (mu - obs_mod.flip_actions(mu_f)) ** 2, -1), den.mb)
                 total = total + cfg.sym_coef * sym
             grads = torch.autograd.grad(total, list(p.values()))
         terms = dict(a_loss=a_loss, c_loss=c_loss, b_loss=b_loss,
@@ -435,9 +477,12 @@ class AMPAgent:
                 dict(zip(p, grads)))
 
     def _apply_grads(self, params, opt_state: AdamState, grads):
-        """One optimizer step, dropped whole (parameters, moments and count)
-        where any gradient is nonfinite: the select runs on the device, with
-        no host sync. Returns (params, opt_state, finite)."""
+        """One optimizer step on the gradients summed over the mesh's ranks
+        (so the clip sees the whole minibatch's norm), dropped whole
+        (parameters, moments and count) where any gradient is nonfinite: the
+        select runs on the device, with no host sync. Returns (params,
+        opt_state, finite)."""
+        grads = pmesh.all_reduce_dict(grads, self.mesh)
         finite = torch.stack([torch.isfinite(g).all()
                               for g in grads.values()]).all()
         new_params, new_opt = self.tx.update(grads, opt_state, params)
@@ -452,9 +497,9 @@ class AMPAgent:
         return keep(new_params, params), opt_state, finite
 
     def _update_minibatch(self, params, opt_state, mb, demo_amp, replay_amp,
-                          masks):
+                          masks, split: MinibatchSplit | None = None):
         total, metrics, grads = self._loss_and_grads(
-            params, mb, demo_amp, replay_amp, masks)
+            params, mb, demo_amp, replay_amp, masks, split)
         params, opt_state, finite = self._apply_grads(params, opt_state,
                                                       grads)
         metrics["total"] = total
@@ -467,54 +512,77 @@ class AMPAgent:
     # epoch
     # ------------------------------------------------------------------
 
+    def _all_envs(self, x):
+        """(T, N, …) of every rank's (T, n, …) rows, env blocks in rank
+        order; `x` itself without a mesh."""
+        if self.mesh is None or self.mesh.size == 1:
+            return x
+        g = pmesh.gather(x, self.mesh)                   # (R, T, n, …)
+        return g.transpose(0, 1).reshape((x.shape[0], -1) + x.shape[2:])
+
     @torch.no_grad()
     def prepare(self, ts: TrainState, batch, last_obs):
         """GAE, the norms, the replay ring and the demo windows → (ts, the
         update's pools)."""
-        cfg, ecfg = self.cfg, self.env.cfg
-        T, N, dev = cfg.horizon, ecfg.num_envs, self.env.device
+        cfg, mesh = self.cfg, self.mesh
+        T, N, dev = cfg.horizon, self.env.num_envs, self.env.device
         gen = ts.rng
         advs, returns, comb_reward, disc_r = self.compute_gae(ts, batch,
                                                               last_obs)
 
         def flat(x):
-            return x.reshape((T * N,) + x.shape[2:])
+            return x.reshape((-1,) + x.shape[2:])
 
         obs_f, amp_f, ret_f = (flat(batch["obs"]), flat(batch["amp_obs"]),
                                flat(returns))
         if cfg.normalize_input:
-            ts = ts.replace(obs_norm=ts.obs_norm.update(obs_f))
-        ts = ts.replace(amp_norm=ts.amp_norm.update(amp_f))
+            ts = ts.replace(obs_norm=ts.obs_norm.update(obs_f, mesh))
+        ts = ts.replace(amp_norm=ts.amp_norm.update(amp_f, mesh))
         if cfg.normalize_value:
-            ts = ts.replace(value_norm=ts.value_norm.update(ret_f[:, None]))
+            ts = ts.replace(value_norm=ts.value_norm.update(ret_f[:, None],
+                                                            mesh))
             ret_n = ts.value_norm.normalize(ret_f[:, None], clip=1e6)[:, 0]
         else:
             ret_n = ret_f
         adv_f = flat(advs)
         if cfg.normalize_advantage:
-            adv_f = (adv_f - adv_f.mean()) / (adv_f.std(correction=0) + 1e-8)
+            # over every rank's rows, population std
+            _, a_mean, a_var = moments(adv_f[:, None], mesh)
+            adv_f = (adv_f - a_mean[0]) / (torch.sqrt(a_var[0]) + 1e-8)
         # returns mapped to [0, 1] for the task-value head
         ret01 = torch.clamp((ret_f - cfg.min_cum_reward)
                             / (cfg.max_cum_reward - cfg.min_cum_reward),
                             0, 1)
 
-        # replay ring: when the rollout exceeds the ring, a random subset
+        # replay ring (replicated): every rank's rows; when the rollout
+        # exceeds the ring, a random subset
         R = cfg.amp_replay_size
-        n_new = min(T * N, R)
-        rows = (amp_f[torch.randperm(T * N, generator=gen,
-                                     device=dev)[:n_new]]
-                if T * N > R else amp_f)
+        amp_all = flat(self._all_envs(batch["amp_obs"]))
+        n_all = amp_all.shape[0]
+        n_new = min(n_all, R)
+        rows = (amp_all[torch.randperm(n_all, generator=gen,
+                                       device=dev)[:n_new]]
+                if n_all > R else amp_all)
         idx = (ts.replay_ptr + torch.arange(n_new, device=dev)) % R
         ts.replay_amp.index_copy_(0, idx, rows)
         ts = ts.replace(replay_ptr=(ts.replay_ptr + n_new) % R,
                         replay_filled=min(ts.replay_filled + n_new, R))
-        # the replay half of the discriminator's agent batch; the ring
-        # holds this rollout already, so it is never empty here
+        del amp_all, rows
+        # the replay half of the discriminator's agent batch (the ring
+        # holds this rollout already, so it is never empty here) and the
+        # demo windows under the live hard-negative weights, as the resets:
+        # drawn whole, each minibatch's block split over the ranks by index
         half = max(1, cfg.amp_batch_size // 2)
-        ridx = torch.randint(0, ts.replay_filled,
-                             (cfg.num_minibatches * half,), generator=gen,
-                             device=dev)
-        replay_rows = ts.replay_amp[ridx]
+        nmb = cfg.num_minibatches
+        ridx = torch.randint(0, ts.replay_filled, (nmb * half,),
+                             generator=gen, device=dev)
+        replay_rows = ts.replay_amp[self._part(ridx.reshape(nmb, half))]
+        mids, t0 = self.env.sample_amp_demo(
+            gen, nmb * cfg.amp_batch_size,
+            motion_weights=ts.env_state.motion_weights)
+        mids, t0 = (self._part(x.reshape(nmb, cfg.amp_batch_size))
+                    .reshape(-1) for x in (mids, t0))
+        demo_raw = self.env.amp_obs_demo(mids, t0)
 
         def norm_obs(x):
             return ts.obs_norm.normalize(x) if cfg.normalize_input else x
@@ -524,65 +592,111 @@ class AMPAgent:
                     ret_01=ret01, amp_n=ts.amp_norm.normalize(amp_f))
         if cfg.motion_sym_loss:
             data["flip_obs_n"] = norm_obs(flat(batch["flip_obs"]))
-        # demos under the live hard-negative weights, as the resets
-        demo_raw = self.env.fetch_amp_obs_demo(
-            gen, cfg.num_minibatches * cfg.amp_batch_size,
-            motion_weights=ts.env_state.motion_weights)
         pools = dict(
             data=data,
-            demo=ts.amp_norm.normalize(demo_raw).reshape(
-                cfg.num_minibatches, cfg.amp_batch_size, -1),
-            replay=ts.amp_norm.normalize(replay_rows).reshape(
-                cfg.num_minibatches, half, -1),
-            stats=dict(
+            demo=ts.amp_norm.normalize(demo_raw).reshape(nmb, -1,
+                                                         demo_raw.shape[-1]),
+            replay=ts.amp_norm.normalize(replay_rows),
+            half=half,
+            stats=pmesh.pmean_metrics(dict(
                 task_reward=batch["reward"].mean(),
                 disc_reward=disc_r.mean(),
                 combined_reward=comb_reward.mean(),
                 episode_done_frac=batch["done"].float().mean(),
                 loc_reward=batch["reward_raw"][..., 0].mean(),
-                power_reward=batch["reward_raw"][..., 1].mean()))
+                power_reward=batch["reward_raw"][..., 1].mean()), mesh))
         return ts, pools
 
+    def _part(self, x):
+        """This rank's columns of (blocks, rows) split by index; all of
+        them without a mesh."""
+        if self.mesh is None or self.mesh.size == 1:
+            return x
+        return x[:, self.mesh.part(x.shape[1])]
+
+    def _rank_rows(self, sel, mb_rows: int, half: int):
+        """Under a mesh, this rank's rows of the minibatch whose rows are
+        the flat (t·N + env) indices `sel` (numpy) of the whole T·N batch:
+        (the rank's local row indices, their positions in the minibatch,
+        the MinibatchSplit)."""
+        env, mesh = self.env, self.mesh
+        t, e = np.divmod(sel, env.cfg.num_envs)
+        pos = np.nonzero(e // env.num_envs == mesh.rank)[0]
+        loc = t[pos] * env.num_envs + e[pos] - mesh.rank * env.num_envs
+        n_roll_all = min(half, mb_rows)
+        split = MinibatchSplit(
+            rollout=int((pos < n_roll_all).sum()), mb=mb_rows,
+            agent=n_roll_all + half, demo=self.cfg.amp_batch_size,
+            param_terms=mesh.rank == 0)
+        return loc, pos, split
+
     def minibatches(self, pools, gen: torch.Generator):
-        """(minibatch, demo block, replay block, dropout masks or None) in
-        the order the update takes them: per mini-epoch a fresh permutation
-        of T·N cut into `num_minibatches` slices; minibatch i takes demo and
-        replay block i."""
-        cfg, ecfg = self.cfg, self.env.cfg
+        """(minibatch, demo block, replay block, dropout masks or None,
+        MinibatchSplit or None) in the order the update takes them: per
+        mini-epoch a fresh permutation of T·N cut into `num_minibatches`
+        slices; minibatch i takes demo and replay block i. Under a mesh the
+        permutation and the masks are drawn whole and each rank takes its
+        rows of them (`_rank_rows`), with its parts of the blocks."""
+        cfg, ecfg, mesh = self.cfg, self.env.cfg, self.mesh
         data = pools["data"]
-        n = data["adv"].shape[0]
         dev = data["adv"].device
+        split_on = mesh is not None and mesh.size > 1
+        n = data["adv"].shape[0] * (mesh.size if split_on else 1)
+        half = pools["half"]
         mb_size = n // cfg.num_minibatches
+        mask_rows = (min(half, mb_size), half, cfg.amp_batch_size)
         for _ in range(cfg.mini_epochs):
             perm = torch.randperm(n, generator=gen, device=dev)
+            if split_on:
+                # the mini-epoch's rows of this rank and its rollout rows'
+                # positions, every minibatch's in one host read and one
+                # upload
+                perm_h = perm.cpu().numpy()
+                parts = [self._rank_rows(perm_h[i * mb_size:(i + 1) * mb_size],
+                                         mb_size, half)
+                         for i in range(cfg.num_minibatches)]
+                idx = torch.as_tensor(np.concatenate(
+                    [a for loc, pos, sp in parts
+                     for a in (loc, pos[:sp.rollout])]), device=dev)
+                idx = idx.split([len(a) for loc, pos, sp in parts
+                                 for a in (loc, pos[:sp.rollout])])
             for i in range(cfg.num_minibatches):
                 sel = perm[i * mb_size:(i + 1) * mb_size]
+                split = None
+                if split_on:
+                    sel, roll, split = idx[2 * i], idx[2 * i + 1], parts[i][2]
                 mb = {k: v[sel] for k, v in data.items()}
                 demo, replay = pools["demo"][i], pools["replay"][i]
                 masks = None
                 if cfg.amp_dropout:
-                    rows = (min(replay.shape[0], mb_size), replay.shape[0],
-                            demo.shape[0])
+                    us = [obs_mod.amp_dropout_draw(gen, r, dev)
+                          for r in mask_rows]
+                    if split_on:
+                        us = [us[0][roll], us[1][mesh.part(half)],
+                              us[2][mesh.part(cfg.amp_batch_size)]]
                     masks = tuple(
                         obs_mod.amp_dropout_mask(
-                            obs_mod.amp_dropout_draw(gen, r, dev),
-                            ecfg.num_amp_obs_steps, ecfg.amp_obs_per_step,
+                            u, ecfg.num_amp_obs_steps, ecfg.amp_obs_per_step,
                             cfg.amp_dropout_rate)
-                        for r in rows)
-                yield mb, demo, replay, masks
+                        for u in us)
+                yield mb, demo, replay, masks, split
 
     def update(self, ts: TrainState, pools):
         """The epoch's PPO + AMP updates → (ts, metrics): each loss term's
-        mean over every (mini-epoch, minibatch) pair, with the rollout's
-        reward and done means."""
+        mean over every (mini-epoch, minibatch) pair (under a mesh, the sum
+        of the ranks' partial terms), with the rollout's reward and done
+        means."""
         params, opt_state = ts.params, ts.opt_state
         sums, count = {}, 0
-        for mb, demo, replay, masks in self.minibatches(pools, ts.rng):
+        for mb, demo, replay, masks, split in self.minibatches(pools,
+                                                               ts.rng):
             params, opt_state, m = self._update_minibatch(
-                params, opt_state, mb, demo, replay, masks)
+                params, opt_state, mb, demo, replay, masks, split)
             sums = {k: sums.get(k, 0.0) + v for k, v in m.items()}
             count += 1
         metrics = {k: v / count for k, v in sums.items()}
+        terms = {k: v for k, v in metrics.items() if k != "nonfinite_grad"}
+        metrics.update(pmesh.all_reduce_dict(terms, self.mesh))
         metrics.update(pools["stats"])
         return ts.replace(params=params, opt_state=opt_state,
                           epoch=ts.epoch + 1), metrics
@@ -604,4 +718,7 @@ class AMPAgent:
         tensors)."""
         ts, batch, last_obs = self.rollout(ts)
         ts, pools = self.prepare(ts, batch, last_obs)
-        return self.update(ts, pools)
+        ts, metrics = self.update(ts, pools)
+        pmesh.check_lockstep(self.mesh, agent_rng=ts.rng,
+                             env_rng=ts.env_state.rng, params=ts.params)
+        return ts, metrics

@@ -68,11 +68,11 @@ class LSTMPredictor(nn.Module):
         self.out_proj.weight.zero_()
 
     def forward(self, tokens, padding_mask, train: bool = False,
-                limit_obs: int = 0, draws=None, gen=None):
+                limit_obs: int = 0, draws=None, gen=None, mesh=None):
         """tokens (B, in_F, N, J, 4) → (B, total_F, nmode, 2); `limit_obs`
         > 0 zeroes all but the last `limit_obs` observed positions. The
-        model has no train-time masking or dropout: `train`, `draws` and
-        `gen` are accepted and unused."""
+        model has no train-time masking or dropout: `train`, `draws`,
+        `gen` and `mesh` are accepted and unused."""
         c = self.cfg
         B, in_F = tokens.shape[:2]
         out_F = c.total_frames - in_F

@@ -28,7 +28,10 @@ model_jta's order) as `draws`, or draws them from `gen`, and draws every
 dropout keep-mask from `gen` after them, in forward order: per encoder
 layer the attention weights, after attention, inside the FF, after the FF.
 A draw is made on the generator's device and moved to the model's, so a
-CPU generator reproduces a CPU run's draws on the card.
+CPU generator reproduces a CPU run's draws on the card. Under a batch-axis
+`mesh` (parallel.mesh) each draw is the whole batch's and the rank keeps
+its rows: every drawn tensor leads with the batch (B, or B·N people
+b-major), so a rank's rows are its block of that axis.
 """
 from __future__ import annotations
 
@@ -39,6 +42,7 @@ import torch
 from torch import nn
 
 from .. import device as _device
+from ..parallel import mesh as pmesh
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,15 +82,18 @@ class TransMotionConfig:
         return self.total_frames - self.obs_frames
 
 
-def _uniform(gen: torch.Generator | None, shape, device) -> torch.Tensor:
+def _uniform(gen: torch.Generator | None, shape, device,
+             mesh=None) -> torch.Tensor:
     """Uniform draws on `gen`'s device (torch's default generator on
-    `device` without one), moved to `device`."""
+    `device` without one), moved to `device`; `mesh`: this rank's rows of
+    the whole batch's draw (parallel.mesh.draw_rows)."""
     where = device if gen is None else gen.device
-    return torch.rand(shape, generator=gen, device=where).to(device)
+    return pmesh.draw_rows(torch.rand, shape, mesh, generator=gen,
+                           device=where).to(device)
 
 
 def mask_draws(gen: torch.Generator, cfg: TransMotionConfig, B: int, N: int,
-               device=None) -> list:
+               device=None, mesh=None) -> list:
     """The eight uniform draws of the train-time masking, in model_jta's
     order and shapes (emloco_tpu/prediction/model.py:183-203): trajectory
     (B,F,N,1), frame (B,in_F,N,1), 3D joints (B,F,N,J3,1), 2D joints
@@ -96,7 +103,7 @@ def mask_draws(gen: torch.Generator, cfg: TransMotionConfig, B: int, N: int,
     shapes = ((B, Fr, N, 1), (B, in_F, N, 1), (B, Fr, N, cfg.num_3dpose, 1),
               (B, Fr, N, cfg.num_2dpose, 1), (B, 1, N, 1), (B, 1, N, 1),
               (B, 1, N, 1, 1), (B, 1, N, 1, 1))
-    return [_uniform(gen, s, device) for s in shapes]
+    return [_uniform(gen, s, device, mesh) for s in shapes]
 
 
 def apply_train_masks(cfg: TransMotionConfig, streams: dict, draws) -> dict:
@@ -126,14 +133,14 @@ def apply_train_masks(cfg: TransMotionConfig, streams: dict, draws) -> dict:
 
 
 def dropout(x: torch.Tensor, rate: float, train: bool,
-            gen: torch.Generator | None) -> torch.Tensor:
+            gen: torch.Generator | None, mesh=None) -> torch.Tensor:
     """flax's Dropout: the identity in eval mode; in train mode keep each
     entry where a uniform draw from `gen` is below 1 − rate and scale the
     kept ones by 1/(1 − rate)."""
     if not train or rate == 0.0:
         return x
     keep_prob = 1.0 - rate
-    keep = _uniform(gen, x.shape, x.device) < keep_prob
+    keep = _uniform(gen, x.shape, x.device, mesh) < keep_prob
     return torch.where(keep, x / keep_prob, torch.zeros_like(x))
 
 
@@ -148,7 +155,8 @@ class Attention(nn.Module):
         for name in ("query", "key", "value", "out"):
             self.add_module(name, nn.Linear(nhid, nhid))
 
-    def forward(self, x, key_padding_mask=None, train=False, gen=None):
+    def forward(self, x, key_padding_mask=None, train=False, gen=None,
+                mesh=None):
         B, S, D = x.shape
         H = self.nhead
         Dh = D // H
@@ -160,7 +168,7 @@ class Attention(nn.Module):
             logits = logits.masked_fill(~key_padding_mask[:, None, None, :],
                                         torch.finfo(logits.dtype).min)
         w = torch.softmax(logits, dim=-1)
-        w = dropout(w, self.rate, train, gen)
+        w = dropout(w, self.rate, train, gen, mesh)
         o = torch.einsum("bhqk,bkhd->bqhd", w, v).reshape(B, S, D)
         return self.out(o)
 
@@ -177,12 +185,13 @@ class EncoderLayer(nn.Module):
         self.ff2 = nn.Linear(dim_ff, nhid)
         self.norm2 = nn.LayerNorm(nhid, eps=1e-5)
 
-    def forward(self, x, key_padding_mask=None, train=False, gen=None):
-        a = self.attn(x, key_padding_mask, train, gen)
-        x = self.norm1(x + dropout(a, self.rate, train, gen))
+    def forward(self, x, key_padding_mask=None, train=False, gen=None,
+                mesh=None):
+        a = self.attn(x, key_padding_mask, train, gen, mesh)
+        x = self.norm1(x + dropout(a, self.rate, train, gen, mesh))
         h = torch.relu(self.ff1(x))
-        h = self.ff2(dropout(h, self.rate, train, gen))
-        return self.norm2(x + dropout(h, self.rate, train, gen))
+        h = self.ff2(dropout(h, self.rate, train, gen, mesh))
+        return self.norm2(x + dropout(h, self.rate, train, gen, mesh))
 
 
 def encoder_stack(nlayers, nhid, nhead, dim_ff, rate) -> nn.ModuleList:
@@ -191,9 +200,9 @@ def encoder_stack(nlayers, nhid, nhead, dim_ff, rate) -> nn.ModuleList:
 
 
 def run_stack(stack: nn.ModuleList, x, key_padding_mask=None, train=False,
-              gen=None):
+              gen=None, mesh=None):
     for layer in stack:
-        x = layer(x, key_padding_mask, train, gen)
+        x = layer(x, key_padding_mask, train, gen, mesh)
     return x
 
 
@@ -278,7 +287,7 @@ class TransMotion(nn.Module):
 
     def forward(self, tokens, padding_mask, train: bool = False,
                 limit_obs: int = 0, draws=None,
-                gen: torch.Generator | None = None):
+                gen: torch.Generator | None = None, mesh=None):
         """tokens (B, in_F, N, J, 4), padding_mask (B, N) True = present.
         `limit_obs` > 0 keeps only the last `limit_obs` observed frames
         (≤ 0 keeps all); `draws` the masking's uniforms in train mode."""
@@ -288,7 +297,7 @@ class TransMotion(nn.Module):
         s = self.streams(tokens)
         if train:
             if draws is None:
-                draws = mask_draws(gen, c, B, N, tokens.device)
+                draws = mask_draws(gen, c, B, N, tokens.device, mesh)
             s = apply_train_masks(c, s, draws)
 
         # keep only the last `limit_obs` observed frames (model_jta.py:
@@ -321,12 +330,12 @@ class TransMotion(nn.Module):
         seq = torch.cat([x.movedim(2, 1).reshape(B * N, -1, D)
                          for x in parts], dim=1)
 
-        h = run_stack(getattr(self, "local"), seq, None, train, gen)
+        h = run_stack(getattr(self, "local"), seq, None, train, gen, mesh)
         h = h * c.output_scale + seq                        # local residual
 
         g_in = h[:, :Fr].reshape(B, N * Fr, D)
         mask = padding_mask.repeat_interleave(Fr, dim=1)    # (B, N·F)
-        g = run_stack(getattr(self, "global"), g_in, mask, train, gen)
+        g = run_stack(getattr(self, "global"), g_in, mask, train, gen, mesh)
         g = g * c.output_scale + g_in                       # global residual
         primary = g.reshape(B, N, Fr, D)[:, 0]              # (B,F,D)
         if c.multi_modal:

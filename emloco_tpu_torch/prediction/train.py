@@ -23,6 +23,12 @@ Random streams: a train step draws from `PredictTrainState.rng`, in this
 order: the `traj_noise_std` normal (obs trajectory tokens, when the std is
 positive), the model's eight masking uniforms, then its dropout draws
 (`model.py`). `TrainDraws` replaces the first two with given values.
+
+Batch-axis data parallelism (`fit(..., mesh=)`, the reference's torch
+DataParallel, train_jta.py:392): each rank takes its block of every batch,
+draws the noise, masking and dropout numbers for the whole batch and keeps
+its rows (so they equal the one-rank step's), and the gradients of its
+share of the batch's loss are summed over the ranks before the clip.
 """
 from __future__ import annotations
 
@@ -40,6 +46,7 @@ from .. import convert
 from .. import device as _device
 from ..learning.amp_agent import AdamState, ClipAdam, adam_directions
 from ..learning.networks import ValuePoseNet
+from ..parallel import mesh as pmesh
 from ..struct import TensorStruct
 from ..utils.checkpoint import load_pickle
 from . import data as data_mod
@@ -113,10 +120,13 @@ class ClipAdamDecay(ClipAdam):
         return {k: params[k] + u[k] * step for k in u}, state
 
 
-def traj_noise_draw(gen: torch.Generator, shape, device) -> torch.Tensor:
+def traj_noise_draw(gen: torch.Generator, shape, device,
+                    mesh=None) -> torch.Tensor:
     """The standard normal of the `traj_noise_std` jitter, drawn on `gen`'s
-    device and moved to `device`."""
-    return torch.randn(shape, generator=gen, device=gen.device).to(device)
+    device and moved to `device` (`mesh`: this rank's rows of the whole
+    batch's draw)."""
+    return pmesh.draw_rows(torch.randn, shape, mesh, generator=gen,
+                           device=gen.device).to(device)
 
 
 class PredictorTrainer:
@@ -180,12 +190,12 @@ class PredictorTrainer:
         v = functional_call(self.vnet, vnet_params, (traj, pose, vel))
         return torch.mean((v - 1.0) ** 2)
 
-    def _inputs(self, ts, obs, init_pose, draws):
+    def _inputs(self, ts, obs, init_pose, draws, mesh=None):
         """The step's jittered obs and z-flipped pose."""
         cfg = self.cfg
         if cfg.traj_noise_std > 0.0:
             shape = obs[..., 0:1, :2].shape
-            n = (traj_noise_draw(ts.rng, shape, obs.device)
+            n = (traj_noise_draw(ts.rng, shape, obs.device, mesh)
                  if draws is None or draws.noise is None
                  else draws.noise.to(obs.device))
             obs = obs.clone()
@@ -197,15 +207,18 @@ class PredictorTrainer:
 
     def loss_and_grads(self, ts: PredictTrainState, obs, mask, gt_future,
                        init_pose=None, init_vel=None,
-                       draws: Optional[TrainDraws] = None):
+                       draws: Optional[TrainDraws] = None, mesh=None):
         """(total loss, {traj_loss, value_loss}, gradient by parameter) of
-        one batch of tensors under ts.params, drawing from ts.rng."""
+        one batch of tensors under ts.params, drawing from ts.rng. Under a
+        `mesh` the batch is this rank's block, the losses its mean, and the
+        gradient that of its share (1/R) of the whole batch's loss."""
         cfg = self.cfg
-        obs, init_pose = self._inputs(ts, obs, init_pose, draws)
+        obs, init_pose = self._inputs(ts, obs, init_pose, draws, mesh)
         p = {k: v.detach().requires_grad_() for k, v in ts.params.items()}
         with torch.enable_grad():
             out = self._apply(p, obs, mask, train=True, gen=ts.rng,
-                              draws=None if draws is None else draws.masks)
+                              draws=None if draws is None else draws.masks,
+                              mesh=mesh)
             pred = out[:, data_mod.OBS_FRAMES:]              # (B,Fp,M,2)
             if self.mcfg.multi_modal:
                 traj_loss = M.mse_loss_multi(pred, gt_future)
@@ -219,21 +232,26 @@ class PredictorTrainer:
                                          init_vel)
                 total = cfg.valueloss_weight * vloss + (
                     0.0 if cfg.valueloss_only else traj_loss)
-            grads = torch.autograd.grad(total, list(p.values()))
+            share = total if mesh is None else total / mesh.size
+            grads = torch.autograd.grad(share, list(p.values()))
         aux = dict(traj_loss=traj_loss.detach(), value_loss=vloss.detach())
         return total.detach(), aux, dict(zip(p, grads))
 
     def train_step(self, ts: PredictTrainState, obs, mask, gt_future,
                    init_pose=None, init_vel=None,
-                   draws: Optional[TrainDraws] = None):
+                   draws: Optional[TrainDraws] = None, mesh=None):
         """One optimizer step on a batch (numpy or tensors) → (ts, {traj_loss,
-        value_loss, total} as 0-d device tensors)."""
+        value_loss, total} as 0-d device tensors). Under a `mesh` the batch
+        is this rank's block; the gradients are summed over the ranks before
+        the clip and the losses averaged."""
         b = self.tensors((obs, mask, gt_future, init_pose, init_vel))
-        total, aux, grads = self.loss_and_grads(ts, *b, draws=draws)
+        total, aux, grads = self.loss_and_grads(ts, *b, draws=draws,
+                                                mesh=mesh)
+        grads = pmesh.all_reduce_dict(grads, mesh)
         params, opt = self.tx.update(grads, ts.opt_state, ts.params)
         aux["total"] = total
         return ts.replace(params=params, opt_state=opt,
-                          step=ts.step + 1), aux
+                          step=ts.step + 1), pmesh.pmean_metrics(aux, mesh)
 
     @torch.no_grad()
     def predict(self, params, obs, mask, limit_obs: int = 0):
@@ -247,12 +265,15 @@ class PredictorTrainer:
     # ------------------------------------------------------------------
 
     def fit(self, ts, dataset, epochs: int, batches_per_epoch: int,
-            batch_size: int, eval_dataset=None, log=None):
+            batch_size: int, eval_dataset=None, log=None, mesh=None):
         """The epoch loop (reference train_jta.py:224-384): each epoch draws
         its batches, steps through them, then evaluates on
         max(1, batches_per_epoch // 4) batches of `eval_dataset`. Returns
         (ts, history, best params by ade_min); `log` is called with each
-        epoch's entry (its metrics, seconds and steps/s)."""
+        epoch's entry (its metrics, seconds and steps/s). Under a `mesh`
+        (R ranks, batch_size a multiple of R) every rank draws the same
+        batches and trains on its block of each; each evaluates the whole
+        evaluation set, so the ranks keep the same best parameters."""
         history = []
         best_ade = float("inf")
         best_params = ts.params
@@ -261,8 +282,12 @@ class PredictorTrainer:
             t = time.perf_counter()
             losses = []
             for b in bs:
-                ts, aux = self.train_step(ts, *b)
+                if mesh is not None:
+                    b = [None if a is None else a[mesh.block(len(a))]
+                         for a in b]
+                ts, aux = self.train_step(ts, *b, mesh=mesh)
                 losses.append(aux["traj_loss"])
+            pmesh.check_lockstep(mesh, rng=ts.rng, params=ts.params)
             entry = dict(epoch=ep, traj_loss=torch.stack(losses).mean()
                          .item())
             train_s = time.perf_counter() - t

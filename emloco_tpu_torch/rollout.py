@@ -162,14 +162,17 @@ def smpl_params(num_envs: int, device=None, seed: int = 0) -> bm.BodyParams:
 
 
 def _bench_env(cfg: EnvConfig, dev, real_traj_bank=None,
-               task: str = "terrain", params=None) -> PedestrianTerrainEnv:
-    """The task's env on the bench's terrain and motions."""
+               task: str = "terrain", params=None,
+               mesh=None) -> PedestrianTerrainEnv:
+    """The task's env on the bench's terrain and motions (this rank's block
+    of the envs under an env-axis `mesh`)."""
     return TASK_ENVS[task](
         cfg, generate_mixed_terrain(map_length=8.0, num_tiles=2,
                                     difficulty=0.5, device=dev),
         ml.synthetic_walk_motions(speeds=(1.0, 1.5), duration=2.0,
                                   device=dev),
-        real_traj_bank=real_traj_bank, params=params, device=dev)
+        real_traj_bank=real_traj_bank, params=params, device=dev,
+        mesh=mesh)
 
 
 def _bench_cfg(num_envs: int, task: str = "terrain", **fields) -> EnvConfig:
@@ -198,17 +201,21 @@ def build_bench(num_envs: int = 4096, device=None, seed: int = 1,
 
 def build_train_bench(num_envs: int = 1600, device=None, seed: int = 0,
                       amp: AMPConfig = TRAIN_AMP, task: str = "terrain",
-                      **env_fields) -> tuple[AMPAgent, TrainState]:
+                      mesh=None, **env_fields
+                      ) -> tuple[AMPAgent, TrainState]:
     """The agent of `task` at the bench's training configuration and its
     initial TrainState from `seed`; `amp` and `env_fields` (fields of the
     task's env config, the engine TASK_ENGINES[task] unless given) replace
     parts of the configuration. With mesh contacts the bodies are
-    smpl_params(num_envs, seed=seed), as `cli/run.py` fits them."""
+    smpl_params(num_envs, seed=seed), as `cli/run.py` fits them. Under an
+    env-axis `mesh` (parallel.mesh) the agent of this rank's block of the
+    num_envs envs."""
     dev = _device.resolve(device)
     cfg = _bench_cfg(num_envs, task, **env_fields)
     params = (smpl_params(num_envs, dev, seed) if cfg.engine.mesh_contacts
               else None)
-    agent = AMPAgent(_bench_env(cfg, dev, task=task, params=params), amp)
+    agent = AMPAgent(_bench_env(cfg, dev, task=task, params=params,
+                                mesh=mesh), amp)
     return agent, agent.init(seed)
 
 

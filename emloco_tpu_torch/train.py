@@ -35,6 +35,7 @@ import os
 import time
 
 from . import device as _device
+from .parallel import mesh as pmesh
 from .rollout import TASKS, TRAIN_AMP, build_train_bench, parse_overrides
 from .utils.checkpoint import (checkpoint_epoch, load_pytree,
                                restore_policy, save_policy)
@@ -48,8 +49,9 @@ def run_epochs(agent, ts, start: int, epochs: int, on_epoch=None,
     has them, then `train_epoch`; `on_epoch(ep, ts, metrics, seconds)` gets
     the metrics as floats and the epoch's seconds; with `out`,
     `policy_<ep:08d>.ckpt` after every `save_every`-th epoch and the
-    last. Returns the TrainState."""
-    env = agent.env
+    last (under the agent's mesh, rank 0 writes it while the others wait).
+    Returns the TrainState."""
+    env, mesh = agent.env, agent.mesh
     last = start + epochs - 1
     for ep in range(start, start + epochs):
         t = time.perf_counter()
@@ -63,7 +65,10 @@ def run_epochs(agent, ts, start: int, epochs: int, on_epoch=None,
         if on_epoch is not None:
             on_epoch(ep, ts, metrics, time.perf_counter() - t)
         if out and (ep and ep % save_every == 0 or ep == last):
-            save_policy(os.path.join(out, f"policy_{ep:08d}.ckpt"), ts, ep)
+            if mesh is None or mesh.rank == 0:
+                save_policy(os.path.join(out, f"policy_{ep:08d}.ckpt"), ts,
+                            ep)
+            pmesh.barrier(mesh)
     return ts
 
 

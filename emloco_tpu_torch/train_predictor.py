@@ -25,16 +25,17 @@ reads. Runs on the CUDA card unless `--device cpu` is given.
 from __future__ import annotations
 
 import argparse
-import json
 import os
 import time
 
 from . import device as _device
 from .learning.networks import ValuePoseNet
+from .parallel import mesh as pmesh
 from .prediction.data import NdjsonScenes, SyntheticScenes
 from .prediction.presets import PRESETS, configs
 from .prediction.train import PredictorTrainer
 from .utils.checkpoint import load_valuenet
+from .utils.logging import print_json
 
 
 def arguments(ap: argparse.ArgumentParser):
@@ -83,11 +84,14 @@ def main(argv=None):
     return run(args, mcfg, pcfg, dataset(args), dataset(args, 1), dev)
 
 
-def run(args, mcfg, pcfg, ds, eval_ds, dev):
+def run(args, mcfg, pcfg, ds, eval_ds, dev, mesh=None):
     """`cmd_train_predictor` (cli/run.py:297-338) on the scenes `ds` and
     `eval_ds`: args.valuenet, args.seed, args.batch_size, args.batches,
-    args.epochs, args.resume and args.out as the flags say. Returns (ts,
+    args.epochs, args.resume and args.out as the flags say; under a batch
+    `mesh` each rank trains on its block of every batch (`fit`), and rank
+    0 prints and writes the checkpoint while the others wait. Returns (ts,
     history, best params)."""
+    main_rank = mesh is None or mesh.rank == 0
     name = _device.name(dev)
     vnet, vp = valuenet(args, dev)
     trainer = PredictorTrainer(mcfg, pcfg, vnet=vnet, device=dev)
@@ -98,17 +102,21 @@ def run(args, mcfg, pcfg, ds, eval_ds, dev):
         ts = ts.replace(params=trainer.params_from(blob["params"]))
 
     def log(entry):
-        print(json.dumps({**entry, "device": name}), flush=True)
+        if main_rank:
+            print_json({**entry, "device": name})
 
     t = time.perf_counter()
     ts, history, best = trainer.fit(
         ts, ds, epochs=args.epochs, batches_per_epoch=args.batches,
-        batch_size=args.batch_size, eval_dataset=eval_ds, log=log)
+        batch_size=args.batch_size, eval_dataset=eval_ds, log=log,
+        mesh=mesh)
     path = os.path.join(args.out, "predictor_best.ckpt")
-    trainer.save_checkpoint(path, ts.replace(params=best))
-    print(json.dumps({"checkpoint": path, "epochs": args.epochs,
-                      "steps": ts.step, "seconds": time.perf_counter() - t,
-                      "device": name}), flush=True)
+    if main_rank:
+        trainer.save_checkpoint(path, ts.replace(params=best))
+        print_json({"checkpoint": path, "epochs": args.epochs,
+                    "steps": ts.step, "seconds": time.perf_counter() - t,
+                    "device": name})
+    pmesh.barrier(mesh)
     return ts, history, best
 
 

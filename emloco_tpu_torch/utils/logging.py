@@ -61,6 +61,14 @@ class MetricsLogger:
             self._tb.close()
 
 
+def print_json(obj):
+    """`obj` as one JSON line on stdout in a single write, so that the lines
+    of processes sharing the stdout (the ranks of a mesh) stay whole also
+    when stdout is unbuffered."""
+    sys.stdout.write(json.dumps(obj) + "\n")
+    sys.stdout.flush()
+
+
 class SegmentTimer:
     """play_time/update_time style segment timing; on a CUDA `device` each
     start and stop first waits for the device."""

@@ -63,8 +63,8 @@ def test_train_policy_writes_and_resumes(tmp_path, capsys):
 
 
 def test_refusals(tmp_path):
-    with pytest.raises(NotImplementedError, match="parallel/mesh.py"):
-        RUN.main(["train-policy", "--mesh", "2", "--device", "cpu", *TINY,
+    with pytest.raises(SystemExit, match="--mesh 2: only train-policy"):
+        RUN.main(["eval-policy", "--mesh", "2", "--device", "cpu", *TINY,
                   f"out_dir={tmp_path}"])
     for argv in (["no-such-command"], ["train-policy", "--bogus"],
                  ["train-policy", "stray"]):

@@ -258,7 +258,7 @@ def test_hand_reward_and_auto_reset_match_jax(world, hand_states,
     new_j = JEnv._auto_reset(jhenv, js, jnp.asarray(done))
     fresh = jax.random.uniform(jax.random.fold_in(new_j.rng, 78), (N, 2))
     monkeypatch.setattr(hand_task, "hand_target_draw",
-                        lambda gen, n, device: torch.as_tensor(
+                        lambda gen, n, device, mesh=None: torch.as_tensor(
                             np.array(fresh)))
     got = henv._auto_reset(ts, torch.as_tensor(done))
     np.testing.assert_array_equal(got.hand_targets.numpy(),

@@ -1,8 +1,8 @@
 """The port stands alone: it imports torch and numpy, never jax, flax,
 emloco_tpu, the JAX package's scripts, pyyaml or joblib (the card's machine
-has neither), and its chip smoke script refuses to run without a card. Two
+has neither), and its chip smoke script refuses to run without a card. Three
 card tests (requires_cuda) run the entry point's train-policy at a small
-width and the native helpers' build there."""
+width, alone and over two ranks, and the native helpers' build there."""
 import ast
 import os
 import pathlib
@@ -71,6 +71,12 @@ def test_import_pulls_in_no_jax():
         "emloco_tpu_torch.utils.profiling, emloco_tpu_torch.native, "
         "emloco_tpu_torch.envs.traj_server, "
         "emloco_tpu_torch.envs.viewer_server\n"
+        "import emloco_tpu_torch.kinematics.smpl, "
+        "emloco_tpu_torch.kinematics.retarget, "
+        "emloco_tpu_torch.kinematics.bvh, "
+        "emloco_tpu_torch.kinematics.curation, "
+        "emloco_tpu_torch.kinematics.fbx, emloco_tpu_torch.parallel, "
+        "emloco_tpu_torch.parallel.mesh\n"
         "from emloco_tpu_torch.utils.config import load_config\n"
         "cfg = load_config('configs/pacer_terrain.yaml', ['amp.lr=1.0e-5'])\n"
         "assert cfg.env.num_envs == 1600 and cfg.amp.lr == 1e-5\n"
@@ -146,6 +152,34 @@ def test_cli_train_policy_on_card(tmp_path):
     assert all(v == v for v in row.values())          # no NaN
     assert load_pytree(str(tmp_path / "policy_00000000.ckpt"))[1] == {
         "epoch": 0}
+
+
+@pytest.mark.requires_cuda
+def test_cli_mesh_train_policy_on_card(tmp_path):
+    """`cli.run train-policy --mesh 2` at 64 envs for one epoch on the
+    card's machine: each rank on cuda:(rank mod cards) with its factor 32
+    and resolve 64 launches, and the ranks' parameters bit-equal."""
+    import json
+
+    import torch
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    out = subprocess.run(
+        [sys.executable, "-m", "emloco_tpu_torch.cli.run", "train-policy",
+         "--mesh", "2", "--config",
+         str(ROOT / "configs" / "pacer_terrain.yaml"), "epochs=1",
+         "env.num_envs=64", "amp.num_minibatches=2",
+         "amp.amp_replay_size=4096", "terrain.num_tiles=2",
+         f"out_dir={tmp_path}"], capture_output=True, text=True, cwd=ROOT,
+        timeout=600)
+    assert out.returncode == 0, out.stderr[-3000:]
+    last = [json.loads(x) for x in out.stdout.splitlines()
+            if x.startswith("{") and "launches" in x]
+    assert len(last) == 2
+    for x in last:
+        assert x["launches"]["cholesky_factor_blocked_t"] == 32
+        assert x["launches"]["cholesky_resolve_blocked_t"] == 64
+    assert last[0]["params_sha256"] == last[1]["params_sha256"]
 
 
 @pytest.mark.requires_cuda
