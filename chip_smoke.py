@@ -361,6 +361,19 @@ Phases, each printed as one JSON line with its elapsed seconds:
                 then `train-predictor --config configs/jta_predictor.yaml
                 --mesh 2 --batches 8` (batch 10, 5 a rank), its best
                 parameters bit-equal to its checkpoint, steps/s
+ 48. obs_options — the bench world at 4,096 envs with bodies built on the
+                card from betas N(0, 0.3²) by `PedestrianTerrainEnv(…,
+                betas=)` (bit-equal to build_body_params of them), 2
+                control steps (factor 2, resolve 4); humanoid_obs_max,
+                amp_obs, location_obs and group_obs (groups of 128) of the
+                card's body state under each (root_height_obs, upright)
+                pair against the same tensors on the CPU, within 1e-5 of
+                the CPU's largest |value| (a group_obs row whose
+                neighbours order the other way by a near tie, distances
+                within 1e-6 m, excused and counted); to_mjcf of env 0's
+                and env 4,095's bodies against those of the same betas
+                built on the CPU: the same layout, numbers within 1e-4;
+                the phase's seconds on a line of its own
 Then the kernels' summary line and, last, the device line. Any failed check
 raises and the script exits non-zero. Without a CUDA device it exits 2 and
 runs nothing.
@@ -4146,6 +4159,186 @@ def mesh_phases(card):
         return {"cli_mesh": cli_mesh(card, out)}
 
 
+# ---------------------------------------------------------------------------
+# 48. the observation options, the MJCF export and the env's betas=
+# ---------------------------------------------------------------------------
+
+# control steps before the observations; their card-vs-CPU tolerance (that
+# of tests/test_torch_sensors.py: float32 work in the same order, up to a
+# few ulps); the crowd groups; neighbours whose distances lie within TIE_M
+# may order the other way on the other device; the betas' spread; the MJCF
+# numbers' tolerance (5 decimals at most, so 1e-4 is a last-digit change)
+OBS_STEPS, OBS_REL, OBS_GROUP, TIE_M = 2, 1e-5, 128, 1e-6
+OBS_BETA_STD, MJCF_TOL = 0.3, 1e-4
+
+
+def mjcf_numbers(xml):
+    """(every element's tag and non-numeric attribute tokens, in document
+    order; every numeric token) of an MJCF string."""
+    import xml.etree.ElementTree as ET
+    layout, numbers = [], []
+    for el in ET.fromstring(xml).iter():
+        for key, value in el.attrib.items():
+            for tok in value.split():
+                try:
+                    numbers.append(float(tok))
+                except ValueError:
+                    layout.append((el.tag, key, tok))
+        layout.append(el.tag)
+    return layout, numbers
+
+
+def obs_options(card):
+    """Phase 48: the bench world at NUM_ENVS with bodies built on the card
+    from betas N(0, 0.3²) (`PedestrianTerrainEnv(…, betas=)`, held bit-equal
+    to build_body_params of them), OBS_STEPS control steps with the
+    launch counts read around them; then humanoid_obs_max, amp_obs,
+    location_obs and group_obs (groups of OBS_GROUP) of the card's body
+    state under each (root_height_obs, upright) pair against the same
+    tensors on the CPU, each within OBS_REL of the CPU's largest |value| (a
+    group_obs row whose neighbours order the other way by a near tie,
+    distances within TIE_M, excused and counted); then to_mjcf of the first
+    and the last env's bodies against those of the same betas built on the
+    CPU, the same layout and numbers within MJCF_TOL. Returns the launch
+    counts."""
+    import itertools
+
+    import torch
+    from emloco_tpu_torch.envs import PedestrianTerrainEnv, traj_gen
+    from emloco_tpu_torch.envs import observations as obs
+    from emloco_tpu_torch.kinematics import body_model as bm
+    from emloco_tpu_torch.physics import body_frame_state, joint_state, linalg
+    from emloco_tpu_torch.rollout import Rollout, build_bench
+    t0 = time.time()
+    dev, cpu = torch.device("cuda"), torch.device("cpu")
+    r = build_bench(NUM_ENVS, dev)
+    cfg = r.cfg
+    betas = OBS_BETA_STD * torch.randn(
+        (NUM_ENVS, 16), generator=torch.Generator(device=dev).manual_seed(48),
+        device=dev)
+    env = PedestrianTerrainEnv(cfg, r.env.terrain, r.env.motion_lib,
+                               device=dev, betas=betas)
+    built = bm.build_body_params(betas, device=dev)
+    betas_equal = all(
+        torch.equal(getattr(env.params, f.name), getattr(built, f.name))
+        for f in dataclasses.fields(bm.BodyParams))
+    r = Rollout(cfg, env, r.actor, r.norm)
+    state = env.reset(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    linalg.reset_launch_counts()
+    t = time.time()
+    for _ in range(OBS_STEPS):
+        state, out, _, _ = r.control_step(state)
+    torch.cuda.synchronize()
+    steps_s = time.time() - t
+    launches = dict(linalg.LAUNCHES)
+    want = dict.fromkeys(launches, 0)
+    want.update({"cholesky_factor_blocked_t": OBS_STEPS,
+                 "cholesky_resolve_blocked_t":
+                     OBS_STEPS * cfg.engine.n_substeps})
+
+    ph = state.physics
+    pos, rot, vel, ang = body_frame_state(env.model, ph)
+    dof_pos, dof_vel = joint_state(env.model, ph)
+    samples = traj_gen.fetch_samples(
+        state.traj_verts, state.progress.float() * cfg.dt,
+        cfg.traj.episode_dur, cfg.num_traj_samples,
+        cfg.traj_sample_timestep)
+    g = dict(pos=pos, rot=rot, vel=vel, ang=ang, dof_pos=dof_pos,
+             dof_vel=dof_vel, key=pos[:, env._key_ids], samples=samples,
+             betas=env.params.betas, limb=env.limb_weights)
+    c = {k: v.cpu() for k, v in g.items()}
+
+    def observe(x, root_h, upright):
+        opts = dict(root_height_obs=root_h, upright=upright)
+        root = (x["pos"][:, 0], x["rot"][:, 0])
+        return {
+            "humanoid_obs_max": obs.humanoid_obs_max(
+                x["pos"], x["rot"], x["vel"], x["ang"], betas=x["betas"],
+                limb_weights=x["limb"], **opts),
+            "amp_obs": obs.amp_obs(
+                *root, x["vel"][:, 0], x["ang"][:, 0], x["dof_pos"],
+                x["dof_vel"], x["key"], betas=x["betas"],
+                limb_weights=x["limb"], **opts),
+            "location_obs": obs.location_obs(*root, x["samples"],
+                                             upright=upright),
+            "group_obs": obs.group_obs(x["pos"], x["vel"], x["rot"][:, 0],
+                                       OBS_GROUP, upright=upright)}
+
+    # group rows whose neighbours order the other way on the card
+    k = min(5, OBS_GROUP - 1)
+    _, nbr_g = obs._nearest_in_group(g["pos"][:, 0], OBS_GROUP, k)
+    _, nbr_c = obs._nearest_in_group(c["pos"][:, 0], OBS_GROUP, k)
+    d_c, _ = obs._nearest_in_group(c["pos"][:, 0], OBS_GROUP, k + 1)
+    reordered = (nbr_g.cpu() != nbr_c).any(-1)
+    tie = (d_c.diff(dim=-1) <= TIE_M).any(-1)
+    excused = reordered & tie
+    near = float((d_c[:, :k] <= 10.0).float().mean())
+    widths = {"humanoid_obs_max": obs.SELF_OBS_DIM + 21,
+              "amp_obs": obs.AMP_OBS_DIM + 21,
+              "location_obs": 2 * cfg.num_traj_samples,
+              "group_obs": k * 33}
+    errs, bad = {}, []
+    for root_h, upright in itertools.product((False, True), repeat=2):
+        o_g, o_c = observe(g, root_h, upright), observe(c, root_h, upright)
+        for name, og in o_g.items():
+            oc = o_c[name]
+            a, b = og.cpu().double(), oc.double()
+            if name == "group_obs":
+                a, b = a[~excused], b[~excused]
+            scale = max(b.abs().max().item(), 1e-6)
+            err = (a - b).abs().max().item() / scale
+            case = f"{name} root_height_obs={root_h} upright={upright}"
+            errs[case] = err
+            width = widths[name] + (root_h and name in ("humanoid_obs_max",
+                                                        "amp_obs"))
+            if not (err <= OBS_REL and bool(torch.isfinite(og).all())
+                    and tuple(og.shape) == tuple(oc.shape)
+                    == (NUM_ENVS, width)):
+                bad.append(case)
+
+    cpu_params = bm.build_body_params(betas.cpu(), device=cpu)
+    mjcf = {}
+    for i in (0, NUM_ENVS - 1):
+        x_g, x_c = bm.to_mjcf(env.params, i), bm.to_mjcf(cpu_params, i)
+        (lay_g, num_g), (lay_c, num_c) = mjcf_numbers(x_g), mjcf_numbers(x_c)
+        same = lay_g == lay_c and len(num_g) == len(num_c)
+        mjcf[i] = dict(
+            same_layout=same, byte_equal=x_g == x_c, numbers=len(num_g),
+            max_abs_err=(max(abs(p - q) for p, q in zip(num_g, num_c))
+                         if same else None),
+            bodies=x_g.count("<body "), motors=x_g.count("<motor "))
+    mjcf_ok = all(m["same_layout"] and m["max_abs_err"] <= MJCF_TOL
+                  and m["bodies"] == bm.NUM_BODIES
+                  and m["motors"] == bm.NUM_DOF for m in mjcf.values())
+    seconds = time.time() - t0
+    emit("obs_options", num_envs=NUM_ENVS, steps=OBS_STEPS,
+         steps_seconds=round(steps_s, 4), launches=launches,
+         betas_equal_build_body_params=betas_equal,
+         max_rel_err=errs, tolerance_rel=OBS_REL, group_size=OBS_GROUP,
+         group_rows_reordered=int(reordered.sum()),
+         group_rows_excused_near_tie=int(excused.sum()), tie_m=TIE_M,
+         neighbours_within_max_dist=near, mjcf=mjcf, mjcf_tol=MJCF_TOL,
+         finite=bool(torch.isfinite(out.reward).all()), card=card)
+    emit("obs_options_seconds", seconds=round(seconds, 3), card=card)
+    if launches != want:
+        raise SystemExit(f"obs_options: launch counts {launches}, expected "
+                         f"{want}")
+    if not betas_equal:
+        raise SystemExit("obs_options: the env's bodies from betas= differ "
+                         "from build_body_params of the same betas")
+    if bad:
+        raise SystemExit(f"obs_options: card and CPU disagree, or a shape "
+                         f"or value is wrong, in {bad}")
+    if bool((reordered & ~tie).any()):
+        raise SystemExit("obs_options: group_obs neighbours order "
+                         "differently with no near tie")
+    if not mjcf_ok:
+        raise SystemExit(f"obs_options: to_mjcf differs from the CPU's: "
+                         f"{mjcf}")
+    return launches
+
+
 def main():
     import numpy as np
     import torch
@@ -4483,6 +4676,9 @@ def main():
 
     # 45-47. SMPL, retargeting, the importers; data parallelism over ranks --
     by_path.update(mesh_phases(card))
+
+    # 48. the observation options, MJCF export and the env's betas= -------
+    by_path["obs_options"] = obs_options(card)
 
     # summary ---------------------------------------------------------------
     kernels = []

@@ -7,7 +7,9 @@ square) and its 3-channel velocity-map variant, the crowd observation of
 the nearest people in an env's group and the velocity map with those people
 stamped in, the left/right mirror of the body state, the self observation,
 the sensor grid and the actions (the motion-symmetry loss), and the AMP
-dropout mask.
+dropout mask. The self, AMP, location and crowd observations take the
+optional root-height slot and the non-upright asset's base rotation
+(remove_base_rot) as the JAX functions do.
 """
 from __future__ import annotations
 
@@ -50,6 +52,16 @@ _AMP_DOF_OBS_OFFSET = 12
 _AMP_DOF_VEL_OFFSET = _AMP_DOF_OBS_OFFSET + len(DOF_SUBSET_JOINTS) * 6
 
 
+def remove_base_rot(q: torch.Tensor) -> torch.Tensor:
+    """Strip the SMPL base rotation of a non-upright asset: q ∘ conj(base),
+    base = (½, ½, ½, ½). The product with the fixed (−½, −½, −½, ½) is
+    written out as sums and differences of q's components, in the order of
+    quat.mul's terms, so no constant is copied to the device."""
+    x, y, z, w = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    return 0.5 * torch.stack([((x - w) - y) + z, ((x - w) + y) - z,
+                              ((-w - x) + y) + z, ((w + x) + y) + z], -1)
+
+
 def dof_to_obs(dof_pos: torch.Tensor) -> torch.Tensor:
     """(…, J, 3) exp-map → (…, J*6) tan-norm features."""
     tn = quat.to_tan_norm(quat.exp_map_to_quat(dof_pos))
@@ -57,13 +69,18 @@ def dof_to_obs(dof_pos: torch.Tensor) -> torch.Tensor:
 
 
 def humanoid_obs_max(body_pos, body_rot, body_vel, body_ang_vel, betas=None,
-                     limb_weights=None) -> torch.Tensor:
-    """[local body pos (23·3), body rot tan-norm (24·6), body vel (24·3),
-    body ang vel (24·3), shape (11)?, limb weights (10)?] for the upright
-    asset without the root-height slot (the flagship configuration)."""
+                     limb_weights=None, root_height_obs: bool = False,
+                     upright: bool = True) -> torch.Tensor:
+    """[root height (1)?, local body pos (23·3), body rot tan-norm (24·6),
+    body vel (24·3), body ang vel (24·3), shape (11)?, limb weights (10)?]
+    in the heading frame. The flagship configuration is the default: no
+    root-height slot, an upright asset; a non-upright asset's heading is
+    taken after remove_base_rot."""
     N = body_pos.shape[0]
     root_pos = body_pos[:, 0]
     root_rot = body_rot[:, 0]
+    if not upright:
+        root_rot = remove_base_rot(root_rot)
     h_exp = quat.heading_quat_inv(root_rot)[:, None]
 
     local_pos = quat.rotate(h_exp, body_pos - root_pos[:, None])
@@ -73,7 +90,8 @@ def humanoid_obs_max(body_pos, body_rot, body_vel, body_ang_vel, betas=None,
     local_vel = quat.rotate(h_exp, body_vel).reshape(N, -1)
     local_ang_vel = quat.rotate(h_exp, body_ang_vel).reshape(N, -1)
 
-    parts = [local_pos, rot_obs, local_vel, local_ang_vel]
+    parts = [root_pos[:, 2:3]] if root_height_obs else []
+    parts += [local_pos, rot_obs, local_vel, local_ang_vel]
     if betas is not None:
         parts.append(betas[:, :11])
     if limb_weights is not None:
@@ -82,11 +100,18 @@ def humanoid_obs_max(body_pos, body_rot, body_vel, body_ang_vel, betas=None,
 
 
 def amp_obs(root_pos, root_rot, root_vel, root_ang_vel, dof_pos, dof_vel,
-            key_pos, betas=None, limb_weights=None) -> torch.Tensor:
-    """[root rot tan-norm (6), local root vel (3), local root ang vel (3),
-    dof obs subset (19·6), dof vel subset (19·3), local key body pos (4·3),
-    shape (11)?, limb weights (10)?] for the upright asset."""
+            key_pos, betas=None, limb_weights=None,
+            root_height_obs: bool = False,
+            upright: bool = True) -> torch.Tensor:
+    """[root height (1)?, root rot tan-norm (6), local root vel (3), local
+    root ang vel (3), dof obs subset (19·6), dof vel subset (19·3), local
+    key body pos (4·3), shape (11)?, limb weights (10)?]. A non-upright
+    asset's root rotation goes through remove_base_rot first. The dropout
+    mask's offsets (_AMP_DOF_OBS_OFFSET) assume no root-height slot, as the
+    JAX package's do."""
     N = root_pos.shape[0]
+    if not upright:
+        root_rot = remove_base_rot(root_rot)
     heading_inv = quat.heading_quat_inv(root_rot)
     root_rot_obs = quat.to_tan_norm(quat.mul(heading_inv, root_rot))
     local_vel = quat.rotate(heading_inv, root_vel)
@@ -98,8 +123,9 @@ def amp_obs(root_pos, root_rot, root_vel, root_ang_vel, dof_pos, dof_vel,
     dof_obs = dof_to_obs(dof_pos[:, sel])
     dvel = dof_vel[:, sel].reshape(N, -1)
 
-    parts = [root_rot_obs, local_vel, local_ang_vel, dof_obs, dvel,
-             local_key]
+    parts = [root_pos[:, 2:3]] if root_height_obs else []
+    parts += [root_rot_obs, local_vel, local_ang_vel, dof_obs, dvel,
+              local_key]
     if betas is not None:
         parts.append(betas[:, :11])
     if limb_weights is not None:
@@ -131,9 +157,13 @@ def amp_dropout_mask(u: torch.Tensor, steps: int, per_step: int,
     return step_mask.repeat(1, steps)
 
 
-def location_obs(root_pos, root_rot, traj_samples) -> torch.Tensor:
+def location_obs(root_pos, root_rot, traj_samples,
+                 upright: bool = True) -> torch.Tensor:
     """Future trajectory samples in the heading-local frame, xy only:
-    traj_samples (N,S,3) → (N,S·2)."""
+    traj_samples (N,S,3) → (N,S·2). A non-upright asset's root rotation
+    goes through remove_base_rot first."""
+    if not upright:
+        root_rot = remove_base_rot(root_rot)
     heading_inv = quat.heading_quat_inv(root_rot)
     local = quat.rotate(heading_inv[:, None], traj_samples - root_pos[:, None])
     return local[..., :2].reshape(root_pos.shape[0], -1)
@@ -246,15 +276,19 @@ def _nearest_in_group(xy, group_size: int, k: int):
 
 
 def group_obs(body_pos, body_vel, root_rot, group_size: int, top_k: int = 5,
-              max_dist: float = 10.0) -> torch.Tensor:
+              max_dist: float = 10.0, upright: bool = True) -> torch.Tensor:
     """Crowd observation: heading-local positions of the 10 GROUP_JOINTS of
     the top-k nearest people in the env's group, then their root
     velocities; neighbours beyond max_dist are zeroed, and a group too
     small for k neighbours pads with zeros. Layout: the whole k-neighbour
-    position block (k·10·3), then the k root velocities (k·3)."""
+    position block (k·10·3), then the k root velocities (k·3). A
+    non-upright asset's root rotation goes through remove_base_rot
+    first."""
     N = body_pos.shape[0]
     J = len(GROUP_JOINTS)
     root_pos = body_pos[:, 0]
+    if not upright:
+        root_rot = remove_base_rot(root_rot)
     heading_inv = quat.heading_quat_inv(root_rot)
     k = min(top_k, group_size - 1)
     nd, flat = _nearest_in_group(root_pos, group_size, k)

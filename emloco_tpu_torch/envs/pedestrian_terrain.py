@@ -282,9 +282,13 @@ def projectile_kick(u, hit, body, raw_dir, impulse: float, body_x, mass_tot):
 class PedestrianTerrainEnv:
     """Holds the static members (model, terrain, motion library, config).
 
+    The bodies are `params` when given, else built on the env's device from
+    `betas` (cfg.num_envs, 16), zeros by default; `params` wins when both
+    are given, as in the JAX package.
+
     With a `mesh` (parallel.mesh.Mesh) of R ranks the env holds this rank's
-    block of cfg.num_envs envs (`num_envs` = cfg.num_envs / R): `params`
-    are the bodies of all cfg.num_envs envs, of which it keeps its rows;
+    block of cfg.num_envs envs (`num_envs` = cfg.num_envs / R): the bodies
+    are those of all cfg.num_envs envs, of which it keeps its rows;
     its first state is its part of the whole env axis's reset (`reset`),
     every draw over the env axis in a step is made for all envs and the
     rank keeps its rows, and the per-motion hard-negative counts are summed
@@ -294,7 +298,7 @@ class PedestrianTerrainEnv:
                  motion_lib: ml.MotionLib,
                  real_traj_bank: Optional[torch.Tensor] = None,
                  params: Optional[bm.BodyParams] = None, device=None,
-                 mesh: Optional[pmesh.Mesh] = None):
+                 mesh: Optional[pmesh.Mesh] = None, betas=None):
         self.device = dev = _device.resolve(device)
         self.cfg = cfg
         self.mesh = mesh
@@ -309,8 +313,9 @@ class PedestrianTerrainEnv:
         self.motion_lib = motion_lib.to(dev)
         self.tree = default_tree()
         if params is None:
-            params = bm.build_body_params(
-                np.zeros((cfg.num_envs, 16), np.float32), device=dev)
+            if betas is None:
+                betas = np.zeros((cfg.num_envs, 16), np.float32)
+            params = bm.build_body_params(betas, device=dev)
         # every env's bodies: the whole env axis's reset (`reset`) needs them
         self._all_params = params if ranks > 1 else None
         if ranks > 1:

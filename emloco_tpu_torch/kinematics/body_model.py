@@ -1,8 +1,9 @@
 """SMPL-parameterized humanoid body model → batched physics parameters.
 
 Port of emloco_tpu/kinematics/body_model.py (the canonical 24-joint skeleton,
-its tables, `build_body_params` and `from_smpl_npz`); the tables are kept
-here as a copy because the JAX module imports jax and flax.
+its tables, `build_body_params`, the MJCF export `to_mjcf` and
+`from_smpl_npz`); the tables are kept here as a copy because the JAX module
+imports jax and flax.
 """
 from __future__ import annotations
 
@@ -188,7 +189,10 @@ def build_body_params(betas, kp_scale: float = 1.0, kd_scale: float = 1.0,
     (from_smpl_npz) in place of the scaled template's; every derived
     quantity is computed from them."""
     dev = _device.resolve(device)
-    betas = torch.as_tensor(np.asarray(betas, np.float32), device=dev)
+    if isinstance(betas, torch.Tensor):
+        betas = betas.to(device=dev, dtype=torch.float32)
+    else:
+        betas = torch.as_tensor(np.asarray(betas, np.float32), device=dev)
     if betas.dim() == 1:
         betas = betas[None]
     if betas.shape[-1] < 16:
@@ -283,6 +287,61 @@ def build_body_params(betas, kp_scale: float = 1.0, kd_scale: float = 1.0,
         height_offset=height_offset,
         friction_scale=torch.ones((N,), **f32),
     )
+
+
+# the fields of one env's row that to_mjcf writes, in the order they are
+# gathered for the one host copy
+_MJCF_FIELDS = ("local_offsets", "capsule_start", "capsule_axis",
+                "capsule_half", "capsule_radius", "joint_limit", "kp", "kd",
+                "torque_limit", "height_offset")
+
+
+def to_mjcf(params: BodyParams, env_idx: int = 0,
+            model_name: str = "emloco_humanoid") -> str:
+    """Export one env's body as a MuJoCo MJCF XML string: a capsule geom per
+    body, each spherical joint as three hinges with their ranges, a motor
+    per hinge geared by the joint's torque limit. The same string as the
+    JAX package's for the same parameters. The env's row is copied to the
+    host once, on any device, and written from numpy."""
+    import xml.etree.ElementTree as ET
+
+    row = [getattr(params, f)[env_idx] for f in _MJCF_FIELDS]
+    flat = torch.cat([t.reshape(-1) for t in row]).cpu().numpy()
+    parts = np.split(flat, np.cumsum([t.numel() for t in row])[:-1])
+    (off, start, axis, half, radius, lim, kp, kd, tl, h0) = (
+        p.reshape(tuple(t.shape)) for p, t in zip(parts, row))
+
+    root = ET.Element("mujoco", model=model_name)
+    ET.SubElement(root, "option", timestep="0.016667", gravity="0 0 -9.81")
+    worldbody = ET.SubElement(root, "worldbody")
+    actuators = ET.SubElement(root, "actuator")
+
+    nodes = {}
+    for b, name in enumerate(BODY_NAMES):
+        parent_el = worldbody if PARENTS[b] < 0 else nodes[PARENTS[b]]
+        pos = off[b] if b > 0 else np.array([0.0, 0.0, float(h0)])
+        body = ET.SubElement(parent_el, "body", name=name,
+                             pos=" ".join(f"{v:.5f}" for v in pos))
+        nodes[b] = body
+        if b == 0:
+            ET.SubElement(body, "freejoint", name="root")
+        else:
+            j = b - 1
+            for ax_i, ax_v in enumerate(("1 0 0", "0 1 0", "0 0 1")):
+                hinge = f"{name}_{'xyz'[ax_i]}"
+                ET.SubElement(
+                    body, "joint", name=hinge, type="hinge", axis=ax_v,
+                    damping=f"{kd[j]:.3f}", stiffness="0",
+                    range=f"{-lim[j, ax_i]:.4f} {lim[j, ax_i]:.4f}")
+                ET.SubElement(actuators, "motor", name=hinge, joint=hinge,
+                              gear=f"{tl[j]:.1f}")
+        p0 = start[b]
+        p1 = start[b] + 2 * half[b] * axis[b]
+        ET.SubElement(
+            body, "geom", type="capsule", size=f"{radius[b]:.5f}",
+            fromto=" ".join(f"{v:.5f}" for v in np.concatenate([p0, p1])))
+    ET.indent(root)
+    return ET.tostring(root, encoding="unicode")
 
 
 def from_smpl_npz(path: str, betas, device=None, **kw) -> BodyParams:

@@ -302,7 +302,7 @@ class ValuePoseNet(nn.Module):
         self.hide_spine = hide_spine
         self.normalize = normalize
         self.num_waypoints = num_waypoints
-        in_dim = num_waypoints * 2 + 72 * use_pose + 2 * use_vel
+        in_dim = self.traj_size + 72 * use_pose + 2 * use_vel
         fc1 = in_dim // 2 - 1
         fc2 = fc1 // 2
         self.fc1 = nn.Linear(in_dim, fc1)
@@ -310,6 +310,11 @@ class ValuePoseNet(nn.Module):
         self.fc3 = nn.Linear(fc2, 1)
         self.to(_device.resolve(device))
         self.init_parameters(generator)
+
+    @property
+    def traj_size(self) -> int:
+        """The flattened waypoints' width, the first of fc1's inputs."""
+        return self.num_waypoints * 2
 
     @torch.no_grad()
     def init_parameters(self, generator: torch.Generator | None = None):
