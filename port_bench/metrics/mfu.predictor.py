@@ -1,0 +1,11 @@
+"""The whole train step's share of the card's float32 peak: the flops
+that the window's steps need (`counts.networks.transmotion_step`) over the
+window's seconds at 67 TFLOP/s."""
+from port_bench.counts import peaks
+
+
+def read(rec):
+    if "scenes" not in rec.work_per_unit or not rec.units:
+        return None
+    return (100.0 * rec.flops_per_unit * rec.units
+            / (rec.window_s * peaks.F32_FLOP_S))

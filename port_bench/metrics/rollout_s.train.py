@@ -1,0 +1,7 @@
+"""Seconds an epoch in the trainer's rollout (`AMPAgent.rollout`): the mean of the
+benchmark's synchronized spans around the call over the window's epochs."""
+
+
+def read(rec):
+    d = rec.spans.durations("rollout")
+    return sum(d) / len(d) if d else None
