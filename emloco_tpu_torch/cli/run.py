@@ -25,7 +25,10 @@ command then runs the loop of the port's tool of the same name (`train`,
 writing into `out_dir`; the training commands also write the JAX CLI's
 `<name>.metrics.jsonl` and `tb/` event files (`utils.logging`).
 `train-policy --profile` runs one epoch, then one more inside a
-`torch.profiler` trace written to `<out_dir>/trace`.
+`torch.profiler` trace written to `<out_dir>/trace`, whose Chrome trace
+shows the program's spans as `emloco:` ranges (`utils.profiling.annotate`:
+`trainer.*`, `policy.*`, `env.*`, `physics.*`) above the operations they
+launched.
 
 `--mesh N` (N > 1) runs `train-policy` over N ranks of the env axis and
 `train-predictor` over N ranks of the batch axis (parallel/mesh.py), as

@@ -61,6 +61,7 @@ from ..physics import (
     step as physics_step,
 )
 from ..struct import TensorStruct
+from ..utils.profiling import annotate
 from . import observations as obs
 from . import traj_gen
 
@@ -637,8 +638,9 @@ class PedestrianTerrainEnv:
         return torch.cat(parts, -1)
 
     def observe(self, state: EnvState):
-        return torch.cat([self._self_obs(state.physics),
-                          self._task_obs(state)], -1)
+        with annotate("env.observe"):
+            return torch.cat([self._self_obs(state.physics),
+                              self._task_obs(state)], -1)
 
     def observe_with_traj(self, state: EnvState, traj_samples):
         """The observation with its trajectory slice rebuilt from the
@@ -719,75 +721,86 @@ class PedestrianTerrainEnv:
     def step(self, state: EnvState, actions: torch.Tensor):
         """actions (N, 69) in [-1, 1] exp-map scale → PD targets → one
         control step, reward, terminations, AMP history, auto-reset."""
-        cfg = self.cfg
-        gen = state.rng
-        if cfg.action_noise_std > 0:
-            actions = actions + cfg.action_noise_std * action_noise_draw(
-                gen, actions.shape, actions.device, self.mesh)
-        a = actions.reshape(-1, bm.NUM_JOINTS, 3)
-        pd_target = a * self.pd_action_scale[None] * self.action_mask[None]
-        physics = physics_step(self._dr_model(state), self.terrain,
-                               state.physics, pd_target, cfg.engine,
-                               self.tree)
-        physics = self._perturb(physics, state.progress, gen)
-        progress = state.progress + 1
+        with annotate("env.step"):
+            cfg = self.cfg
+            gen = state.rng
+            if cfg.action_noise_std > 0:
+                actions = actions + cfg.action_noise_std * action_noise_draw(
+                    gen, actions.shape, actions.device, self.mesh)
+            a = actions.reshape(-1, bm.NUM_JOINTS, 3)
+            pd_target = (a * self.pd_action_scale[None]
+                         * self.action_mask[None])
+            physics = physics_step(self._dr_model(state), self.terrain,
+                                   state.physics, pd_target, cfg.engine,
+                                   self.tree)
+            physics = self._perturb(physics, state.progress, gen)
+            progress = state.progress + 1
 
-        reward, reward_raw = self._reward(state, physics, progress, pd_target)
-        times = progress.float() * cfg.dt
-        tar = traj_gen.calc_pos(state.traj_verts, times, cfg.traj.episode_dur)
-        root_xy = physics.body_x[:, 0, :2]
+            with annotate("env.reward"):
+                reward, reward_raw = self._reward(state, physics, progress,
+                                                  pd_target)
+            with annotate("env.ends"):
+                times = progress.float() * cfg.dt
+                tar = traj_gen.calc_pos(state.traj_verts, times,
+                                        cfg.traj.episode_dur)
+                root_xy = physics.body_x[:, 0, :2]
 
-        pos, _, _, _ = body_frame_state(self.model, physics)
-        contact = torch.linalg.norm(physics.contact_force, dim=-1)
-        allowed = torch.zeros((bm.NUM_BODIES,), dtype=torch.bool,
-                              device=self.device)
-        allowed[self._contact_ids] = True
-        bad_contact = torch.any(contact * (~allowed)[None]
-                                > cfg.contact_force_threshold, -1)
-        ground = height_at(self.terrain, pos[..., :2].reshape(-1, 2))
-        body_h = pos[..., 2] - ground.reshape(pos.shape[0], -1)
-        low = body_h < cfg.termination_height
-        low[:, self._contact_ids] = False
-        has_fallen = bad_contact & torch.any(low, -1) & (progress > 1)
-        tar_fail = torch.sum((tar[:, :2] - root_xy) ** 2, -1) \
-            > cfg.fail_dist ** 2
-        terminated = ((has_fallen | tar_fail) if cfg.enable_early_termination
-                      else torch.zeros_like(has_fallen))
-        terminated = terminated & self._termination_allowed(state)
-        # a numerically diverged env must recycle: NaN fails every check
-        bad = (~torch.isfinite(physics.u).all(-1)
-               | ~torch.isfinite(physics.root_pos).all(-1)
-               | ~torch.isfinite(physics.joint_rot).all(-1).all(-1)
-               | ~torch.isfinite(physics.body_x).all(-1).all(-1)
-               | (torch.abs(physics.root_pos) > 1e4).any(-1))
-        terminated = terminated | bad
-        done = terminated | (progress >= cfg.episode_length - 1)
+                pos, _, _, _ = body_frame_state(self.model, physics)
+                contact = torch.linalg.norm(physics.contact_force, dim=-1)
+                allowed = torch.zeros((bm.NUM_BODIES,), dtype=torch.bool,
+                                      device=self.device)
+                allowed[self._contact_ids] = True
+                bad_contact = torch.any(contact * (~allowed)[None]
+                                        > cfg.contact_force_threshold, -1)
+                ground = height_at(self.terrain, pos[..., :2].reshape(-1, 2))
+                body_h = pos[..., 2] - ground.reshape(pos.shape[0], -1)
+                low = body_h < cfg.termination_height
+                low[:, self._contact_ids] = False
+                has_fallen = bad_contact & torch.any(low, -1) & (progress > 1)
+                tar_fail = torch.sum((tar[:, :2] - root_xy) ** 2, -1) \
+                    > cfg.fail_dist ** 2
+                terminated = ((has_fallen | tar_fail)
+                              if cfg.enable_early_termination
+                              else torch.zeros_like(has_fallen))
+                terminated = terminated & self._termination_allowed(state)
+                # a numerically diverged env must recycle: NaN fails every
+                # check
+                bad = (~torch.isfinite(physics.u).all(-1)
+                       | ~torch.isfinite(physics.root_pos).all(-1)
+                       | ~torch.isfinite(physics.joint_rot).all(-1).all(-1)
+                       | ~torch.isfinite(physics.body_x).all(-1).all(-1)
+                       | (torch.abs(physics.root_pos) > 1e4).any(-1))
+                terminated = terminated | bad
+                done = terminated | (progress >= cfg.episode_length - 1)
 
-        amp = self._amp_obs_single(physics)
-        hist = torch.cat([amp[:, None], state.amp_obs_hist[:, :-1]], dim=1)
-        new_state = state.replace(physics=physics, progress=progress,
-                                  reset_buf=done, terminate_buf=terminated,
-                                  amp_obs_hist=hist,
-                                  dr_clock=state.dr_clock + 1)
-        new_state = self._auto_reset(new_state, done)
-        obs_out = self.observe(new_state)
-        if cfg.obs_noise_std > 0:
-            obs_out = obs_out + cfg.obs_noise_std * obs_noise_draw(
-                gen, obs_out.shape, obs_out.device, self.mesh)
+            amp = self._amp_obs_single(physics)
+            hist = torch.cat([amp[:, None], state.amp_obs_hist[:, :-1]],
+                             dim=1)
+            new_state = state.replace(physics=physics, progress=progress,
+                                      reset_buf=done,
+                                      terminate_buf=terminated,
+                                      amp_obs_hist=hist,
+                                      dr_clock=state.dr_clock + 1)
+            with annotate("env.auto_reset"):
+                new_state = self._auto_reset(new_state, done)
+            obs_out = self.observe(new_state)
+            if cfg.obs_noise_std > 0:
+                obs_out = obs_out + cfg.obs_noise_std * obs_noise_draw(
+                    gen, obs_out.shape, obs_out.device, self.mesh)
 
-        def clean(x):
-            return torch.nan_to_num(x, nan=0.0, posinf=0.0, neginf=0.0)
+            def clean(x):
+                return torch.nan_to_num(x, nan=0.0, posinf=0.0, neginf=0.0)
 
-        out = StepOutput(
-            obs=clean(obs_out),
-            reward=clean(reward),
-            done=done,
-            terminated=terminated,
-            # the pre-reset window: the transition the policy produced
-            amp_obs=clean(hist.reshape(self.num_envs, -1)),
-            reward_raw=clean(reward_raw),
-        )
-        return new_state, out
+            out = StepOutput(
+                obs=clean(obs_out),
+                reward=clean(reward),
+                done=done,
+                terminated=terminated,
+                # the pre-reset window: the transition the policy produced
+                amp_obs=clean(hist.reshape(self.num_envs, -1)),
+                reward_raw=clean(reward_raw),
+            )
+            return new_state, out
 
     def _termination_allowed(self, state: EnvState):
         """(N,) bool: the envs whose early termination counts this step

@@ -56,6 +56,7 @@ from ..envs.pedestrian_terrain import (GROUP_OBS_DIM, EnvConfig, EnvState,
                                        PedestrianTerrainEnv)
 from ..parallel import mesh as pmesh
 from ..struct import TensorStruct
+from ..utils.profiling import annotate
 from .networks import AMPSeptCNNNet, AMPSeptValueNet
 from .running_norm import RunningNorm, moments
 
@@ -295,11 +296,13 @@ class AMPAgent:
     # ------------------------------------------------------------------
 
     def _policy(self, params, obs_norm, obs, gen):
-        o = obs_norm.normalize(obs) if self.cfg.normalize_input else obs
-        mu, sigma = self._apply(params, "actor", o)
-        a = mu + sigma * pmesh.draw_rows(torch.randn, mu.shape, self.mesh,
-                                         generator=gen, device=mu.device)
-        return a, mu, sigma, self._logp(mu, sigma, a), o
+        with annotate("policy.actor"):
+            o = obs_norm.normalize(obs) if self.cfg.normalize_input else obs
+            mu, sigma = self._apply(params, "actor", o)
+            a = mu + sigma * pmesh.draw_rows(torch.randn, mu.shape,
+                                             self.mesh, generator=gen,
+                                             device=mu.device)
+            return a, mu, sigma, self._logp(mu, sigma, a), o
 
     @staticmethod
     def _logp(mu, sigma, a):
@@ -308,49 +311,53 @@ class AMPAgent:
                 - 0.5 * math.log(2 * math.pi)).sum(-1)
 
     def _disc_reward(self, params, amp_norm, amp_obs):
-        logit = self._apply(params, "disc", amp_norm.normalize(amp_obs))
-        prob = torch.sigmoid(logit)
-        return (-torch.log(torch.clamp(1 - prob, min=1e-4))
-                * self.cfg.disc_reward_scale)
+        with annotate("policy.disc_reward"):
+            logit = self._apply(params, "disc", amp_norm.normalize(amp_obs))
+            prob = torch.sigmoid(logit)
+            return (-torch.log(torch.clamp(1 - prob, min=1e-4))
+                    * self.cfg.disc_reward_scale)
 
     @torch.no_grad()
     def rollout(self, ts: TrainState):
         """`horizon` control steps → (ts with the new env state, the (T, N,
         …) batch, the last obs)."""
-        cfg, env = self.cfg, self.env
-        T, N, dev = cfg.horizon, env.num_envs, env.device
-        A = env.cfg.num_actions
+        with annotate("trainer.rollout"):
+            cfg, env = self.cfg, self.env
+            T, N, dev = cfg.horizon, env.num_envs, env.device
+            A = env.cfg.num_actions
 
-        def buf(*shape, dtype=torch.float32):
-            return torch.empty((T, N) + shape, dtype=dtype, device=dev)
+            def buf(*shape, dtype=torch.float32):
+                return torch.empty((T, N) + shape, dtype=dtype, device=dev)
 
-        batch = dict(obs=buf(env.obs_dim), action=buf(A), logp=buf(),
-                     value=buf(), reward=buf(), done=buf(dtype=torch.bool),
-                     terminated=buf(dtype=torch.bool),
-                     amp_obs=buf(self.amp_dim), reward_raw=buf(2))
-        if cfg.motion_sym_loss:
-            batch["flip_obs"] = buf(env.obs_dim)
-        # the first obs is the one learning-facing tensor that does not pass
-        # through StepOutput's sanitizer
-        obs = torch.nan_to_num(env.observe(ts.env_state), nan=0.0,
-                               posinf=0.0, neginf=0.0)
-        env_state = ts.env_state
-        for t in range(T):
+            batch = dict(obs=buf(env.obs_dim), action=buf(A), logp=buf(),
+                         value=buf(), reward=buf(),
+                         done=buf(dtype=torch.bool),
+                         terminated=buf(dtype=torch.bool),
+                         amp_obs=buf(self.amp_dim), reward_raw=buf(2))
             if cfg.motion_sym_loss:
-                batch["flip_obs"][t] = env.observe_flipped_from(obs)
-            a, _, _, logp, o_n = self._policy(ts.params, ts.obs_norm, obs,
-                                              ts.rng)
-            batch["value"][t] = self._apply(ts.params, "critic", o_n)
-            env_state, out = env.step(env_state, a)
-            batch["obs"][t] = obs
-            batch["action"][t] = a
-            batch["logp"][t] = logp
-            for k in ("reward", "done", "terminated", "amp_obs",
-                      "reward_raw"):
-                batch[k][t] = getattr(out, k)
-            obs = out.obs
-        env_state = env.apply_hard_negative_update(env_state)
-        return ts.replace(env_state=env_state), batch, obs
+                batch["flip_obs"] = buf(env.obs_dim)
+            # the first obs is the one learning-facing tensor that does not
+            # pass through StepOutput's sanitizer
+            obs = torch.nan_to_num(env.observe(ts.env_state), nan=0.0,
+                                   posinf=0.0, neginf=0.0)
+            env_state = ts.env_state
+            for t in range(T):
+                if cfg.motion_sym_loss:
+                    batch["flip_obs"][t] = env.observe_flipped_from(obs)
+                a, _, _, logp, o_n = self._policy(ts.params, ts.obs_norm,
+                                                  obs, ts.rng)
+                with annotate("policy.critic"):
+                    batch["value"][t] = self._apply(ts.params, "critic", o_n)
+                env_state, out = env.step(env_state, a)
+                batch["obs"][t] = obs
+                batch["action"][t] = a
+                batch["logp"][t] = logp
+                for k in ("reward", "done", "terminated", "amp_obs",
+                          "reward_raw"):
+                    batch[k][t] = getattr(out, k)
+                obs = out.obs
+            env_state = env.apply_hard_negative_update(env_state)
+            return ts.replace(env_state=env_state), batch, obs
 
     def query_value_gradient(self, ts: TrainState, env_state: EnvState,
                              new_traj):
@@ -406,75 +413,79 @@ class AMPAgent:
         `split` a rank's part of the minibatch under a mesh, where the terms
         are its partial sums (None: all of it, each term the mean of its
         rows)."""
-        cfg = self.cfg
-        if split is None:
-            rows, half = mb["adv"].shape[0], replay_amp.shape[0]
-            split = MinibatchSplit(rollout=half, mb=rows,
-                                   agent=min(half, rows) + half,
-                                   demo=demo_amp.shape[0], param_terms=True)
-        n_roll, pt, den = split.rollout, float(split.param_terms), split
+        with annotate("trainer.loss_and_grads"):
+            cfg = self.cfg
+            if split is None:
+                rows, half = mb["adv"].shape[0], replay_amp.shape[0]
+                split = MinibatchSplit(rollout=half, mb=rows,
+                                       agent=min(half, rows) + half,
+                                       demo=demo_amp.shape[0],
+                                       param_terms=True)
+            n_roll, pt, den = split.rollout, float(split.param_terms), split
 
-        def red(x, n):
-            return x.sum() / n
-        amp_rollout = mb["amp_n"][:n_roll]
-        if masks is not None:
-            # constants w.r.t. the gradient, on the normalized features
-            amp_rollout = amp_rollout * masks[0]
-            replay_amp = replay_amp * masks[1]
-            demo_amp = demo_amp * masks[2]
-        p = {k: v.detach().requires_grad_() for k, v in params.items()}
-        with torch.enable_grad():
-            mu, sigma = self._apply(p, "actor", mb["obs_n"])
-            logp = self._logp(mu, sigma, mb["action"])
-            # exp(±16) keeps a far-moved policy's ratio inside float32
-            ratio = torch.exp(torch.clamp(logp - mb["logp"], -16.0, 16.0))
-            surr1 = ratio * mb["adv"]
-            surr2 = torch.clamp(ratio, 1 - cfg.e_clip,
-                                1 + cfg.e_clip) * mb["adv"]
-            a_loss = -red(torch.minimum(surr1, surr2), den.mb)
+            def red(x, n):
+                return x.sum() / n
+            amp_rollout = mb["amp_n"][:n_roll]
+            if masks is not None:
+                # constants w.r.t. the gradient, on the normalized features
+                amp_rollout = amp_rollout * masks[0]
+                replay_amp = replay_amp * masks[1]
+                demo_amp = demo_amp * masks[2]
+            p = {k: v.detach().requires_grad_() for k, v in params.items()}
+            with torch.enable_grad():
+                mu, sigma = self._apply(p, "actor", mb["obs_n"])
+                logp = self._logp(mu, sigma, mb["action"])
+                # exp(±16) keeps a far-moved policy's ratio inside float32
+                ratio = torch.exp(torch.clamp(logp - mb["logp"], -16.0, 16.0))
+                surr1 = ratio * mb["adv"]
+                surr2 = torch.clamp(ratio, 1 - cfg.e_clip,
+                                    1 + cfg.e_clip) * mb["adv"]
+                a_loss = -red(torch.minimum(surr1, surr2), den.mb)
 
-            v = self._apply(p, "critic", mb["obs_n"])
-            c_loss = 0.5 * red((v - mb["ret_n"]) ** 2, den.mb)
+                v = self._apply(p, "critic", mb["obs_n"])
+                c_loss = 0.5 * red((v - mb["ret_n"]) ** 2, den.mb)
 
-            b_loss = red(torch.sum(
-                torch.clamp(mu - 1.1, min=0) ** 2
-                + torch.clamp(mu + 1.1, max=0) ** 2, -1), den.mb)
+                b_loss = red(torch.sum(
+                    torch.clamp(mu - 1.1, min=0) ** 2
+                    + torch.clamp(mu + 1.1, max=0) ** 2, -1), den.mb)
 
-            # discriminator: agent (rollout ∪ replay, half each) vs demo
-            agent_logit = self._apply(p, "disc", torch.cat([amp_rollout,
-                                                            replay_amp]))
-            demo_in = demo_amp.detach().requires_grad_()
-            demo_logit = self._apply(p, "disc", demo_in)
-            d_loss = 0.5 * (red(F.softplus(agent_logit), den.agent)
-                            + red(F.softplus(-demo_logit), den.demo))
-            logit_reg = torch.sum(p["disc_logits.weight"] ** 2)
-            # R1 penalty: its gradient is itself differentiated
-            grad, = torch.autograd.grad(demo_logit.sum(), demo_in,
-                                        create_graph=True)
-            grad_pen = red(torch.sum(grad ** 2, -1), den.demo)
-            w_decay = sum(torch.sum(w ** 2) for k, w in p.items()
-                          if k.startswith("disc_mlp.")
-                          and k.endswith(".weight")) + logit_reg
-            disc_total = (d_loss + cfg.disc_logit_reg * logit_reg * pt
-                          + cfg.disc_grad_penalty * grad_pen
-                          + cfg.disc_weight_decay * w_decay * pt)
+                # discriminator: agent (rollout ∪ replay, half each) vs demo
+                agent_logit = self._apply(p, "disc", torch.cat([amp_rollout,
+                                                                replay_amp]))
+                demo_in = demo_amp.detach().requires_grad_()
+                demo_logit = self._apply(p, "disc", demo_in)
+                d_loss = 0.5 * (red(F.softplus(agent_logit), den.agent)
+                                + red(F.softplus(-demo_logit), den.demo))
+                logit_reg = torch.sum(p["disc_logits.weight"] ** 2)
+                # R1 penalty: its gradient is itself differentiated
+                grad, = torch.autograd.grad(demo_logit.sum(), demo_in,
+                                            create_graph=True)
+                grad_pen = red(torch.sum(grad ** 2, -1), den.demo)
+                w_decay = sum(torch.sum(w ** 2) for k, w in p.items()
+                              if k.startswith("disc_mlp.")
+                              and k.endswith(".weight")) + logit_reg
+                disc_total = (d_loss + cfg.disc_logit_reg * logit_reg * pt
+                              + cfg.disc_grad_penalty * grad_pen
+                              + cfg.disc_weight_decay * w_decay * pt)
 
-            tv = self._apply(p, "task_value", mb["obs_n"])
-            tv_loss = red((tv - mb["ret_01"]) ** 2, den.mb)
+                tv = self._apply(p, "task_value", mb["obs_n"])
+                tv_loss = red((tv - mb["ret_01"]) ** 2, den.mb)
 
-            total = (cfg.actor_coef * a_loss + cfg.critic_coef * c_loss
-                     + cfg.bounds_coef * b_loss + cfg.disc_coef * disc_total
-                     + cfg.tv_coef * tv_loss)
-            if cfg.motion_sym_loss:
-                mu_f, _ = self._apply(p, "actor", mb["flip_obs_n"])
-                sym = red(torch.sum(
-                    (mu - obs_mod.flip_actions(mu_f)) ** 2, -1), den.mb)
-                total = total + cfg.sym_coef * sym
-            grads = torch.autograd.grad(total, list(p.values()))
-        terms = dict(a_loss=a_loss, c_loss=c_loss, b_loss=b_loss,
-                     d_loss=d_loss, grad_pen=grad_pen, tv_loss=tv_loss)
-        return (total.detach(), {k: v.detach() for k, v in terms.items()},
-                dict(zip(p, grads)))
+                total = (cfg.actor_coef * a_loss
+                         + cfg.critic_coef * c_loss
+                         + cfg.bounds_coef * b_loss
+                         + cfg.disc_coef * disc_total
+                         + cfg.tv_coef * tv_loss)
+                if cfg.motion_sym_loss:
+                    mu_f, _ = self._apply(p, "actor", mb["flip_obs_n"])
+                    sym = red(torch.sum(
+                        (mu - obs_mod.flip_actions(mu_f)) ** 2, -1), den.mb)
+                    total = total + cfg.sym_coef * sym
+                grads = torch.autograd.grad(total, list(p.values()))
+            terms = dict(a_loss=a_loss, c_loss=c_loss, b_loss=b_loss,
+                         d_loss=d_loss, grad_pen=grad_pen, tv_loss=tv_loss)
+            return (total.detach(), {k: v.detach() for k, v in terms.items()},
+                    dict(zip(p, grads)))
 
     def _apply_grads(self, params, opt_state: AdamState, grads):
         """One optimizer step on the gradients summed over the mesh's ranks
@@ -482,19 +493,20 @@ class AMPAgent:
         (parameters, moments and count) where any gradient is nonfinite: the
         select runs on the device, with no host sync. Returns (params,
         opt_state, finite)."""
-        grads = pmesh.all_reduce_dict(grads, self.mesh)
-        finite = torch.stack([torch.isfinite(g).all()
-                              for g in grads.values()]).all()
-        new_params, new_opt = self.tx.update(grads, opt_state, params)
+        with annotate("trainer.optimizer"):
+            grads = pmesh.all_reduce_dict(grads, self.mesh)
+            finite = torch.stack([torch.isfinite(g).all()
+                                  for g in grads.values()]).all()
+            new_params, new_opt = self.tx.update(grads, opt_state, params)
 
-        def keep(new, old):
-            return {k: torch.where(finite, new[k], old[k]) for k in old}
+            def keep(new, old):
+                return {k: torch.where(finite, new[k], old[k]) for k in old}
 
-        opt_state = AdamState(
-            count=torch.where(finite, new_opt.count, opt_state.count),
-            mu=keep(new_opt.mu, opt_state.mu),
-            nu=keep(new_opt.nu, opt_state.nu))
-        return keep(new_params, params), opt_state, finite
+            opt_state = AdamState(
+                count=torch.where(finite, new_opt.count, opt_state.count),
+                mu=keep(new_opt.mu, opt_state.mu),
+                nu=keep(new_opt.nu, opt_state.nu))
+            return keep(new_params, params), opt_state, finite
 
     def _update_minibatch(self, params, opt_state, mb, demo_amp, replay_amp,
                           masks, split: MinibatchSplit | None = None):
@@ -524,88 +536,89 @@ class AMPAgent:
     def prepare(self, ts: TrainState, batch, last_obs):
         """GAE, the norms, the replay ring and the demo windows → (ts, the
         update's pools)."""
-        cfg, mesh = self.cfg, self.mesh
-        T, N, dev = cfg.horizon, self.env.num_envs, self.env.device
-        gen = ts.rng
-        advs, returns, comb_reward, disc_r = self.compute_gae(ts, batch,
-                                                              last_obs)
+        with annotate("trainer.prepare"):
+            cfg, mesh = self.cfg, self.mesh
+            T, N, dev = cfg.horizon, self.env.num_envs, self.env.device
+            gen = ts.rng
+            advs, returns, comb_reward, disc_r = self.compute_gae(ts, batch,
+                                                                  last_obs)
 
-        def flat(x):
-            return x.reshape((-1,) + x.shape[2:])
+            def flat(x):
+                return x.reshape((-1,) + x.shape[2:])
 
-        obs_f, amp_f, ret_f = (flat(batch["obs"]), flat(batch["amp_obs"]),
-                               flat(returns))
-        if cfg.normalize_input:
-            ts = ts.replace(obs_norm=ts.obs_norm.update(obs_f, mesh))
-        ts = ts.replace(amp_norm=ts.amp_norm.update(amp_f, mesh))
-        if cfg.normalize_value:
-            ts = ts.replace(value_norm=ts.value_norm.update(ret_f[:, None],
-                                                            mesh))
-            ret_n = ts.value_norm.normalize(ret_f[:, None], clip=1e6)[:, 0]
-        else:
-            ret_n = ret_f
-        adv_f = flat(advs)
-        if cfg.normalize_advantage:
-            # over every rank's rows, population std
-            _, a_mean, a_var = moments(adv_f[:, None], mesh)
-            adv_f = (adv_f - a_mean[0]) / (torch.sqrt(a_var[0]) + 1e-8)
-        # returns mapped to [0, 1] for the task-value head
-        ret01 = torch.clamp((ret_f - cfg.min_cum_reward)
-                            / (cfg.max_cum_reward - cfg.min_cum_reward),
-                            0, 1)
+            obs_f, amp_f, ret_f = (flat(batch["obs"]), flat(batch["amp_obs"]),
+                                   flat(returns))
+            if cfg.normalize_input:
+                ts = ts.replace(obs_norm=ts.obs_norm.update(obs_f, mesh))
+            ts = ts.replace(amp_norm=ts.amp_norm.update(amp_f, mesh))
+            if cfg.normalize_value:
+                ts = ts.replace(value_norm=ts.value_norm.update(ret_f[:, None],
+                                                                mesh))
+                ret_n = ts.value_norm.normalize(ret_f[:, None], clip=1e6)[:, 0]
+            else:
+                ret_n = ret_f
+            adv_f = flat(advs)
+            if cfg.normalize_advantage:
+                # over every rank's rows, population std
+                _, a_mean, a_var = moments(adv_f[:, None], mesh)
+                adv_f = (adv_f - a_mean[0]) / (torch.sqrt(a_var[0]) + 1e-8)
+            # returns mapped to [0, 1] for the task-value head
+            ret01 = torch.clamp((ret_f - cfg.min_cum_reward)
+                                / (cfg.max_cum_reward - cfg.min_cum_reward),
+                                0, 1)
 
-        # replay ring (replicated): every rank's rows; when the rollout
-        # exceeds the ring, a random subset
-        R = cfg.amp_replay_size
-        amp_all = flat(self._all_envs(batch["amp_obs"]))
-        n_all = amp_all.shape[0]
-        n_new = min(n_all, R)
-        rows = (amp_all[torch.randperm(n_all, generator=gen,
-                                       device=dev)[:n_new]]
-                if n_all > R else amp_all)
-        idx = (ts.replay_ptr + torch.arange(n_new, device=dev)) % R
-        ts.replay_amp.index_copy_(0, idx, rows)
-        ts = ts.replace(replay_ptr=(ts.replay_ptr + n_new) % R,
-                        replay_filled=min(ts.replay_filled + n_new, R))
-        del amp_all, rows
-        # the replay half of the discriminator's agent batch (the ring
-        # holds this rollout already, so it is never empty here) and the
-        # demo windows under the live hard-negative weights, as the resets:
-        # drawn whole, each minibatch's block split over the ranks by index
-        half = max(1, cfg.amp_batch_size // 2)
-        nmb = cfg.num_minibatches
-        ridx = torch.randint(0, ts.replay_filled, (nmb * half,),
-                             generator=gen, device=dev)
-        replay_rows = ts.replay_amp[self._part(ridx.reshape(nmb, half))]
-        mids, t0 = self.env.sample_amp_demo(
-            gen, nmb * cfg.amp_batch_size,
-            motion_weights=ts.env_state.motion_weights)
-        mids, t0 = (self._part(x.reshape(nmb, cfg.amp_batch_size))
-                    .reshape(-1) for x in (mids, t0))
-        demo_raw = self.env.amp_obs_demo(mids, t0)
+            # replay ring (replicated): every rank's rows; when the rollout
+            # exceeds the ring, a random subset
+            R = cfg.amp_replay_size
+            amp_all = flat(self._all_envs(batch["amp_obs"]))
+            n_all = amp_all.shape[0]
+            n_new = min(n_all, R)
+            rows = (amp_all[torch.randperm(n_all, generator=gen,
+                                           device=dev)[:n_new]]
+                    if n_all > R else amp_all)
+            idx = (ts.replay_ptr + torch.arange(n_new, device=dev)) % R
+            ts.replay_amp.index_copy_(0, idx, rows)
+            ts = ts.replace(replay_ptr=(ts.replay_ptr + n_new) % R,
+                            replay_filled=min(ts.replay_filled + n_new, R))
+            del amp_all, rows
+            # the replay half of the discriminator's agent batch (the ring
+            # holds this rollout already, so it is never empty here) and the
+            # demo windows under the live hard-negative weights, as the resets:
+            # drawn whole, each minibatch's block split over the ranks by index
+            half = max(1, cfg.amp_batch_size // 2)
+            nmb = cfg.num_minibatches
+            ridx = torch.randint(0, ts.replay_filled, (nmb * half,),
+                                 generator=gen, device=dev)
+            replay_rows = ts.replay_amp[self._part(ridx.reshape(nmb, half))]
+            mids, t0 = self.env.sample_amp_demo(
+                gen, nmb * cfg.amp_batch_size,
+                motion_weights=ts.env_state.motion_weights)
+            mids, t0 = (self._part(x.reshape(nmb, cfg.amp_batch_size))
+                        .reshape(-1) for x in (mids, t0))
+            demo_raw = self.env.amp_obs_demo(mids, t0)
 
-        def norm_obs(x):
-            return ts.obs_norm.normalize(x) if cfg.normalize_input else x
+            def norm_obs(x):
+                return ts.obs_norm.normalize(x) if cfg.normalize_input else x
 
-        data = dict(obs_n=norm_obs(obs_f), action=flat(batch["action"]),
-                    logp=flat(batch["logp"]), adv=adv_f, ret_n=ret_n,
-                    ret_01=ret01, amp_n=ts.amp_norm.normalize(amp_f))
-        if cfg.motion_sym_loss:
-            data["flip_obs_n"] = norm_obs(flat(batch["flip_obs"]))
-        pools = dict(
-            data=data,
-            demo=ts.amp_norm.normalize(demo_raw).reshape(nmb, -1,
-                                                         demo_raw.shape[-1]),
-            replay=ts.amp_norm.normalize(replay_rows),
-            half=half,
-            stats=pmesh.pmean_metrics(dict(
-                task_reward=batch["reward"].mean(),
-                disc_reward=disc_r.mean(),
-                combined_reward=comb_reward.mean(),
-                episode_done_frac=batch["done"].float().mean(),
-                loc_reward=batch["reward_raw"][..., 0].mean(),
-                power_reward=batch["reward_raw"][..., 1].mean()), mesh))
-        return ts, pools
+            data = dict(obs_n=norm_obs(obs_f), action=flat(batch["action"]),
+                        logp=flat(batch["logp"]), adv=adv_f, ret_n=ret_n,
+                        ret_01=ret01, amp_n=ts.amp_norm.normalize(amp_f))
+            if cfg.motion_sym_loss:
+                data["flip_obs_n"] = norm_obs(flat(batch["flip_obs"]))
+            pools = dict(
+                data=data,
+                demo=ts.amp_norm.normalize(demo_raw).reshape(
+                    nmb, -1, demo_raw.shape[-1]),
+                replay=ts.amp_norm.normalize(replay_rows),
+                half=half,
+                stats=pmesh.pmean_metrics(dict(
+                    task_reward=batch["reward"].mean(),
+                    disc_reward=disc_r.mean(),
+                    combined_reward=comb_reward.mean(),
+                    episode_done_frac=batch["done"].float().mean(),
+                    loc_reward=batch["reward_raw"][..., 0].mean(),
+                    power_reward=batch["reward_raw"][..., 1].mean()), mesh))
+            return ts, pools
 
     def _part(self, x):
         """This rank's columns of (blocks, rows) split by index; all of
@@ -646,39 +659,42 @@ class AMPAgent:
         mb_size = n // cfg.num_minibatches
         mask_rows = (min(half, mb_size), half, cfg.amp_batch_size)
         for _ in range(cfg.mini_epochs):
-            perm = torch.randperm(n, generator=gen, device=dev)
-            if split_on:
-                # the mini-epoch's rows of this rank and its rollout rows'
-                # positions, every minibatch's in one host read and one
-                # upload
-                perm_h = perm.cpu().numpy()
-                parts = [self._rank_rows(perm_h[i * mb_size:(i + 1) * mb_size],
-                                         mb_size, half)
-                         for i in range(cfg.num_minibatches)]
-                idx = torch.as_tensor(np.concatenate(
-                    [a for loc, pos, sp in parts
-                     for a in (loc, pos[:sp.rollout])]), device=dev)
-                idx = idx.split([len(a) for loc, pos, sp in parts
-                                 for a in (loc, pos[:sp.rollout])])
-            for i in range(cfg.num_minibatches):
-                sel = perm[i * mb_size:(i + 1) * mb_size]
-                split = None
+            with annotate("trainer.minibatch_draw"):
+                perm = torch.randperm(n, generator=gen, device=dev)
                 if split_on:
-                    sel, roll, split = idx[2 * i], idx[2 * i + 1], parts[i][2]
-                mb = {k: v[sel] for k, v in data.items()}
-                demo, replay = pools["demo"][i], pools["replay"][i]
-                masks = None
-                if cfg.amp_dropout:
-                    us = [obs_mod.amp_dropout_draw(gen, r, dev)
-                          for r in mask_rows]
+                    # the mini-epoch's rows of this rank and its rollout
+                    # rows' positions, every minibatch's in one host read
+                    # and one upload
+                    perm_h = perm.cpu().numpy()
+                    parts = [self._rank_rows(
+                        perm_h[i * mb_size:(i + 1) * mb_size], mb_size, half)
+                        for i in range(cfg.num_minibatches)]
+                    idx = torch.as_tensor(np.concatenate(
+                        [a for loc, pos, sp in parts
+                         for a in (loc, pos[:sp.rollout])]), device=dev)
+                    idx = idx.split([len(a) for loc, pos, sp in parts
+                                     for a in (loc, pos[:sp.rollout])])
+            for i in range(cfg.num_minibatches):
+                with annotate("trainer.minibatch_draw"):
+                    sel = perm[i * mb_size:(i + 1) * mb_size]
+                    split = None
                     if split_on:
-                        us = [us[0][roll], us[1][mesh.part(half)],
-                              us[2][mesh.part(cfg.amp_batch_size)]]
-                    masks = tuple(
-                        obs_mod.amp_dropout_mask(
-                            u, ecfg.num_amp_obs_steps, ecfg.amp_obs_per_step,
-                            cfg.amp_dropout_rate)
-                        for u in us)
+                        sel, roll = idx[2 * i], idx[2 * i + 1]
+                        split = parts[i][2]
+                    mb = {k: v[sel] for k, v in data.items()}
+                    demo, replay = pools["demo"][i], pools["replay"][i]
+                    masks = None
+                    if cfg.amp_dropout:
+                        us = [obs_mod.amp_dropout_draw(gen, r, dev)
+                              for r in mask_rows]
+                        if split_on:
+                            us = [us[0][roll], us[1][mesh.part(half)],
+                                  us[2][mesh.part(cfg.amp_batch_size)]]
+                        masks = tuple(
+                            obs_mod.amp_dropout_mask(
+                                u, ecfg.num_amp_obs_steps,
+                                ecfg.amp_obs_per_step, cfg.amp_dropout_rate)
+                            for u in us)
                 yield mb, demo, replay, masks, split
 
     def update(self, ts: TrainState, pools):
@@ -686,20 +702,21 @@ class AMPAgent:
         mean over every (mini-epoch, minibatch) pair (under a mesh, the sum
         of the ranks' partial terms), with the rollout's reward and done
         means."""
-        params, opt_state = ts.params, ts.opt_state
-        sums, count = {}, 0
-        for mb, demo, replay, masks, split in self.minibatches(pools,
-                                                               ts.rng):
-            params, opt_state, m = self._update_minibatch(
-                params, opt_state, mb, demo, replay, masks, split)
-            sums = {k: sums.get(k, 0.0) + v for k, v in m.items()}
-            count += 1
-        metrics = {k: v / count for k, v in sums.items()}
-        terms = {k: v for k, v in metrics.items() if k != "nonfinite_grad"}
-        metrics.update(pmesh.all_reduce_dict(terms, self.mesh))
-        metrics.update(pools["stats"])
-        return ts.replace(params=params, opt_state=opt_state,
-                          epoch=ts.epoch + 1), metrics
+        with annotate("trainer.update"):
+            params, opt_state = ts.params, ts.opt_state
+            sums, count = {}, 0
+            for mb, demo, replay, masks, split in self.minibatches(pools,
+                                                                   ts.rng):
+                params, opt_state, m = self._update_minibatch(
+                    params, opt_state, mb, demo, replay, masks, split)
+                sums = {k: sums.get(k, 0.0) + v for k, v in m.items()}
+                count += 1
+            metrics = {k: v / count for k, v in sums.items()}
+            terms = {k: v for k, v in metrics.items() if k != "nonfinite_grad"}
+            metrics.update(pmesh.all_reduce_dict(terms, self.mesh))
+            metrics.update(pools["stats"])
+            return ts.replace(params=params, opt_state=opt_state,
+                              epoch=ts.epoch + 1), metrics
 
     def update_getup_reward_schedule(self, ts: TrainState, epoch: int,
                                      update_epoch: int) -> TrainState:

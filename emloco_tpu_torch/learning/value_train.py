@@ -34,6 +34,7 @@ import torch
 from torch.func import functional_call
 
 from ..struct import TensorStruct
+from ..utils.profiling import annotate
 from .amp_agent import AdamState, AMPAgent, TrainState, adam_directions
 from .networks import ValuePoseNet
 
@@ -180,40 +181,45 @@ class LocoValTrainer:
         and (read-only) evaluation → (ts, samples): each episode's
         pre-step LocoVal inputs `wp`, `pose`, `vel`, the step's `target`,
         `valid` (latched) and `inv` (inverted), flattened to (T·N, …)."""
-        cfg, agent, env = self.cfg, self.agent, self.env
-        acfg = agent.cfg
-        pol = ts.policy
-        T, N = cfg.horizon, env.cfg.num_envs
-        W = self.vnet.num_waypoints
-        env_state = pol.env_state
+        with annotate("locoval.collect"):
+            cfg, agent, env = self.cfg, self.agent, self.env
+            acfg = agent.cfg
+            pol = ts.policy
+            T, N = cfg.horizon, env.cfg.num_envs
+            W = self.vnet.num_waypoints
+            env_state = pol.env_state
 
-        def buf(*shape):
-            return torch.empty((T, N) + tuple(shape), device=env.device)
+            def buf(*shape):
+                return torch.empty((T, N) + tuple(shape), device=env.device)
 
-        s = dict(wp=buf(W, 2), pose=buf(*env_state.init_pose.shape[1:]),
-                 vel=buf(2), target=buf(), valid=buf(), inv=buf())
-        cum, factor = ts.cum_reward, ts.disc_factor
-        already = ts.already_latched
-        for t in range(T):
-            obs = env.observe(env_state)
-            a = agent._policy(pol.params, pol.obs_norm, obs, ts.rng)[0]
-            # the episode's LocoVal inputs, before the step may reset it
-            s["wp"][t] = env_state.waypoint_traj[:, :W]
-            s["pose"][t] = env_state.init_pose
-            s["vel"][t] = env_state.init_vel
-            s["inv"][t] = env_state.inverted
-            progress, inverted = env_state.progress, env_state.inverted
-            env_state, out = env.step(env_state, a)
-            disc_r = agent._disc_reward(pol.params, pol.amp_norm,
-                                        out.amp_obs)
-            r = acfg.task_reward_w * out.reward + acfg.disc_reward_w * disc_r
-            cum, factor, already, s["target"][t], s["valid"][t] = latch_step(
-                cfg, cum, factor, already, r, out.done, progress, inverted)
-        samples = {k: v.reshape((T * N,) + v.shape[2:]) for k, v in s.items()}
-        ts = ts.replace(policy=pol.replace(env_state=env_state),
-                        cum_reward=cum, disc_factor=factor,
-                        already_latched=already)
-        return ts, samples
+            s = dict(wp=buf(W, 2), pose=buf(*env_state.init_pose.shape[1:]),
+                     vel=buf(2), target=buf(), valid=buf(), inv=buf())
+            cum, factor = ts.cum_reward, ts.disc_factor
+            already = ts.already_latched
+            for t in range(T):
+                obs = env.observe(env_state)
+                a = agent._policy(pol.params, pol.obs_norm, obs, ts.rng)[0]
+                # the episode's LocoVal inputs, before the step may reset it
+                s["wp"][t] = env_state.waypoint_traj[:, :W]
+                s["pose"][t] = env_state.init_pose
+                s["vel"][t] = env_state.init_vel
+                s["inv"][t] = env_state.inverted
+                progress, inverted = env_state.progress, env_state.inverted
+                env_state, out = env.step(env_state, a)
+                disc_r = agent._disc_reward(pol.params, pol.amp_norm,
+                                            out.amp_obs)
+                with annotate("locoval.latch"):
+                    r = (acfg.task_reward_w * out.reward
+                         + acfg.disc_reward_w * disc_r)
+                    (cum, factor, already, s["target"][t],
+                     s["valid"][t]) = latch_step(cfg, cum, factor, already, r,
+                                                 out.done, progress, inverted)
+            samples = {k: v.reshape((T * N,) + v.shape[2:])
+                       for k, v in s.items()}
+            ts = ts.replace(policy=pol.replace(env_state=env_state),
+                            cum_reward=cum, disc_factor=factor,
+                            already_latched=already)
+            return ts, samples
 
     def _loss_and_grads(self, params: dict, s: dict):
         """Masked MSE of the valuenet's predictions against the latched
@@ -229,21 +235,22 @@ class LocoValTrainer:
     def update(self, ts: ValueTrainState, s: dict):
         """One AdamW step on the epoch's samples → (ts, metrics as 0-d
         device tensors)."""
-        loss, grads = self._loss_and_grads(ts.vnet_params, s)
-        params, opt = self.tx.update(grads, ts.vnet_opt, ts.vnet_params)
-        target, valid, inv = s["target"], s["valid"], s["inv"]
-        n = valid.sum()
-        per = torch.clamp(n, min=1.0)
-        metrics = dict(
-            vnet_loss=loss, num_latched=n,
-            mean_target=(target * valid).sum() / per,
-            # hard-negative visibility: the share of latched episodes that
-            # were heading-inverted, and their mean target
-            inverted_frac=(inv * valid).sum() / per,
-            inverted_target=(target * valid * inv).sum()
-            / torch.clamp((valid * inv).sum(), min=1.0))
-        return ts.replace(vnet_params=params, vnet_opt=opt,
-                          epoch=ts.epoch + 1), metrics
+        with annotate("locoval.update"):
+            loss, grads = self._loss_and_grads(ts.vnet_params, s)
+            params, opt = self.tx.update(grads, ts.vnet_opt, ts.vnet_params)
+            target, valid, inv = s["target"], s["valid"], s["inv"]
+            n = valid.sum()
+            per = torch.clamp(n, min=1.0)
+            metrics = dict(
+                vnet_loss=loss, num_latched=n,
+                mean_target=(target * valid).sum() / per,
+                # hard-negative visibility: the share of latched episodes
+                # that were heading-inverted, and their mean target
+                inverted_frac=(inv * valid).sum() / per,
+                inverted_target=(target * valid * inv).sum()
+                / torch.clamp((valid * inv).sum(), min=1.0))
+            return ts.replace(vnet_params=params, vnet_opt=opt,
+                              epoch=ts.epoch + 1), metrics
 
     def train_epoch(self, ts: ValueTrainState):
         """_collect → update; returns (ts, metrics)."""

@@ -50,6 +50,7 @@ from ..kinematics import body_model as bm
 from ..kinematics.skeleton import forward_kinematics
 from ..ops import quat
 from ..struct import TensorStruct
+from ..utils.profiling import annotate
 from .linalg import (arrow_pattern, cholesky_factor_blocked,
                      cholesky_factor_blocked_t,
                      cholesky_resolve_blocked, cholesky_resolve_blocked_t,
@@ -1149,14 +1150,15 @@ def step(model: Model, terrain: Heightfield, state: PhysicsState,
     implicit substeps, as the JAX engine's `_step` dispatches."""
     if tree is None:
         tree = default_tree()
-    target_q = quat.exp_map_to_quat(pd_target)
-    with _full_f32_matmul():
-        if cfg.tgs_step and cfg.n_substeps > 1:
-            return _tgs_step(model, terrain, state, target_q, cfg, tree)
-        for _ in range(cfg.n_substeps):
-            state = _implicit_substep(model, terrain, state, target_q, cfg,
-                                      tree)
-        return state
+    with annotate("physics.step"):
+        target_q = quat.exp_map_to_quat(pd_target)
+        with _full_f32_matmul():
+            if cfg.tgs_step and cfg.n_substeps > 1:
+                return _tgs_step(model, terrain, state, target_q, cfg, tree)
+            for _ in range(cfg.n_substeps):
+                state = _implicit_substep(model, terrain, state, target_q,
+                                          cfg, tree)
+            return state
 
 
 @contextlib.contextmanager
@@ -1195,67 +1197,79 @@ def _tgs_step(model: Model, terrain, state: PhysicsState, target_q,
     bm = _batch_major(cfg)
 
     st = state
-    (G, W, ground, Jn_a_all, nrm, active, d_t, pen_f, diag, h0, radius, pts0,
-     body, selfrows, self_pts0, table) = _contact_and_jacobians(
-         model, terrain, st, cfg)
+    with annotate("physics.contacts"):
+        (G, W, ground, Jn_a_all, nrm, active, d_t, pen_f, diag, h0, radius,
+         pts0, body, selfrows, self_pts0, table) = _contact_and_jacobians(
+             model, terrain, st, cfg)
     ng = radius.shape[1]          # ground rows (capsule or mesh table)
-    f_lin, Q_rest = _gravity_bias_spring(model, st.body_x, st.body_q,
-                                         st.body_v, st.body_w, st.u,
-                                         target_q, gvec)
-    Q_rest = Q_rest + _q_contact_merged(k_n * pen_f[:, :ng], nrm[:, :ng],
-                                        k_n * pen_f, Jn_a_all)
-    At, rhs_t = _assemble_lhs_rhs(model, G, W, st.body_q, st.body_v,
-                                  st.body_w, f_lin, dt, Q_rest, diag, ground,
-                                  selfrows, table, batch_major=bm,
-                                  gram=cfg.gram_kernel,
-                                  sqrt_gram=_sqrt_gram_ok(cfg))
-    At = _shift(At, bm)
+    with annotate("physics.assemble"):
+        f_lin, Q_rest = _gravity_bias_spring(model, st.body_x, st.body_q,
+                                             st.body_v, st.body_w, st.u,
+                                             target_q, gvec)
+        Q_rest = Q_rest + _q_contact_merged(k_n * pen_f[:, :ng],
+                                            nrm[:, :ng], k_n * pen_f,
+                                            Jn_a_all)
+        At, rhs_t = _assemble_lhs_rhs(model, G, W, st.body_q, st.body_v,
+                                      st.body_w, f_lin, dt, Q_rest, diag,
+                                      ground, selfrows, table,
+                                      batch_major=bm, gram=cfg.gram_kernel,
+                                      sqrt_gram=_sqrt_gram_ok(cfg))
+        At = _shift(At, bm)
     if not _arrow_exact(cfg):
         # the dense solve of the whole LHS, refactored each substep (the
         # dense kernel fuses factor and solve): the same A, the same L
         def resolve(rhs):
             return cholesky_solve_soa_t(At, rhs).T
     elif bm:
-        L = cholesky_factor_blocked(At, *arrow)
+        with annotate("physics.factor"):
+            L = cholesky_factor_blocked(At, *arrow)
 
         def resolve(rhs):
             return cholesky_resolve_blocked(L, rhs, *arrow)
     else:
-        L = cholesky_factor_blocked_t(At, *arrow)
+        with annotate("physics.factor"):
+            L = cholesky_factor_blocked_t(At, *arrow)
 
         def resolve(rhs):
             return cholesky_resolve_blocked_t(L, rhs, *arrow).T
 
     onehot = _readback_onehot(cfg, st.u.device)
-    u_new = _velocity_clamp(resolve(rhs_t), cfg)
-    st = _integrate_pose(model, st, u_new, dt, tree)
-    st = st.replace(contact_force=_readback_contact(
-        st, pts0, body, self_pts0, nrm, active, d_t, k_n, pen_f, dt, d_n,
-        onehot))
+    with annotate("physics.solve"):
+        u_new = _velocity_clamp(resolve(rhs_t), cfg)
+    with annotate("physics.integrate"):
+        st = _integrate_pose(model, st, u_new, dt, tree)
+        st = st.replace(contact_force=_readback_contact(
+            st, pts0, body, self_pts0, nrm, active, d_t, k_n, pen_f, dt, d_n,
+            onehot))
 
     for _ in range(cfg.n_substeps - 1):
-        pts, _, _ = _ground_geometry(model, st.body_x, st.body_q, cfg)
-        pen = (h0 + radius - pts[..., 2]) * nrm[:, :ng, 2]
-        self_pts = None
-        if cfg.self_contact:
-            cA, cB, _, pen_s = _self_contact_geometry(model, st.body_x,
-                                                      st.body_q)
-            pen = torch.cat([pen, pen_s], dim=1)
-            self_pts = (cA, cB)
-        act = (pen > 0.0).to(pen.dtype)
-        pf = act * torch.clamp(pen, max=cfg.max_depenetration)
-        f_l, Q_r = _gravity_bias_spring(model, st.body_x, st.body_q,
-                                        st.body_v, st.body_w, st.u,
-                                        target_q, gvec)
-        Q_r = Q_r + _q_contact_merged(k_n * pf[:, :ng], nrm[:, :ng],
-                                      k_n * pf, Jn_a_all)
-        rhs = _assemble_rhs_merged(model, G, W, st.body_q, st.body_v,
-                                   st.body_w, f_l, dt, Q_r, batch_major=bm)
-        u2 = _velocity_clamp(resolve(rhs), cfg)
-        st2 = _integrate_pose(model, st, u2, dt, tree)
-        st = st2.replace(contact_force=_readback_contact(
-            st2, pts, body, self_pts, nrm, act, d_t, k_n, pf, dt, d_n,
-            onehot))
+        with annotate("physics.contacts"):
+            pts, _, _ = _ground_geometry(model, st.body_x, st.body_q, cfg)
+            pen = (h0 + radius - pts[..., 2]) * nrm[:, :ng, 2]
+            self_pts = None
+            if cfg.self_contact:
+                cA, cB, _, pen_s = _self_contact_geometry(model, st.body_x,
+                                                          st.body_q)
+                pen = torch.cat([pen, pen_s], dim=1)
+                self_pts = (cA, cB)
+            act = (pen > 0.0).to(pen.dtype)
+            pf = act * torch.clamp(pen, max=cfg.max_depenetration)
+        with annotate("physics.assemble"):
+            f_l, Q_r = _gravity_bias_spring(model, st.body_x, st.body_q,
+                                            st.body_v, st.body_w, st.u,
+                                            target_q, gvec)
+            Q_r = Q_r + _q_contact_merged(k_n * pf[:, :ng], nrm[:, :ng],
+                                          k_n * pf, Jn_a_all)
+            rhs = _assemble_rhs_merged(model, G, W, st.body_q, st.body_v,
+                                       st.body_w, f_l, dt, Q_r,
+                                       batch_major=bm)
+        with annotate("physics.solve"):
+            u2 = _velocity_clamp(resolve(rhs), cfg)
+        with annotate("physics.integrate"):
+            st2 = _integrate_pose(model, st, u2, dt, tree)
+            st = st2.replace(contact_force=_readback_contact(
+                st2, pts, body, self_pts, nrm, act, d_t, k_n, pf, dt, d_n,
+                onehot))
     return st
 
 
@@ -1294,29 +1308,34 @@ def _implicit_substep(model: Model, terrain, state: PhysicsState, target_q,
     bm = _batch_major(cfg)
 
     st = state
-    (G, W, ground, Jn_a_all, nrm, active, d_t, pen_f, diag, _, radius, pts,
-     body, selfrows, self_pts, table) = _contact_and_jacobians(
-         model, terrain, st, cfg, speculative=False)
+    with annotate("physics.contacts"):
+        (G, W, ground, Jn_a_all, nrm, active, d_t, pen_f, diag, _, radius,
+         pts, body, selfrows, self_pts, table) = _contact_and_jacobians(
+             model, terrain, st, cfg, speculative=False)
     ng = radius.shape[1]
-    f_lin, Q_rest = _gravity_bias_spring(model, st.body_x, st.body_q,
-                                         st.body_v, st.body_w, st.u,
-                                         target_q, gvec)
-    Q_rest = Q_rest + _q_contact_merged(k_n * pen_f[:, :ng], nrm[:, :ng],
-                                        k_n * pen_f, Jn_a_all)
-    At, rhs_t = _assemble_lhs_rhs(model, G, W, st.body_q, st.body_v,
-                                  st.body_w, f_lin, dt, Q_rest, diag, ground,
-                                  selfrows, table, batch_major=bm,
-                                  gram=cfg.gram_kernel,
-                                  sqrt_gram=_sqrt_gram_ok(cfg))
-    At = _shift(At, bm)
-    if bm:
-        u_new = cholesky_solve_blocked(At, rhs_t, *arrow)
-    elif cfg.blocked_solver and _arrow_exact(cfg):
-        u_new = cholesky_solve_blocked_t(At, rhs_t, *arrow).T
-    else:
-        u_new = cholesky_solve_soa_t(At, rhs_t).T
-    u_new = _velocity_clamp(u_new, cfg)
-    st2 = _integrate_pose(model, st, u_new, dt, tree)
-    return st2.replace(contact_force=_readback_contact(
-        st2, pts, body, self_pts, nrm, active, d_t, k_n, pen_f, dt, d_n,
-        _readback_onehot(cfg, st.u.device)))
+    with annotate("physics.assemble"):
+        f_lin, Q_rest = _gravity_bias_spring(model, st.body_x, st.body_q,
+                                             st.body_v, st.body_w, st.u,
+                                             target_q, gvec)
+        Q_rest = Q_rest + _q_contact_merged(k_n * pen_f[:, :ng],
+                                            nrm[:, :ng], k_n * pen_f,
+                                            Jn_a_all)
+        At, rhs_t = _assemble_lhs_rhs(model, G, W, st.body_q, st.body_v,
+                                      st.body_w, f_lin, dt, Q_rest, diag,
+                                      ground, selfrows, table,
+                                      batch_major=bm, gram=cfg.gram_kernel,
+                                      sqrt_gram=_sqrt_gram_ok(cfg))
+        At = _shift(At, bm)
+    with annotate("physics.solve"):
+        if bm:
+            u_new = cholesky_solve_blocked(At, rhs_t, *arrow)
+        elif cfg.blocked_solver and _arrow_exact(cfg):
+            u_new = cholesky_solve_blocked_t(At, rhs_t, *arrow).T
+        else:
+            u_new = cholesky_solve_soa_t(At, rhs_t).T
+        u_new = _velocity_clamp(u_new, cfg)
+    with annotate("physics.integrate"):
+        st2 = _integrate_pose(model, st, u_new, dt, tree)
+        return st2.replace(contact_force=_readback_contact(
+            st2, pts, body, self_pts, nrm, active, d_t, k_n, pen_f, dt, d_n,
+            _readback_onehot(cfg, st.u.device)))

@@ -49,6 +49,7 @@ from ..learning.networks import ValuePoseNet
 from ..parallel import mesh as pmesh
 from ..struct import TensorStruct
 from ..utils.checkpoint import load_pickle
+from ..utils.profiling import annotate
 from . import data as data_mod
 from . import metrics as M
 from .lstm import LSTMPredictor
@@ -213,27 +214,31 @@ class PredictorTrainer:
         `mesh` the batch is this rank's block, the losses its mean, and the
         gradient that of its share (1/R) of the whole batch's loss."""
         cfg = self.cfg
-        obs, init_pose = self._inputs(ts, obs, init_pose, draws, mesh)
         p = {k: v.detach().requires_grad_() for k, v in ts.params.items()}
         with torch.enable_grad():
-            out = self._apply(p, obs, mask, train=True, gen=ts.rng,
-                              draws=None if draws is None else draws.masks,
-                              mesh=mesh)
-            pred = out[:, data_mod.OBS_FRAMES:]              # (B,Fp,M,2)
-            if self.mcfg.multi_modal:
-                traj_loss = M.mse_loss_multi(pred, gt_future)
-            else:
-                traj_loss = M.mse_loss(pred[:, :, 0], gt_future)
+            with annotate("predictor.forward"):
+                obs, init_pose = self._inputs(ts, obs, init_pose, draws,
+                                              mesh)
+                out = self._apply(
+                    p, obs, mask, train=True, gen=ts.rng,
+                    draws=None if draws is None else draws.masks, mesh=mesh)
+                pred = out[:, data_mod.OBS_FRAMES:]          # (B,Fp,M,2)
+                if self.mcfg.multi_modal:
+                    traj_loss = M.mse_loss_multi(pred, gt_future)
+                else:
+                    traj_loss = M.mse_loss(pred[:, :, 0], gt_future)
             total = traj_loss
             vloss = torch.zeros((), device=obs.device)
             if self.vnet is not None and (cfg.use_value_loss
                                           or cfg.valueloss_only):
-                vloss = self._value_loss(ts.vnet_params, pred, init_pose,
-                                         init_vel)
+                with annotate("predictor.value_loss"):
+                    vloss = self._value_loss(ts.vnet_params, pred, init_pose,
+                                             init_vel)
                 total = cfg.valueloss_weight * vloss + (
                     0.0 if cfg.valueloss_only else traj_loss)
             share = total if mesh is None else total / mesh.size
-            grads = torch.autograd.grad(share, list(p.values()))
+            with annotate("predictor.backward"):
+                grads = torch.autograd.grad(share, list(p.values()))
         aux = dict(traj_loss=traj_loss.detach(), value_loss=vloss.detach())
         return total.detach(), aux, dict(zip(p, grads))
 
@@ -244,14 +249,18 @@ class PredictorTrainer:
         value_loss, total} as 0-d device tensors). Under a `mesh` the batch
         is this rank's block; the gradients are summed over the ranks before
         the clip and the losses averaged."""
-        b = self.tensors((obs, mask, gt_future, init_pose, init_vel))
-        total, aux, grads = self.loss_and_grads(ts, *b, draws=draws,
-                                                mesh=mesh)
-        grads = pmesh.all_reduce_dict(grads, mesh)
-        params, opt = self.tx.update(grads, ts.opt_state, ts.params)
-        aux["total"] = total
-        return ts.replace(params=params, opt_state=opt,
-                          step=ts.step + 1), pmesh.pmean_metrics(aux, mesh)
+        with annotate("predictor.step"):
+            with annotate("predictor.upload"):
+                b = self.tensors((obs, mask, gt_future, init_pose, init_vel))
+            total, aux, grads = self.loss_and_grads(ts, *b, draws=draws,
+                                                    mesh=mesh)
+            with annotate("predictor.optimizer"):
+                grads = pmesh.all_reduce_dict(grads, mesh)
+                params, opt = self.tx.update(grads, ts.opt_state, ts.params)
+            aux["total"] = total
+            return (ts.replace(params=params, opt_state=opt,
+                               step=ts.step + 1),
+                    pmesh.pmean_metrics(aux, mesh))
 
     @torch.no_grad()
     def predict(self, params, obs, mask, limit_obs: int = 0):

@@ -4,9 +4,6 @@ emloco_tpu/utils/logging.py).
 `MetricsLogger` writes the JAX package's `<name>.metrics.jsonl` rows (the
 metrics as floats, `step` and `wall_s`), the same scalars to an event file
 under `<out_dir>/tb` (`utils.tracking.TBWriter`) and the same stderr line.
-`SegmentTimer` sums wall-clock segments (play/update style); given a CUDA
-device it synchronizes the device before each reading of the clock, so a
-segment holds the device work queued inside it.
 """
 from __future__ import annotations
 
@@ -15,8 +12,6 @@ import os
 import sys
 import time
 from typing import Optional
-
-import torch
 
 
 class MetricsLogger:
@@ -68,25 +63,3 @@ def print_json(obj):
     sys.stdout.write(json.dumps(obj) + "\n")
     sys.stdout.flush()
 
-
-class SegmentTimer:
-    """play_time/update_time style segment timing; on a CUDA `device` each
-    start and stop first waits for the device."""
-
-    def __init__(self, device=None):
-        self.device = None if device is None else torch.device(device)
-        self.totals = {}
-        self._start = {}
-
-    def _now(self) -> float:
-        if self.device is not None and self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        return time.perf_counter()
-
-    def start(self, name):
-        self._start[name] = self._now()
-
-    def stop(self, name):
-        dt = self._now() - self._start.pop(name)
-        self.totals[name] = self.totals.get(name, 0.0) + dt
-        return dt

@@ -26,6 +26,8 @@ KEY = ("a jax.random key; the port draws from a torch.Generator or a seed "
 PALLAS = ("a Pallas tiling or interpret-mode option; physics/pallas_linalg.py"
           " → physics/linalg.py + csrc/ (ROADMAP.md §C, surface)")
 SETUP = "flax's setup is nn.Module.__init__ (ROADMAP.md §C, surface)"
+TRACING = ("the port's tracing is `utils.profiling.annotate`; no reader "
+           "(utils/profiling.py)")
 
 # (JAX file, item) → reason. Items: `name`, `Class.member`, `name(param)`,
 # `Class.method(param)`.
@@ -108,6 +110,8 @@ DESIGN = {
     ("prediction/train.py", "PredictorTrainer.init(key)"): KEY,
     ("prediction/train.py", "PredictorTrainer.fit(log_every)"):
         "accepted and never read by the JAX trainer (ROADMAP.md §C, surface)",
+    ("utils/logging.py", "SegmentTimer"): TRACING,
+    ("utils/profiling.py", "device_timer"): TRACING,
 }
 
 JAX_FILES = sorted(str(p.relative_to(JAX)) for p in JAX.rglob("*.py"))
