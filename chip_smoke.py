@@ -62,7 +62,8 @@ Phases, each printed as one JSON line with its elapsed seconds:
                 `train_epoch`, then one timed epoch run part by part
                 (rollout, prepare: GAE + norms + replay + demos, update) with
                 a synchronize after each and the launch counts read around
-                it (factor 32, resolve 64, every other kernel 0); every
+                it (factor 32, resolve 64, every other kernel 0; the
+                optimizer's kernel one step a minibatch, 120); every
                 metric and parameter finite, no nonfinite gradient, the
                 parameters moved, the replay ring filled by both epochs, the
                 discriminator reward below its cap; then one more control
@@ -73,12 +74,16 @@ Phases, each printed as one JSON line with its elapsed seconds:
  12. train_reference — the timed epoch's first minibatch (2,560 rows, its
                 demo and replay blocks and dropout masks, the parameters and
                 optimizer state before the update) through one update on
-                the card and on the CPU: every loss term within 1e-4 of its
-                magnitude, each gradient leaf within 1e-4 of its largest
-                |g|, the card's step within 1e-3 × lr of the CPU
+                the card and on the CPU, in float64: every loss term within
+                1e-4 of its magnitude, each gradient leaf within 1e-4 of its
+                largest |g|, the card's step within 1e-3 × lr of the CPU
                 optimizer's step on the card's gradients, and each update
                 within 1e-3 × lr of the CPU's where the gradient stands
-                clear of its tolerance (tests/test_torch_train.py)
+                clear of its tolerance (tests/test_torch_train.py); in
+                float32 its loss terms within 1e-4 and its gradients and
+                updates printed beside the ReLU decisions the devices take
+                the other way (float32 gradients part at such kinks, as in
+                21)
  13. value    — the LocoVal epoch at the bench's training configuration
                 (rollout.build_value_bench: 1,600 envs, the synthetic
                 real-path bank with half the real paths heading-inverted,
@@ -229,7 +234,8 @@ Phases, each printed as one JSON line with its elapsed seconds:
                 ValuePoseNet; losses finite, parameters moved, the LocoVal
                 parameters bit-equal, the value loss nonzero and its
                 gradient at the heads nonzero; steps/s and ms a step; none
-                of the engine's kernels launched (as in 31-33)
+                of the engine's kernels launched (as in 31-33); the
+                optimizer's kernel one step a step
  31. predictor_reference — one train step at full width, dropout on, the
                 draws made on the CPU, on the card and on the CPU from the
                 same state and batch: in float64 with train_reference's
@@ -374,6 +380,21 @@ Phases, each printed as one JSON line with its elapsed seconds:
                 and env 4,095's bodies against those of the same betas
                 built on the CPU: the same layout, numbers within 1e-4;
                 the phase's seconds on a line of its own
+ 49. clip_adam — the optimizer's kernel (`learning/fused_adam.py`,
+                csrc/clip_adam.cu) against its plain version on the card
+                at the leaves of the bench's training network (29) and of
+                configs/jta_predictor.yaml's TransMotion (162), from count
+                5: bit-equal where the clip does not engage (constant and
+                decayed rate, guard on and off); where it does, the plain
+                step at a norm within NORM_ULP ulp of the plain version's
+                own, bit for bit; two runs bit-equal; a planted NaN under
+                the guard giving back the old state and count bit for bit;
+                one count in fused_adam.LAUNCHES a step; its device ms
+                (launches queued behind a sleep) and each pass's under
+                torch.profiler, its host ms a step, the plain version's ms
+                and, as a yardstick only, torch.optim.Adam(fused=True) on
+                the same leaves (no clip), with the bytes bound (7 x 4
+                bytes a parameter)
 Then the kernels' summary line and, last, the device line. Any failed check
 raises and the script exits non-zero. Without a CUDA device it exits 2 and
 runs nothing.
@@ -551,6 +572,12 @@ STEP_RTOL = 2.0 ** -8
 PROBE_TOL = 2.0 ** -13
 # solver_kernels' outputs that must be bit-equal to their plain versions
 BIT_EQUAL = ("solve", "resolve_bm", "solve_soa")
+# The optimizer's kernel where the clip engages: its norm sums in float64 in
+# another order than the plain version's float32 sums; its step must be the
+# plain version's at a norm within NORM_ULP ulp of the plain version's own,
+# bit for bit (tests/test_torch_fused_adam.py's NORM_ULP).
+NORM_ULP = 16
+CLIP_ADAM_SEED = 24
 # the probe's variants, in the order of scripts/gram_kernel_probe.py
 PROBE_VARIANTS = ("einsum_envlast", "einsum_bm", "kernel_at_b", "kernel_dual",
                   "kernel_dual_batched8", "kernel_dual_batched32",
@@ -1233,6 +1260,7 @@ def train(card):
     it. Returns the agent, the timed epoch's first update's inputs and the
     launch counts."""
     import torch
+    from emloco_tpu_torch.learning import fused_adam
     from emloco_tpu_torch.physics import linalg
     from emloco_tpu_torch.rollout import build_train_bench
     t = time.time()
@@ -1246,6 +1274,7 @@ def train(card):
     warm_s = time.time() - t
 
     linalg.reset_launch_counts()
+    fused_adam.reset_launch_counts()
     t0 = time.time()
     ts, batch, last_obs = agent.rollout(ts)
     torch.cuda.synchronize()
@@ -1258,6 +1287,7 @@ def train(card):
     metrics = {k: v.item() for k, v in metrics.items()}
     t3 = time.time()
     launches = dict(linalg.LAUNCHES)
+    fused = fused_adam.LAUNCHES["clip_adam"]
     steps = agent.cfg.horizon * TRAIN_ENVS
     finite = (all(math.isfinite(v) for v in metrics.values())
               and all(bool(torch.isfinite(v).all())
@@ -1269,7 +1299,7 @@ def train(card):
          rollout_seconds=t1 - t0, prepare_seconds=t2 - t1,
          update_seconds=t3 - t2, epoch_seconds=t3 - t0,
          env_steps_per_s=steps / (t3 - t0), card=card, launches=launches,
-         metrics=metrics, replay_filled=ts.replay_filled, finite=finite,
+         fused_optimizer_steps=fused, metrics=metrics, replay_filled=ts.replay_filled, finite=finite,
          params_moved=moved, solver_kernels_on_train_inputs=solver,
          max_memory_gb=torch.cuda.max_memory_allocated() / 2 ** 30)
     want = dict.fromkeys(launches, 0)
@@ -1278,6 +1308,10 @@ def train(card):
                      agent.cfg.horizon * agent.env.cfg.engine.n_substeps})
     if launches != want:
         raise SystemExit(f"train: launch counts {launches}, expected {want}")
+    want_fused = agent.cfg.mini_epochs * agent.cfg.num_minibatches
+    if fused != want_fused:
+        raise SystemExit(f"train: {fused} fused optimizer steps, expected "
+                         f"{want_fused}")
     n_resolve = agent.env.cfg.engine.n_substeps
     if not (solver["finite"] and solver["factor_bit_equal"]
             and len(solver["resolve_bit_equal"]) == n_resolve
@@ -1364,6 +1398,61 @@ def train_reference(agent, inputs, phase="train_reference", dtype=None,
             and all(worst[k] <= tol[k] for k in gated)):
         raise SystemExit(f"{phase}: the card's update disagrees "
                          f"with the CPU's: {worst}")
+
+
+def relu_flips(agent, inputs):
+    """Card against CPU, float32, through the update's loss on its inputs
+    (train_reference's): for each layer a ReLU follows (the `*_mlp`
+    stacks), the decisions the two devices take the other way (a
+    pre-activation's sign) and those within 1e-6 of the layer's largest
+    |pre-activation| on the CPU."""
+    import torch
+    params, _, mb, demo, replay, masks = inputs
+    layers = {n: m for n, m in agent.net.named_modules()
+              if "_mlp." in n and isinstance(m, torch.nn.Linear)}
+
+    def trace(dev):
+        rec = {n: [] for n in layers}
+        hooks = [m.register_forward_hook(
+            lambda mod, args, out, n=n: rec[n].append(out.detach().cpu()))
+            for n, m in layers.items()]
+        try:
+            agent._loss_and_grads(
+                {k: v.to(dev) for k, v in params.items()},
+                {k: v.to(dev) for k, v in mb.items()}, demo.to(dev),
+                replay.to(dev),
+                None if masks is None else tuple(m.to(dev) for m in masks))
+        finally:
+            for h in hooks:
+                h.remove()
+        return rec
+
+    card, cpu = trace("cuda"), trace("cpu")
+    out = {}
+    for name, zs in cpu.items():
+        if zs:
+            eps = 1e-6 * max(z.abs().max().item() for z in zs)
+            out[name] = dict(
+                flips=sum(int(((a > 0) != (z > 0)).sum())
+                          for a, z in zip(card[name], zs)),
+                within_1e6=sum(int((z.abs() < eps).sum()) for z in zs))
+    return out
+
+
+def main_reference(agent, first):
+    """The main path's update on the card against the CPU: in float64 with
+    every tolerance of train_reference, then in float32 with its loss terms
+    held and its gradients and updates printed beside the count of ReLU
+    decisions that the two devices take the other way. A pre-activation
+    within rounding of zero on a few of the 2,560 rows flips its unit's
+    decision, and that row's whole contribution moves the unit's gradient:
+    either side is right, as in crowd_reference; float64 rounding meets
+    none."""
+    import torch
+    train_reference(agent, first, dtype=torch.float64)
+    train_reference(agent, first, gated=("loss_rel",))
+    emit("train_reference",
+         float32_relu_flips_card_vs_cpu=relu_flips(agent, first))
 
 
 def value(card):
@@ -2430,6 +2519,7 @@ def predictor_train(card, trainer, vp, scenes):
     Returns the state after the epoch and one more batch."""
     import torch
     from torch.func import functional_call
+    from emloco_tpu_torch.learning import fused_adam
     from emloco_tpu_torch.physics import linalg
     from emloco_tpu_torch.prediction.data import OBS_FRAMES
     mcfg = trainer.mcfg
@@ -2442,6 +2532,7 @@ def predictor_train(card, trainer, vp, scenes):
     ts, _ = trainer.train_step(ts, *batches[0])         # warm-up
     torch.cuda.synchronize()
     linalg.reset_launch_counts()
+    fused_adam.reset_launch_counts()
     t = time.time()
     aux = []
     for b in batches[1:PRED_STEPS + 1]:
@@ -2450,6 +2541,7 @@ def predictor_train(card, trainer, vp, scenes):
     torch.cuda.synchronize()
     dt = time.time() - t
     launches = dict(linalg.LAUNCHES)
+    fused = fused_adam.LAUNCHES["clip_adam"]
     aux = {k: [a[k].item() for a in aux] for k in aux[0]}
     finite = all(math.isfinite(v) for vals in aux.values() for v in vals)
     moved = any(not torch.equal(ts.params[k], p0[k]) for k in p0)
@@ -2478,8 +2570,11 @@ def predictor_train(card, trainer, vp, scenes):
          total=aux["total"], finite=finite, params_moved=moved,
          locoval_bit_equal=frozen, value_loss_alone=vloss.item(),
          heads_grad_max_abs=heads_grad, launches=launches,
-         max_memory_gb=torch.cuda.max_memory_allocated() / 2 ** 30)
+         fused_optimizer_steps=fused, max_memory_gb=torch.cuda.max_memory_allocated() / 2 ** 30)
     zero_launches("predictor_train", launches)
+    if fused != PRED_STEPS:
+        raise SystemExit(f"predictor_train: {fused} fused optimizer steps, "
+                         f"expected {PRED_STEPS}")
     if not (finite and moved and frozen and min(aux["value_loss"]) > 0
             and vloss.item() > 0 and heads_grad > 0):
         raise SystemExit(
@@ -4339,6 +4434,153 @@ def obs_options(card):
     return launches
 
 
+def device_ms(fn, iters):
+    """Device ms a call with the calls queued behind a sleep, so that they
+    run back to back however slow the host is."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(200_000_000)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def norm_ulp(out, args):
+    """The optimizer kernel's step `out` on `args` (clip_adam's) is the plain
+    version's on the gradients clipped at a norm within 2 ulp of the norm
+    summed in float64: that norm's distance in ulp from the plain version's
+    own (None where no such norm gives `out` bit for bit)."""
+    import torch
+    from emloco_tpu_torch.learning import fused_adam as fa
+    grads, params, count, mu, nu, max_norm, lr, decay, guard = args
+    dtype = next(iter(grads.values())).dtype
+    plain = torch.sqrt(sum((g * g).sum() for g in grads.values()))
+    exact = torch.sqrt(sum((g * g).double().sum()
+                           for g in grads.values()).to(dtype))
+    far = torch.full_like(exact, math.inf)
+    cands, up, down = [exact], exact, exact
+    for _ in range(2):
+        up, down = torch.nextafter(up, far), torch.nextafter(down, -far)
+        cands += [up, down]
+    for c in cands:
+        at_c = {k: torch.where(c < max_norm, g, g / c * max_norm)
+                for k, g in grads.items()}
+        ref = fa.clip_adam_plain(at_c, params, count, mu, nu, math.inf, lr,
+                                 decay, guard)
+        if all(tree_equal(a, b) for a, b in
+               zip((out[0], out[2], out[3]), (ref[0], ref[2], ref[3]))):
+            return ((c - plain).abs() / (torch.nextafter(plain, far)
+                                         - plain)).item()
+    return None
+
+
+def clip_adam_phase(card):
+    """49. The optimizer's kernel against its plain version, and its
+    times, at the training network's and TransMotion's leaves."""
+    import torch
+    from emloco_tpu_torch.learning import fused_adam as fa
+    from emloco_tpu_torch.prediction.presets import configs
+    from emloco_tpu_torch.prediction.train import PredictorTrainer
+    from emloco_tpu_torch.rollout import build_train_bench
+    dev = torch.device("cuda")
+    agent, ts = build_train_bench(16, dev)
+    mcfg, pcfg = configs("jta")
+    trainer = PredictorTrainer(mcfg, pcfg, device=dev)
+    nets = {"agent": (ts.params, agent.tx),
+            "predictor": (trainer.init(0).params, trainer.tx)}
+    del agent, ts
+    for name, (params, tx) in nets.items():
+        gen = torch.Generator(device=dev).manual_seed(CLIP_ADAM_SEED)
+        n = sum(v.numel() for v in params.values())
+
+        def draw(scale):
+            return {k: torch.randn(v.shape, generator=gen, device=dev)
+                    * scale for k, v in params.items()}
+
+        mu, nu = draw(1e-3), {k: v.abs() for k, v in draw(1e-4).items()}
+        count = torch.tensor(5, dtype=torch.int32, device=dev)
+        decayed = (2, 0.5)
+        checks = {}
+        fa.reset_launch_counts()
+        calls = 0
+        for label, norm, decay, guard in (
+                ("unclipped", 0.5, None, False),
+                ("unclipped_guard", 0.5, None, True),
+                ("unclipped_decay", 0.5, decayed, False),
+                ("clipped", 30.0, decayed, True)):
+            grads = draw(norm * tx.max_norm / math.sqrt(n))
+            args = (grads, params, count, mu, nu, tx.max_norm, tx.lr, decay,
+                    guard)
+            k = fa.clip_adam(*args)
+            again = fa.clip_adam(*args)
+            calls += 2
+            p = fa.clip_adam_plain(*args)
+            bit = (torch.equal(k[1], p[1]) and torch.equal(k[4], p[4])
+                   and all(tree_equal(a, b) for a, b in
+                           zip((k[0], k[2], k[3]), (p[0], p[2], p[3]))))
+            checks[label] = dict(
+                bit_equal=bit,
+                norm_ulp=0.0 if bit else norm_ulp(k, args),
+                deterministic=all(tree_equal(a, b) for a, b in zip(
+                    (k[0], k[2], k[3]), (again[0], again[2], again[3]))))
+        grads[next(iter(grads))].view(-1)[0] = float("nan")
+        k = fa.clip_adam(grads, params, count, mu, nu, tx.max_norm, tx.lr,
+                         decayed, True)
+        calls += 1
+        checks["nan_guard"] = dict(
+            kept=(tree_equal(k[0], params) and tree_equal(k[2], mu)
+                  and tree_equal(k[3], nu) and torch.equal(k[1], count)
+                  and not bool(k[4])))
+        launches = fa.LAUNCHES["clip_adam"]
+        grads = draw(0.5 * tx.max_norm / math.sqrt(n))
+        args = (grads, params, count, mu, nu, tx.max_norm, tx.lr, decayed,
+                True)
+        ms = device_ms(lambda: fa.clip_adam(*args), 20)
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                fa.clip_adam(*args)
+            torch.cuda.synchronize()
+        pass_us = {name: e.device_time_total / e.count
+                   for e in prof.key_averages()
+                   for name in ("clip_adam_norm", "clip_adam_step")
+                   if name in e.key}
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(20):
+            fa.clip_adam(*args)
+        host_ms = (time.perf_counter() - t) / 20 * 1e3
+        torch.cuda.synchronize()
+        plain_ms = time_ms(lambda: fa.clip_adam_plain(*args), 3)
+        leaves = [v.clone() for v in params.values()]
+        for leaf, g in zip(leaves, grads.values()):
+            leaf.grad = g
+        adam = torch.optim.Adam(leaves, lr=tx.lr, fused=True)
+        library_ms = device_ms(adam.step, 20)
+        nbytes = 7 * 4 * n
+        bound_ms = nbytes / HBM_BYTES_S * 1e3
+        emit("clip_adam", card=card, net=name, leaves=len(params),
+             params=n, checks=checks, launches=launches, calls=calls, ms=ms,
+             pass_us=pass_us, host_ms=host_ms, plain_ms=plain_ms,
+             library_ms=library_ms, bytes=nbytes, bound_ms=bound_ms,
+             bound_share=bound_ms / ms)
+        bad = [c for c, v in checks.items()
+               if not (v.get("kept", True) and v.get("deterministic", True)
+                       and (v.get("bit_equal", True) or c == "clipped")
+                       and v.get("norm_ulp", 0.0) is not None
+                       and v.get("norm_ulp", 0.0) <= NORM_ULP)]
+        if bad or launches != calls:
+            raise SystemExit(f"clip_adam on {name}: checks {bad} failed, or "
+                             f"{launches} fused steps counted for {calls}: "
+                             f"{checks}")
+
+
 def main():
     import numpy as np
     import torch
@@ -4567,7 +4809,7 @@ def main():
     agent, first_update, by_path["train"] = train(card)
 
     # 12. one update on the card against the CPU -----------------------------
-    train_reference(agent, first_update)
+    main_reference(agent, first_update)
     del agent, first_update
 
     # 13. the LocoVal epoch -------------------------------------------------
@@ -4679,6 +4921,9 @@ def main():
 
     # 48. the observation options, MJCF export and the env's betas= -------
     by_path["obs_options"] = obs_options(card)
+
+    # 49. the optimizer's kernel -------------------------------------------
+    clip_adam_phase(card)
 
     # summary ---------------------------------------------------------------
     kernels = []

@@ -22,7 +22,7 @@ _ROOT = os.path.dirname(_PKG)
 _CSRC = os.path.join(_PKG, "csrc")
 SOURCES = tuple(os.path.join(_CSRC, f) for f in (
     "block_arrow_cholesky.cu", "block_arrow_solve.cu", "dense_cholesky.cu",
-    "to_env_last.cu", "gram_diag.cu", "gram_dual.cu"))
+    "to_env_last.cu", "gram_diag.cu", "gram_dual.cu", "clip_adam.cu"))
 HEADERS = tuple(os.path.join(_CSRC, f) for f in (
     "block_arrow.cuh", "async_copy.cuh"))
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -33,6 +33,8 @@ LIB_NAME = "libemloco_kernels.so"
 
 _VP = ctypes.c_void_p
 _INT = ctypes.c_int
+_I64 = ctypes.c_longlong
+_F64 = ctypes.c_double
 _SIGNATURES = {
     "emloco_block_arrow_factor":
         [_VP, _VP, _INT, _INT, _VP, _INT, _VP, _INT, _VP],
@@ -53,6 +55,9 @@ _SIGNATURES = {
     "emloco_gram_dual": [_VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT, _VP],
     "emloco_gram_dual_batched":
         [_VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT, _VP],
+    "emloco_clip_adam": [_INT, _INT, _VP, _VP, _VP, _I64, _VP, _VP, _F64,
+                         _F64, _INT, _F64, _INT, _VP, _VP],
+    "emloco_clip_adam_shape": [_VP],
 }
 
 _loaded = {}

@@ -29,7 +29,7 @@ Parameters are a dict of tensors under the network's state_dict names; the
 heads run through `torch.func.functional_call`, so an update is a pure
 function of its inputs on whatever device they lie. The optimizer is optax's
 `chain(clip_by_global_norm(grad_norm), adam(lr))` written out on tensors
-(`ClipAdam`).
+(`ClipAdam`), one kernel over every leaf on the card (`fused_adam`).
 
 Random streams: `jax.random` cannot be reproduced in torch. The agent draws
 every number from the one torch.Generator in `TrainState.rng`, in this
@@ -57,6 +57,7 @@ from ..envs.pedestrian_terrain import (GROUP_OBS_DIM, EnvConfig, EnvState,
 from ..parallel import mesh as pmesh
 from ..struct import TensorStruct
 from ..utils.profiling import annotate
+from . import fused_adam
 from .networks import AMPSeptCNNNet, AMPSeptValueNet
 from .running_norm import RunningNorm, moments
 
@@ -168,8 +169,9 @@ def adam_directions(grads: dict, state: AdamState):
 @dataclasses.dataclass(frozen=True)
 class ClipAdam:
     """optax.chain(clip_by_global_norm(max_norm), adam(lr)) on dicts of
-    tensors. The clip scales by max_norm / norm only when norm ≥ max_norm
-    (no 1e-6, unlike clip_grad_norm_); then `adam_directions`."""
+    tensors, one `fused_adam.clip_adam` step (the kernel on the card, per-leaf
+    ops on the CPU). The clip scales by max_norm / norm only when
+    norm ≥ max_norm (no 1e-6, unlike clip_grad_norm_)."""
 
     max_norm: float
     lr: float
@@ -178,15 +180,25 @@ class ClipAdam:
         return AdamState.zeros_like(params)
 
     def clip(self, grads: dict) -> dict:
-        norm = torch.sqrt(sum((g * g).sum() for g in grads.values()))
-        keep = norm < self.max_norm
-        return {k: torch.where(keep, g, g / norm * self.max_norm)
-                for k, g in grads.items()}
+        return fused_adam.clip(grads, self.max_norm)
+
+    def schedule(self):
+        """(transition_steps, decay) of the rate's staircase decay, or None
+        for the constant rate lr."""
+        return None
+
+    def step(self, grads: dict, state: AdamState, params: dict,
+             guard: bool = False):
+        """(new params, new state, finite) after one step on `grads`; with
+        `guard` a nonfinite gradient drops the whole step."""
+        p, count, mu, nu, finite = fused_adam.clip_adam(
+            grads, params, state.count, state.mu, state.nu, self.max_norm,
+            self.lr, self.schedule(), guard)
+        return p, AdamState(count=count, mu=mu, nu=nu), finite
 
     def update(self, grads: dict, state: AdamState, params: dict):
         """(new params, new state) after one step on `grads`."""
-        state, u = adam_directions(self.clip(grads), state)
-        return {k: params[k] + u[k] * -self.lr for k in u}, state
+        return self.step(grads, state, params)[:2]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -490,23 +502,12 @@ class AMPAgent:
     def _apply_grads(self, params, opt_state: AdamState, grads):
         """One optimizer step on the gradients summed over the mesh's ranks
         (so the clip sees the whole minibatch's norm), dropped whole
-        (parameters, moments and count) where any gradient is nonfinite: the
-        select runs on the device, with no host sync. Returns (params,
-        opt_state, finite)."""
+        (parameters, moments and count) where any gradient is nonfinite,
+        on the device with no host sync (`ClipAdam.step` with its guard).
+        Returns (params, opt_state, finite)."""
         with annotate("trainer.optimizer"):
             grads = pmesh.all_reduce_dict(grads, self.mesh)
-            finite = torch.stack([torch.isfinite(g).all()
-                                  for g in grads.values()]).all()
-            new_params, new_opt = self.tx.update(grads, opt_state, params)
-
-            def keep(new, old):
-                return {k: torch.where(finite, new[k], old[k]) for k in old}
-
-            opt_state = AdamState(
-                count=torch.where(finite, new_opt.count, opt_state.count),
-                mu=keep(new_opt.mu, opt_state.mu),
-                nu=keep(new_opt.nu, opt_state.nu))
-            return keep(new_params, params), opt_state, finite
+            return self.tx.step(grads, opt_state, params, guard=True)
 
     def _update_minibatch(self, params, opt_state, mb, demo_amp, replay_amp,
                           masks, split: MinibatchSplit | None = None):

@@ -44,7 +44,8 @@ from torch.func import functional_call
 
 from .. import convert
 from .. import device as _device
-from ..learning.amp_agent import AdamState, ClipAdam, adam_directions
+from ..learning.amp_agent import AdamState, ClipAdam
+from ..learning.fused_adam import exponential_decay
 from ..learning.networks import ValuePoseNet
 from ..parallel import mesh as pmesh
 from ..struct import TensorStruct
@@ -92,20 +93,11 @@ class TrainDraws:
     masks: Optional[list] = None
 
 
-def exponential_decay(count: torch.Tensor, lr: float, transition_steps: int,
-                      decay: float) -> torch.Tensor:
-    """optax.exponential_decay(lr, transition_steps, decay,
-    staircase=True) at the int32 step `count`, in float32."""
-    p = torch.floor(count.float() / transition_steps)
-    return lr * torch.pow(torch.tensor(decay, device=count.device), p)
-
-
 @dataclasses.dataclass(frozen=True)
 class ClipAdamDecay(ClipAdam):
     """optax.chain(clip_by_global_norm(max_norm), adam(exponential_decay(
     lr, transition_steps, decay, staircase=True))) on dicts of tensors:
-    ClipAdam's clip, `adam_directions`, times −lr_t at the count before the
-    step."""
+    ClipAdam's step at the rate −lr_t of the count before the step."""
 
     transition_steps: int = 1
     decay: float = 1.0
@@ -114,11 +106,8 @@ class ClipAdamDecay(ClipAdam):
         return exponential_decay(count, self.lr, self.transition_steps,
                                  self.decay)
 
-    def update(self, grads: dict, state: AdamState, params: dict):
-        """(new params, new state) after one step on `grads`."""
-        step = -self.learning_rate(state.count)
-        state, u = adam_directions(self.clip(grads), state)
-        return {k: params[k] + u[k] * step for k in u}, state
+    def schedule(self):
+        return self.transition_steps, self.decay
 
 
 def traj_noise_draw(gen: torch.Generator, shape, device,
