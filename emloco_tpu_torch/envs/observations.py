@@ -9,7 +9,10 @@ stamped in, the left/right mirror of the body state, the self observation,
 the sensor grid and the actions (the motion-symmetry loss), and the AMP
 dropout mask. The self, AMP, location and crowd observations take the
 optional root-height slot and the non-upright asset's base rotation
-(remove_base_rot) as the JAX functions do.
+(remove_base_rot) as the JAX functions do. The crowd observation and the
+velocity-map sensor are the program's spans `env.group_obs` and
+`env.velocity_map` (utils/profiling.annotate), and count their calls and
+rows on the host (`CROWD_COUNTS`).
 """
 from __future__ import annotations
 
@@ -19,6 +22,7 @@ import torch
 from ..kinematics import body_model as bm
 from ..ops import quat
 from ..physics.terrain import Heightfield, height_at_min2_xy
+from ..utils.profiling import annotate
 
 _REMOVE = {"L_Hand", "R_Hand", "L_Toe", "R_Toe"}
 DOF_SUBSET_JOINTS = np.array(
@@ -247,6 +251,22 @@ def heightmap_obs(terrain: Heightfield, sensor_pos, sensor_rot, center_xy,
 
 GROUP_JOINTS = np.array([0, 1, 5, 9, 3, 7, 16, 21, 18, 23])
 
+# calls and rows of the crowd observation (`group_obs`) and of the
+# velocity-map sensor (`group_velocity_map_obs`, `velocity_map_obs`) since
+# the last reset, counted on the host from shapes (no device sync)
+CROWD_COUNTS = {"group_obs_calls": 0, "group_obs_rows": 0,
+                "velocity_map_calls": 0, "velocity_map_rows": 0}
+
+
+def reset_crowd_counts():
+    for k in CROWD_COUNTS:
+        CROWD_COUNTS[k] = 0
+
+
+def _count(part: str, rows: int):
+    CROWD_COUNTS[part + "_calls"] += 1
+    CROWD_COUNTS[part + "_rows"] += rows
+
 
 def check_group_shards(num_envs: int, group_size: int, ranks: int):
     """The crowd observation sees the other envs of an env's group, so an
@@ -284,28 +304,30 @@ def group_obs(body_pos, body_vel, root_rot, group_size: int, top_k: int = 5,
     position block (k·10·3), then the k root velocities (k·3). A
     non-upright asset's root rotation goes through remove_base_rot
     first."""
-    N = body_pos.shape[0]
-    J = len(GROUP_JOINTS)
-    root_pos = body_pos[:, 0]
-    if not upright:
-        root_rot = remove_base_rot(root_rot)
-    heading_inv = quat.heading_quat_inv(root_rot)
-    k = min(top_k, group_size - 1)
-    nd, flat = _nearest_in_group(root_pos, group_size, k)
-    flat = flat.reshape(-1)
-    sel = torch.as_tensor(GROUP_JOINTS, device=body_pos.device)
-    sel_pos = body_pos[flat][:, sel]                       # (N·k, 10, 3)
-    sel_vel = body_vel[flat][:, 0:1]                       # (N·k, 1, 3)
-    h_rep = heading_inv.repeat_interleave(k, 0)[:, None]
-    local_pos = quat.rotate(h_rep, sel_pos
-                            - root_pos.repeat_interleave(k, 0)[:, None])
-    local_vel = quat.rotate(h_rep, sel_vel)
-    near = (nd.reshape(-1) <= max_dist)[:, None, None]
-    pos_blk = (local_pos * near).reshape(N, k * J * 3)
-    vel_blk = (local_vel * near).reshape(N, k * 3)
-    pad = top_k - k
-    return torch.cat([pos_blk, body_pos.new_zeros((N, pad * J * 3)),
-                      vel_blk, body_pos.new_zeros((N, pad * 3))], -1)
+    with annotate("env.group_obs"):
+        _count("group_obs", body_pos.shape[0])
+        N = body_pos.shape[0]
+        J = len(GROUP_JOINTS)
+        root_pos = body_pos[:, 0]
+        if not upright:
+            root_rot = remove_base_rot(root_rot)
+        heading_inv = quat.heading_quat_inv(root_rot)
+        k = min(top_k, group_size - 1)
+        nd, flat = _nearest_in_group(root_pos, group_size, k)
+        flat = flat.reshape(-1)
+        sel = torch.as_tensor(GROUP_JOINTS, device=body_pos.device)
+        sel_pos = body_pos[flat][:, sel]                   # (N·k, 10, 3)
+        sel_vel = body_vel[flat][:, 0:1]                   # (N·k, 1, 3)
+        h_rep = heading_inv.repeat_interleave(k, 0)[:, None]
+        local_pos = quat.rotate(h_rep, sel_pos
+                                - root_pos.repeat_interleave(k, 0)[:, None])
+        local_vel = quat.rotate(h_rep, sel_vel)
+        near = (nd.reshape(-1) <= max_dist)[:, None, None]
+        pos_blk = (local_pos * near).reshape(N, k * J * 3)
+        vel_blk = (local_vel * near).reshape(N, k * 3)
+        pad = top_k - k
+        return torch.cat([pos_blk, body_pos.new_zeros((N, pad * J * 3)),
+                          vel_blk, body_pos.new_zeros((N, pad * 3))], -1)
 
 
 def velocity_map_obs(terrain, sensor_pos, sensor_rot, center_xy, grid_local,
@@ -314,13 +336,15 @@ def velocity_map_obs(terrain, sensor_pos, sensor_rot, center_xy, grid_local,
     frame] with no other people stamped: the field is zero, so every point
     reads −ego velocity in the heading frame. → (N, P·3), channel
     innermost."""
-    h = heightmap_obs(terrain, sensor_pos, sensor_rot, center_xy, grid_local,
-                      meas_scale)
-    v_local = quat.rotate(quat.heading_quat_inv(sensor_rot), root_vel)
-    P = h.shape[-1]
-    vx = (-v_local[:, 0:1]).expand(-1, P)
-    vy = (-v_local[:, 1:2]).expand(-1, P)
-    return torch.stack([h, vx, vy], -1).reshape(h.shape[0], -1)
+    with annotate("env.velocity_map"):
+        _count("velocity_map", sensor_pos.shape[0])
+        h = heightmap_obs(terrain, sensor_pos, sensor_rot, center_xy,
+                          grid_local, meas_scale)
+        v_local = quat.rotate(quat.heading_quat_inv(sensor_rot), root_vel)
+        P = h.shape[-1]
+        vx = (-v_local[:, 0:1]).expand(-1, P)
+        vy = (-v_local[:, 1:2]).expand(-1, P)
+        return torch.stack([h, vx, vy], -1).reshape(h.shape[0], -1)
 
 
 def group_velocity_map_obs(terrain, sensor_pos, sensor_rot, center_xy,
@@ -335,41 +359,44 @@ def group_velocity_map_obs(terrain, sensor_pos, sensor_rot, center_xy,
     reads the terrain +person_height and the nearest covering neighbour's
     world velocity. Points then read [ch − h, v − v_ego] in the heading
     frame; the observer is not stamped. → (N, P·3)."""
-    N = root_pos.shape[0]
-    dev = root_pos.device
-    heading = quat.calc_heading(sensor_rot)
-    px, py = _rotate_grid_xy(heading, torch.as_tensor(grid_local, device=dev),
-                             sensor_pos[:, :2])
-    h = height_at_min2_xy(terrain, px, py)                 # (N, P)
+    with annotate("env.velocity_map"):
+        _count("velocity_map", root_pos.shape[0])
+        N = root_pos.shape[0]
+        dev = root_pos.device
+        heading = quat.calc_heading(sensor_rot)
+        px, py = _rotate_grid_xy(heading,
+                                 torch.as_tensor(grid_local, device=dev),
+                                 sensor_pos[:, :2])
+        h = height_at_min2_xy(terrain, px, py)             # (N, P)
 
-    k = min(top_k, group_size - 1)
-    nd, flat = _nearest_in_group(root_pos[:, :2], group_size, k)
-    nbr_xy = root_pos[flat.reshape(-1), :2].reshape(N, k, 2)
-    nbr_v = root_vel[flat.reshape(-1)].reshape(N, k, 3)
-    near = nd <= max_dist                                  # (N, k)
+        k = min(top_k, group_size - 1)
+        nd, flat = _nearest_in_group(root_pos[:, :2], group_size, k)
+        nbr_xy = root_pos[flat.reshape(-1), :2].reshape(N, k, 2)
+        nbr_v = root_vel[flat.reshape(-1)].reshape(N, k, 3)
+        near = nd <= max_dist                              # (N, k)
 
-    dx = px[:, :, None] - nbr_xy[:, None, :, 0]
-    dy = py[:, :, None] - nbr_xy[:, None, :, 1]
-    inside = ((torch.abs(dx) <= footprint[0])
-              & (torch.abs(dy) <= footprint[1]) & near[:, None])
-    covered = inside.any(-1)
-    d2 = torch.where(inside, dx ** 2 + dy ** 2, torch.inf)
-    j = d2.argmin(-1)                                      # (N, P)
-    v_cell = nbr_v[torch.arange(N, device=dev)[:, None], j, :2]
-    v_cell = torch.where(covered[..., None], v_cell, 0.0)
-    h = h + person_height * covered
+        dx = px[:, :, None] - nbr_xy[:, None, :, 0]
+        dy = py[:, :, None] - nbr_xy[:, None, :, 1]
+        inside = ((torch.abs(dx) <= footprint[0])
+                  & (torch.abs(dy) <= footprint[1]) & near[:, None])
+        covered = inside.any(-1)
+        d2 = torch.where(inside, dx ** 2 + dy ** 2, torch.inf)
+        j = d2.argmin(-1)                                  # (N, P)
+        v_cell = nbr_v[torch.arange(N, device=dev)[:, None], j, :2]
+        v_cell = torch.where(covered[..., None], v_cell, 0.0)
+        h = h + person_height * covered
 
-    cg = torch.as_tensor(make_sensor_grid(0.15, 3), device=dev)
-    cpx, cpy = _rotate_grid_xy(heading, cg, center_xy)
-    ch = height_at_min2_xy(terrain, cpx, cpy).mean(-1, keepdim=True)
-    h_obs = torch.clamp(ch - h, -3.0, 3.0) * meas_scale
+        cg = torch.as_tensor(make_sensor_grid(0.15, 3), device=dev)
+        cpx, cpy = _rotate_grid_xy(heading, cg, center_xy)
+        ch = height_at_min2_xy(terrain, cpx, cpy).mean(-1, keepdim=True)
+        h_obs = torch.clamp(ch - h, -3.0, 3.0) * meas_scale
 
-    v_rel = v_cell - root_vel[:, None, :2]
-    c = torch.cos(-heading)[:, None]
-    s = torch.sin(-heading)[:, None]
-    vx = c * v_rel[..., 0] - s * v_rel[..., 1]
-    vy = s * v_rel[..., 0] + c * v_rel[..., 1]
-    return torch.stack([h_obs, vx, vy], -1).reshape(N, -1)
+        v_rel = v_cell - root_vel[:, None, :2]
+        c = torch.cos(-heading)[:, None]
+        s = torch.sin(-heading)[:, None]
+        vx = c * v_rel[..., 0] - s * v_rel[..., 1]
+        vy = s * v_rel[..., 0] + c * v_rel[..., 1]
+        return torch.stack([h_obs, vx, vy], -1).reshape(N, -1)
 
 
 def flip_body_state(body_pos, body_rot, body_vel, body_ang_vel):

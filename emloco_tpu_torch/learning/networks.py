@@ -13,7 +13,9 @@ pointnet [32, 64, 64] embeds each of the 5 people and is max-pooled over
 them, beside the task MLP's embedding. AMPSeptCNNNet (port of
 AMPSeptCNNNet) encodes the sensor image with three stride-2 3×3 convs
 [16, 32, 32] and a projection to 256 instead of flattening it into the task
-MLP.
+MLP. The conv encoder and the pointnet are the program's spans `policy.cnn`
+and `policy.pointnet` (utils/profiling.annotate); `CONV_ENCODER` counts the
+encoder's calls and rows on the host.
 
 With `hidden_bf16` the layers that the JAX package builds with
 `dtype=bfloat16` (the task MLP, the pointnet, the actor, critic and disc
@@ -42,9 +44,19 @@ import torch.nn.functional as F
 from torch import nn
 
 from .. import device as _device
+from ..utils.profiling import annotate
 
 # stddev of a standard normal truncated to [-2, 2]
 _TRUNC_STD = 0.87962566103423978
+
+# calls and rows (images) of AMPSeptCNNNet's conv encoder since the last
+# reset, counted on the host from shapes (no device sync)
+CONV_ENCODER = {"calls": 0, "rows": 0}
+
+
+def reset_conv_counts():
+    CONV_ENCODER["calls"] = 0
+    CONV_ENCODER["rows"] = 0
 
 
 def _mlp(in_dim: int, units: Sequence[int]) -> nn.ModuleList:
@@ -181,18 +193,19 @@ class AMPSeptValueNet(nn.Module):
         """The pointnet over the people, max-pooled. The crowd observation
         holds all k position blocks, then the k root velocities; each point
         is one person's [10 joints | root velocity]."""
-        k = self.pointnet_topk
-        nv = 3 * k
-        pos = people[..., :self.people_obs_dim - nv]
-        vel = people[..., self.people_obs_dim - nv:]
-        p = torch.cat([pos.reshape(pos.shape[:-1] + (k, -1)),
-                       vel.reshape(vel.shape[:-1] + (k, 3))], -1)
-        last = len(self.point_net) - 1
-        for i, layer in enumerate(self.point_net):
-            p = _dense(layer, p, self.hidden_dtype)
-            if i < last:
-                p = torch.relu(p)
-        return p.max(-2).values.to(people.dtype)
+        with annotate("policy.pointnet"):
+            k = self.pointnet_topk
+            nv = 3 * k
+            pos = people[..., :self.people_obs_dim - nv]
+            vel = people[..., self.people_obs_dim - nv:]
+            p = torch.cat([pos.reshape(pos.shape[:-1] + (k, -1)),
+                           vel.reshape(vel.shape[:-1] + (k, 3))], -1)
+            last = len(self.point_net) - 1
+            for i, layer in enumerate(self.point_net):
+                p = _dense(layer, p, self.hidden_dtype)
+                if i < last:
+                    p = torch.relu(p)
+            return p.max(-2).values.to(people.dtype)
 
     def actor(self, obs):
         self_obs, task_obs = self._split(obs)
@@ -270,19 +283,23 @@ class AMPSeptCNNNet(AMPSeptValueNet):
         t = self.traj_obs_dim
         img_dim = self.sensor_res ** 2 * self.sensor_channels
         lead = head.shape[:-1]
-        h = head[..., t:t + img_dim].reshape(
-            (-1, self.sensor_res, self.sensor_res, self.sensor_channels))
-        h = h.permute(0, 3, 1, 2)                           # NHWC → NCHW
-        for conv in self.cnn:
-            lo_h, hi_h = _same_pad(h.shape[2])
-            lo_w, hi_w = _same_pad(h.shape[3])
-            h = torch.relu(conv(F.pad(h, (lo_w, hi_w, lo_h, hi_h))))
-        h = h.permute(0, 2, 3, 1).reshape(lead + (-1,))     # (H, W, C)
+        with annotate("policy.cnn"):
+            h = head[..., t:t + img_dim].reshape(
+                (-1, self.sensor_res, self.sensor_res, self.sensor_channels))
+            CONV_ENCODER["calls"] += 1
+            CONV_ENCODER["rows"] += h.shape[0]
+            h = h.permute(0, 3, 1, 2)                       # NHWC → NCHW
+            for conv in self.cnn:
+                lo_h, hi_h = _same_pad(h.shape[2])
+                lo_w, hi_w = _same_pad(h.shape[3])
+                h = torch.relu(conv(F.pad(h, (lo_w, hi_w, lo_h, hi_h))))
+            h = h.permute(0, 2, 3, 1).reshape(lead + (-1,))  # (H, W, C)
+            h = torch.relu(self.cnn_proj(h))
         feats = [
             _run_mlp(self.task_mlp, torch.cat(
                 [head[..., :t], head[..., t + img_dim:]], -1),
                 self.hidden_dtype),
-            torch.relu(self.cnn_proj(h))]
+            h]
         if people is not None:
             feats.append(self._people_feat(people))
         return torch.cat(feats, -1)
