@@ -395,6 +395,23 @@ Phases, each printed as one JSON line with its elapsed seconds:
                 and, as a yardstick only, torch.optim.Adam(fused=True) on
                 the same leaves (no clip), with the bytes bound (7 x 4
                 bytes a parameter)
+ 50. loss_graph — the minibatch's loss and gradients as one CUDA graph
+                (`AMPAgent._loss_and_grads`, utils/cuda_graph.py) on the
+                sept and the sept_cnn agents at the bench's sizes (1,600
+                envs, minibatches of 2,560 rows, AMP batch 1,280, dropout
+                on): LOSS_GRAPH_CALLS `_update_minibatch` calls in turn
+                from one state graphed, then eagerly, then eagerly again;
+                what each `_loss_and_grads` returned, the parameters and
+                the metrics after each, bit-equal to the eager run's (the
+                sept_cnn agent under cuDNN's deterministic algorithms; with
+                its default ones, whose eager run differs from itself,
+                within NONDETERMINISTIC_ROOM times that run's own worst
+                difference); one capture and a replay a call;
+                what the first call returned unchanged by the later ones;
+                fused_adam.LAUNCHES and networks.CONV_ENCODER as eager;
+                under torch.profiler a replay's GEMM (and cuDNN conv)
+                kernels; ms a call, the first call's seconds (warm-up and
+                capture), and what each run added to the peak memory
 Then the kernels' summary line and, last, the device line. Any failed check
 raises and the script exits non-zero. Without a CUDA device it exits 2 and
 runs nothing.
@@ -578,6 +595,16 @@ BIT_EQUAL = ("solve", "resolve_bm", "solve_soa")
 # bit for bit (tests/test_torch_fused_adam.py's NORM_ULP).
 NORM_ULP = 16
 CLIP_ADAM_SEED = 24
+# minibatch updates a run of the loss_graph phase; the bench's AMP batch;
+# the graphed loss's room over the eager run's own worst difference where
+# that run differs from itself (cuDNN's default algorithms; 0 room where
+# it does not)
+LOSS_GRAPH_CALLS = 6
+BENCH_AMP_BATCH = 1280
+NONDETERMINISTIC_ROOM = 10.0
+# cuDNN's convolution kernels, as port_bench/metrics/conv_ms.crowd.py names
+# them
+CONV_KERNELS = r"cudnn|convolve|fprop|dgrad|wgrad"
 # the probe's variants, in the order of scripts/gram_kernel_probe.py
 PROBE_VARIANTS = ("einsum_envlast", "einsum_bm", "kernel_at_b", "kernel_dual",
                   "kernel_dual_batched8", "kernel_dual_batched32",
@@ -4581,6 +4608,184 @@ def clip_adam_phase(card):
                              f"{checks}")
 
 
+def tree_diff(a, b) -> float:
+    """The largest |a − b| over two trees of tensors of one structure
+    (inf where a shape differs)."""
+    from torch.utils._pytree import tree_leaves
+    worst = 0.0
+    for x, y in zip(tree_leaves(a), tree_leaves(b), strict=True):
+        if x.shape != y.shape:
+            return math.inf
+        if x.numel():
+            worst = max(worst, (x.double() - y.double()).abs().max().item())
+    return worst
+
+
+def graph_run(agent, ts, mbs, eager):
+    """`_update_minibatch` on each of `mbs` in turn from `ts`'s parameters
+    and optimizer state, the loss graphed (the agent's own call) or eager
+    (`_compute_loss_and_grads` in its place): what each `_loss_and_grads`
+    returned and the parameters and metrics after each (moved to the
+    host), the counters' advance, seconds a call (synchronized), whether
+    the first call's outputs stood unchanged through the later calls, and
+    the GB the run's peak added to what was allocated before it."""
+    import torch
+    from emloco_tpu_torch.learning import amp_agent, fused_adam, networks
+    from torch.utils._pytree import tree_map
+    inner = (agent._compute_loss_and_grads if eager
+             else agent._loss_and_grads)
+    kept = []
+
+    def record(*a, **kw):
+        out = inner(*a, **kw)
+        kept.append(out)
+        return out
+    fused_adam.reset_launch_counts()
+    networks.reset_conv_counts()
+    amp_agent.reset_loss_graph_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    allocated = torch.cuda.memory_allocated()
+    params, opt = ts.params, ts.opt_state
+    steps, seconds, first = [], [], None
+    agent._loss_and_grads = record
+    try:
+        for mb in mbs:
+            t = time.perf_counter()
+            params, opt, m = agent._update_minibatch(params, opt, *mb)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t)
+            if first is None:
+                first = tree_map(torch.clone, kept[0])
+            steps.append((params, m))
+    finally:
+        del agent._loss_and_grads
+    out = dict(seconds=seconds, first_kept=tree_diff(kept[0], first) == 0.0,
+               fused=fused_adam.LAUNCHES["clip_adam"],
+               conv=dict(networks.CONV_ENCODER),
+               loss_graph=dict(amp_agent.LOSS_GRAPH),
+               peak_added_gb=(torch.cuda.max_memory_allocated() - allocated)
+               / 2 ** 30)
+    # on the host, so that the next run's peak starts where this one did
+    out.update(kept=tree_map(lambda x: x.cpu(), kept),
+               steps=tree_map(lambda x: x.cpu(), steps))
+    return out
+
+
+def replay_kernels(agent, ts, mb, eager):
+    """One `_update_minibatch` under torch.profiler (a replay where the
+    agent has the graph; eager with `_compute_loss_and_grads` in place of
+    the call): its device ms and count of GEMM and cuDNN conv kernels, and
+    the replays it counted."""
+    import re
+    import torch
+    from emloco_tpu_torch.learning import amp_agent
+    if eager:
+        agent._loss_and_grads = agent._compute_loss_and_grads
+    replays = amp_agent.LOSS_GRAPH["replays"]
+    try:
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            agent._update_minibatch(ts.params, ts.opt_state, *mb)
+            torch.cuda.synchronize()
+    finally:
+        if eager:
+            del agent._loss_and_grads
+    ops = [(e.key, e.device_time_total, e.count) for e in prof.key_averages()
+           if e.device_time_total > 0]
+    return dict(device_ms=sum(t for _, t, _ in ops) * 1e-3,
+                gemm=sum(n for k, _, n in ops if re.search("gemm", k)),
+                conv=sum(n for k, _, n in ops
+                         if re.search(CONV_KERNELS, k)),
+                replays=amp_agent.LOSS_GRAPH["replays"] - replays)
+
+
+def loss_graph_runs(agent, ts, mbs):
+    """graph_run graphed, eager and eager again, and their differences:
+    (the runs, graph against eager, eager against itself)."""
+    runs = {mode: graph_run(agent, ts, mbs, mode != "graph")
+            for mode in ("graph", "eager", "eager_again")}
+
+    def diff(x, y):
+        return dict(
+            returned=max(tree_diff(a, b) for a, b in
+                         zip(runs[x]["kept"], runs[y]["kept"])),
+            params=max(tree_diff(a[0], b[0]) for a, b in
+                       zip(runs[x]["steps"], runs[y]["steps"])),
+            metrics=max(tree_diff(a[1], b[1]) for a, b in
+                        zip(runs[x]["steps"], runs[y]["steps"])))
+    return runs, diff("graph", "eager"), diff("eager", "eager_again")
+
+
+def loss_graph_phase(card):
+    """50. The minibatch's loss and gradients as a CUDA graph against the
+    eager call (the docstring's head). cuDNN's default convolution
+    algorithms sum the conv weights' gradients in no fixed order, so the
+    sept_cnn agent's eager run differs from itself: it is held bit for bit
+    with cuDNN's deterministic algorithms, and with the default ones within
+    NONDETERMINISTIC_ROOM times the eager run's own worst difference."""
+    import itertools
+    import torch
+    from emloco_tpu_torch.rollout import (CROWD_AMP, CROWD_ENV, TRAIN_AMP,
+                                          build_train_bench)
+    amp = dataclasses.replace(TRAIN_AMP, amp_batch_size=BENCH_AMP_BATCH)
+    for net, a, env, modes in (
+            ("sept", amp, {}, (False,)),
+            ("sept_cnn", dataclasses.replace(amp, **CROWD_AMP), CROWD_ENV,
+             (True, False))):
+        agent, ts = build_train_bench(TRAIN_ENVS, "cuda", 0, a, **env)
+        ts, batch, last_obs = agent.rollout(ts)
+        ts, pools = agent.prepare(ts, batch, last_obs)
+        del batch
+        mbs = [x[:4] for x in itertools.islice(
+            agent.minibatches(pools, ts.rng), LOSS_GRAPH_CALLS)]
+        n = len(mbs)
+        for deterministic in modes:
+            torch.backends.cudnn.deterministic = deterministic
+            try:
+                runs, vs_eager, eager_self = loss_graph_runs(agent, ts, mbs)
+                kernels = {mode: replay_kernels(agent, ts, mbs[0],
+                                                mode == "eager")
+                           for mode in ("graph", "eager")}
+            finally:
+                torch.backends.cudnn.deterministic = False
+            g, e = runs["graph"], runs["eager"]
+            emit("loss_graph", card=card, net=net, calls=n,
+                 cudnn_deterministic=deterministic,
+                 rows=int(mbs[0][0]["adv"].shape[0]),
+                 graph_vs_eager=vs_eager, eager_vs_eager=eager_self,
+                 bit_equal=max(vs_eager.values()) == 0.0,
+                 loss_graph=g["loss_graph"], fused=[g["fused"], e["fused"]],
+                 conv_encoder=[g["conv"], e["conv"]],
+                 first_kept=g["first_kept"], first_call_s=g["seconds"][0],
+                 ms_a_call=dict(graph=1e3 * sum(g["seconds"][1:]) / (n - 1),
+                                eager=1e3 * sum(e["seconds"][1:]) / (n - 1)),
+                 peak_added_gb=dict(graph=g["peak_added_gb"],
+                                    eager=e["peak_added_gb"]),
+                 profiled=kernels)
+            bad = []
+            worst, own = max(vs_eager.values()), max(eager_self.values())
+            if worst > NONDETERMINISTIC_ROOM * own:
+                bad.append("graph differs from eager beyond eager's own "
+                           "differences" if own else "graph not bit-equal "
+                           "to eager")
+            if g["loss_graph"] != dict(captures=1, replays=n, eager=0):
+                bad.append(f"counted {g['loss_graph']}")
+            if not g["first_kept"]:
+                bad.append("a later replay overwrote the first call's "
+                           "outputs")
+            if g["fused"] != e["fused"] or g["conv"] != e["conv"]:
+                bad.append("fused_adam or CONV_ENCODER counted otherwise")
+            kg = kernels["graph"]
+            if kg["replays"] != 1 or not kg["gemm"] or (
+                    net == "sept_cnn" and not kg["conv"]):
+                bad.append(f"the profiled replay shows {kg}")
+            if bad:
+                raise SystemExit(f"loss_graph on {net} (cuDNN deterministic "
+                                 f"{deterministic}): {bad}")
+        del agent, ts, pools, mbs, runs
+
+
 def main():
     import numpy as np
     import torch
@@ -4924,6 +5129,9 @@ def main():
 
     # 49. the optimizer's kernel -------------------------------------------
     clip_adam_phase(card)
+
+    # 50. the minibatch's loss and gradients as a CUDA graph ----------------
+    loss_graph_phase(card)
 
     # summary ---------------------------------------------------------------
     kernels = []

@@ -16,6 +16,8 @@ rows on the host (`CROWD_COUNTS`).
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -462,9 +464,18 @@ def build_self_obs_flip(self_dim: int):
     return idx, sign
 
 
+@functools.lru_cache(maxsize=None)
+def _action_mirror(device: torch.device):
+    """flip_actions' joint permutation and signs on `device`, uploaded once
+    (no host-to-device copy a call, so the loss it serves can be captured
+    as a CUDA graph)."""
+    return (torch.as_tensor(MIRROR_ACTION, device=device),
+            torch.tensor([-1.0, 1.0, -1.0], device=device))
+
+
 def flip_actions(actions: torch.Tensor) -> torch.Tensor:
     """Mirror exp-map actions: joints swap left and right, x and z negate."""
+    perm, sign = _action_mirror(actions.device)
     a = actions.reshape(actions.shape[0], bm.NUM_JOINTS, 3)
-    a = a[:, torch.as_tensor(MIRROR_ACTION, device=a.device)]
-    a = a * torch.tensor([-1.0, 1.0, -1.0], device=a.device)
+    a = a[:, perm] * sign
     return a.reshape(actions.shape)

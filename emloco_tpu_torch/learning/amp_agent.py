@@ -31,6 +31,16 @@ function of its inputs on whatever device they lie. The optimizer is optax's
 `chain(clip_by_global_norm(grad_norm), adam(lr))` written out on tensors
 (`ClipAdam`), one kernel over every leaf on the card (`fused_adam`).
 
+On the card a minibatch's loss and gradients (the heads' forwards, R1's
+double backward and the gradient of every leaf) run as one CUDA graph
+(`utils/cuda_graph.py`), captured on the first call of each key and
+replayed after: the key is the network, the config, the settings that
+choose the kernels, and each input's dtype, shape and stride (so masks or
+none, and each row count, get their own graph; `_loss_graph_key`). The
+CPU, a mesh's split (row counts that change by minibatch) and a net with
+Python hooks run eagerly. `LOSS_GRAPH` counts captures, replays and eager
+calls.
+
 Random streams: `jax.random` cannot be reproduced in torch. The agent draws
 every number from the one torch.Generator in `TrainState.rng`, in this
 order: in the rollout, per step, one standard normal (N, A) for the action
@@ -50,18 +60,45 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.func import functional_call
+from torch.utils._pytree import tree_flatten
 
 from ..envs import observations as obs_mod
 from ..envs.pedestrian_terrain import (GROUP_OBS_DIM, EnvConfig, EnvState,
                                        PedestrianTerrainEnv)
 from ..parallel import mesh as pmesh
 from ..struct import TensorStruct
+from ..utils import cuda_graph
 from ..utils.profiling import annotate
-from . import fused_adam
+from . import fused_adam, networks
 from .networks import AMPSeptCNNNet, AMPSeptValueNet
 from .running_norm import RunningNorm, moments
 
 NETWORKS = ("sept", "sept_cnn")
+
+# minibatch loss-and-gradient calls since the last reset: graphs captured,
+# calls replayed (the first call of a key too), calls run eagerly
+LOSS_GRAPH = {"captures": 0, "replays": 0, "eager": 0}
+
+
+def reset_loss_graph_counts():
+    for k in LOSS_GRAPH:
+        LOSS_GRAPH[k] = 0
+
+
+def _on_card(x: torch.Tensor) -> bool:
+    return x.is_cuda
+
+
+def _hooked(net: torch.nn.Module) -> bool:
+    """Whether a Python hook would run in the net's forward or backward (a
+    replayed graph runs none)."""
+    g = torch.nn.modules.module
+    return (bool(g._global_forward_hooks or g._global_forward_pre_hooks
+                 or g._global_backward_hooks
+                 or g._global_backward_pre_hooks)
+            or any(m._forward_hooks or m._forward_pre_hooks
+                   or m._backward_hooks or m._backward_pre_hooks
+                   for m in net.modules()))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -265,6 +302,7 @@ class AMPAgent:
             generator=torch.Generator(device=env.device).manual_seed(0),
             device=env.device)
         self.tx = ClipAdam(cfg.grad_norm, cfg.lr)
+        self._loss_graphs = {}          # key → cuda_graph.Captured
 
     # ------------------------------------------------------------------
 
@@ -424,80 +462,124 @@ class AMPAgent:
         `masks` are the (rollout, replay, demo) dropout masks, or None;
         `split` a rank's part of the minibatch under a mesh, where the terms
         are its partial sums (None: all of it, each term the mean of its
-        rows)."""
+        rows). On the card without a split, a replay of the key's CUDA graph
+        (captured on its first call); the tensors returned are the caller's
+        own."""
         with annotate("trainer.loss_and_grads"):
-            cfg = self.cfg
-            if split is None:
-                rows, half = mb["adv"].shape[0], replay_amp.shape[0]
-                split = MinibatchSplit(rollout=half, mb=rows,
-                                       agent=min(half, rows) + half,
-                                       demo=demo_amp.shape[0],
-                                       param_terms=True)
-            n_roll, pt, den = split.rollout, float(split.param_terms), split
+            if (split is not None or not _on_card(demo_amp)
+                    or _hooked(self.net)):
+                LOSS_GRAPH["eager"] += 1
+                return self._compute_loss_and_grads(
+                    params, mb, demo_amp, replay_amp, masks, split)
+            # no masks as () (a leaf of no tensor)
+            leaves, spec = tree_flatten((params, mb, demo_amp, replay_amp,
+                                         masks or ()))
+            key = self._loss_graph_key(params, mb, leaves)
+            graph = self._loss_graphs.get(key)
+            if graph is None:
+                with annotate("trainer.loss_graph_capture"):
+                    graph = cuda_graph.Captured(
+                        self._compute_loss_and_grads, leaves, spec,
+                        counters=(networks.CONV_ENCODER,))
+                self._loss_graphs[key] = graph
+                LOSS_GRAPH["captures"] += 1
+            with annotate("trainer.loss_graph_replay"):
+                out = graph(leaves)
+            LOSS_GRAPH["replays"] += 1
+            return out
 
-            def red(x, n):
-                return x.sum() / n
-            amp_rollout = mb["amp_n"][:n_roll]
-            if masks is not None:
-                # constants w.r.t. the gradient, on the normalized features
-                amp_rollout = amp_rollout * masks[0]
-                replay_amp = replay_amp * masks[1]
-                demo_amp = demo_amp * masks[2]
-            p = {k: v.detach().requires_grad_() for k, v in params.items()}
-            with torch.enable_grad():
-                mu, sigma = self._apply(p, "actor", mb["obs_n"])
-                logp = self._logp(mu, sigma, mb["action"])
-                # exp(±16) keeps a far-moved policy's ratio inside float32
-                ratio = torch.exp(torch.clamp(logp - mb["logp"], -16.0, 16.0))
-                surr1 = ratio * mb["adv"]
-                surr2 = torch.clamp(ratio, 1 - cfg.e_clip,
-                                    1 + cfg.e_clip) * mb["adv"]
-                a_loss = -red(torch.minimum(surr1, surr2), den.mb)
+    def _loss_graph_key(self, params, mb, leaves):
+        """What a captured loss graph is specific to: the network and the
+        config (the coefficients are constants of the graph), the settings
+        that choose its kernels (float32 matmul and conv precision, cuDNN's
+        deterministic and benchmark modes, deterministic algorithms), the
+        inputs' names, and each input's dtype, shape, stride and device (the
+        masks' among them, or none)."""
+        b = torch.backends
+        return (self.net, self.cfg, b.cuda.matmul.fp32_precision,
+                b.cudnn.conv.fp32_precision, b.cudnn.deterministic,
+                b.cudnn.benchmark,
+                torch.are_deterministic_algorithms_enabled(),
+                tuple(params), tuple(mb),
+                tuple((x.dtype, x.shape, x.stride(), x.device)
+                      for x in leaves))
 
-                v = self._apply(p, "critic", mb["obs_n"])
-                c_loss = 0.5 * red((v - mb["ret_n"]) ** 2, den.mb)
+    def _compute_loss_and_grads(self, params, mb, demo_amp, replay_amp,
+                                masks, split: MinibatchSplit | None = None):
+        """`_loss_and_grads`, run eagerly (and the function its graphs
+        capture)."""
+        cfg = self.cfg
+        if split is None:
+            rows, half = mb["adv"].shape[0], replay_amp.shape[0]
+            split = MinibatchSplit(rollout=half, mb=rows,
+                                   agent=min(half, rows) + half,
+                                   demo=demo_amp.shape[0],
+                                   param_terms=True)
+        n_roll, pt, den = split.rollout, float(split.param_terms), split
 
-                b_loss = red(torch.sum(
-                    torch.clamp(mu - 1.1, min=0) ** 2
-                    + torch.clamp(mu + 1.1, max=0) ** 2, -1), den.mb)
+        def red(x, n):
+            return x.sum() / n
+        amp_rollout = mb["amp_n"][:n_roll]
+        if masks:
+            # constants w.r.t. the gradient, on the normalized features
+            amp_rollout = amp_rollout * masks[0]
+            replay_amp = replay_amp * masks[1]
+            demo_amp = demo_amp * masks[2]
+        p = {k: v.detach().requires_grad_() for k, v in params.items()}
+        with torch.enable_grad():
+            mu, sigma = self._apply(p, "actor", mb["obs_n"])
+            logp = self._logp(mu, sigma, mb["action"])
+            # exp(±16) keeps a far-moved policy's ratio inside float32
+            ratio = torch.exp(torch.clamp(logp - mb["logp"], -16.0, 16.0))
+            surr1 = ratio * mb["adv"]
+            surr2 = torch.clamp(ratio, 1 - cfg.e_clip,
+                                1 + cfg.e_clip) * mb["adv"]
+            a_loss = -red(torch.minimum(surr1, surr2), den.mb)
 
-                # discriminator: agent (rollout ∪ replay, half each) vs demo
-                agent_logit = self._apply(p, "disc", torch.cat([amp_rollout,
-                                                                replay_amp]))
-                demo_in = demo_amp.detach().requires_grad_()
-                demo_logit = self._apply(p, "disc", demo_in)
-                d_loss = 0.5 * (red(F.softplus(agent_logit), den.agent)
-                                + red(F.softplus(-demo_logit), den.demo))
-                logit_reg = torch.sum(p["disc_logits.weight"] ** 2)
-                # R1 penalty: its gradient is itself differentiated
-                grad, = torch.autograd.grad(demo_logit.sum(), demo_in,
-                                            create_graph=True)
-                grad_pen = red(torch.sum(grad ** 2, -1), den.demo)
-                w_decay = sum(torch.sum(w ** 2) for k, w in p.items()
-                              if k.startswith("disc_mlp.")
-                              and k.endswith(".weight")) + logit_reg
-                disc_total = (d_loss + cfg.disc_logit_reg * logit_reg * pt
-                              + cfg.disc_grad_penalty * grad_pen
-                              + cfg.disc_weight_decay * w_decay * pt)
+            v = self._apply(p, "critic", mb["obs_n"])
+            c_loss = 0.5 * red((v - mb["ret_n"]) ** 2, den.mb)
 
-                tv = self._apply(p, "task_value", mb["obs_n"])
-                tv_loss = red((tv - mb["ret_01"]) ** 2, den.mb)
+            b_loss = red(torch.sum(
+                torch.clamp(mu - 1.1, min=0) ** 2
+                + torch.clamp(mu + 1.1, max=0) ** 2, -1), den.mb)
 
-                total = (cfg.actor_coef * a_loss
-                         + cfg.critic_coef * c_loss
-                         + cfg.bounds_coef * b_loss
-                         + cfg.disc_coef * disc_total
-                         + cfg.tv_coef * tv_loss)
-                if cfg.motion_sym_loss:
-                    mu_f, _ = self._apply(p, "actor", mb["flip_obs_n"])
-                    sym = red(torch.sum(
-                        (mu - obs_mod.flip_actions(mu_f)) ** 2, -1), den.mb)
-                    total = total + cfg.sym_coef * sym
-                grads = torch.autograd.grad(total, list(p.values()))
-            terms = dict(a_loss=a_loss, c_loss=c_loss, b_loss=b_loss,
-                         d_loss=d_loss, grad_pen=grad_pen, tv_loss=tv_loss)
-            return (total.detach(), {k: v.detach() for k, v in terms.items()},
-                    dict(zip(p, grads)))
+            # discriminator: agent (rollout ∪ replay, half each) vs demo
+            agent_logit = self._apply(p, "disc", torch.cat([amp_rollout,
+                                                            replay_amp]))
+            demo_in = demo_amp.detach().requires_grad_()
+            demo_logit = self._apply(p, "disc", demo_in)
+            d_loss = 0.5 * (red(F.softplus(agent_logit), den.agent)
+                            + red(F.softplus(-demo_logit), den.demo))
+            logit_reg = torch.sum(p["disc_logits.weight"] ** 2)
+            # R1 penalty: its gradient is itself differentiated
+            grad, = torch.autograd.grad(demo_logit.sum(), demo_in,
+                                        create_graph=True)
+            grad_pen = red(torch.sum(grad ** 2, -1), den.demo)
+            w_decay = sum(torch.sum(w ** 2) for k, w in p.items()
+                          if k.startswith("disc_mlp.")
+                          and k.endswith(".weight")) + logit_reg
+            disc_total = (d_loss + cfg.disc_logit_reg * logit_reg * pt
+                          + cfg.disc_grad_penalty * grad_pen
+                          + cfg.disc_weight_decay * w_decay * pt)
+
+            tv = self._apply(p, "task_value", mb["obs_n"])
+            tv_loss = red((tv - mb["ret_01"]) ** 2, den.mb)
+
+            total = (cfg.actor_coef * a_loss
+                     + cfg.critic_coef * c_loss
+                     + cfg.bounds_coef * b_loss
+                     + cfg.disc_coef * disc_total
+                     + cfg.tv_coef * tv_loss)
+            if cfg.motion_sym_loss:
+                mu_f, _ = self._apply(p, "actor", mb["flip_obs_n"])
+                sym = red(torch.sum(
+                    (mu - obs_mod.flip_actions(mu_f)) ** 2, -1), den.mb)
+                total = total + cfg.sym_coef * sym
+            grads = torch.autograd.grad(total, list(p.values()))
+        terms = dict(a_loss=a_loss, c_loss=c_loss, b_loss=b_loss,
+                     d_loss=d_loss, grad_pen=grad_pen, tv_loss=tv_loss)
+        return (total.detach(), {k: v.detach() for k, v in terms.items()},
+                dict(zip(p, grads)))
 
     def _apply_grads(self, params, opt_state: AdamState, grads):
         """One optimizer step on the gradients summed over the mesh's ranks
